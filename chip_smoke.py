@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives νMG8-LPA — ``lpa(graph, LPAConfig(method="mg", k=8, chunk=128,
-fold_backend="pallas_fused"))``, the paper's headline method — through
-the hand-written CUDA kernels, in phases; any failure raises and exits
-non-zero:
+Drives the port's LPA methods through the hand-written CUDA kernels, in
+phases; any failure raises and exits non-zero. The paths, each read with
+the kernel launch counts set to 0 just before it:
+
+  * νMG8-LPA — ``lpa(graph, LPAConfig(method="mg", k=8, chunk=128,
+    fold_backend="pallas_fused"))``, the paper's headline method (K1, K2);
+  * νBM-LPA — ``method="bm"`` on the same engine (K3);
+  * the double-scan ablation — ``method="mg", rescan=True`` (K1, K4);
+  * exact LPA — ``method="exact"``, plain torch (no kernel), the O(|E|)
+    baseline whose memory the sketches are compared against.
+
+Phases:
 
   0. the device (nvidia-smi name and power limit, torch's view of it);
   1. build the kernels from ``src/repro_torch/csrc/`` (nvcc, sm_90a) and
-     print the build time and ptxas's registers and spills;
+     print the build time and ptxas's registers and spills per kernel;
   2. each kernel against its plain-torch version on the card, at the
      round shapes of the main graph's fused plan, with exact equality,
-     and its time (CUDA events) beside the bytes it must move;
+     and its time (CUDA events) beside the bytes it must move; the
+     rescan merge's time on the main graph;
   3. whole-path parity: on a 2^16-vertex graph the kernels
-     (``pallas_fused``) against the plain-torch engine (``jnp``), equal
-     labels and histories; then the plain-torch engine's whole run on
-     the main graph, which phase 4's kernel run must reproduce;
-  4. the main path on ``powerlaw_communities(1 << 22)`` (4.19 M
-     vertices, ~90 M directed CSR slots) with launch counts checked
-     against iterations x rounds, labels and histories equal to phase
-     3's plain run, quality (modularity, NMI against the planted truth),
-     seconds per iteration and peak device memory;
+     (``pallas_fused``) against the plain-torch engine (``jnp``) for mg
+     and bm, equal labels and histories; then the plain-torch engine's
+     whole mg, bm and mg+rescan runs on the main graph, which phase 4's
+     kernel runs must reproduce;
+  4. the paths on ``powerlaw_communities(1 << 22)`` (4.19 M vertices,
+     ~90 M directed CSR slots) with launch counts checked, labels and
+     histories equal to phase 3's plain runs, quality (modularity, NMI
+     against the planted truth), seconds per iteration and peak device
+     memory; exact LPA's group sums held to the CPU's on non-integer
+     weights; the four peak memories side by side;
   5. one JSON line describing every kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -60,6 +71,11 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: mangled-name fragment -> kernel, most specific first
+_KERNEL_OF_SYMBOL = (("bm_fold", "K3 bm_fold"), ("rescan", "K4 rescan"),
+                     ("select", "K2 select"), ("fold", "K1 fold"))
+
+
 def _ptxas_summary(report: str) -> list[str]:
     """One line per kernel instantiation: registers and spill bytes."""
     lines, current = [], None
@@ -67,9 +83,9 @@ def _ptxas_summary(report: str) -> list[str]:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            kind = "K1 fold" if "fold" in name else "K2 select"
+            kind = next(k for frag, k in _KERNEL_OF_SYMBOL if frag in name)
             k = re.search(r"ILi(\d+)E", name)
-            current = f"{kind} k={k.group(1) if k else '?'}"
+            current = f"{kind} k={k.group(1)}" if k else kind
             continue
         if current is None:
             continue
@@ -242,6 +258,233 @@ def kernels_vs_plain(graph, plan, tag: str) -> dict:
     return stats
 
 
+def _wall_ms(fn, *, reps: int) -> float:
+    """Median host wall time of ``fn()`` ending in a synchronise: for work
+    that synchronises inside (a ``nonzero``, a ``unique``), where the CUDA
+    events of ``_time_ms`` cannot stay queued behind the device-side
+    wait."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
+    """Phase 2 for K3 (BM fold) and K4 (rescan), both on round 0 of the
+    main plan, each held to exact equality with its plain version on two
+    inputs: random entries from a small label alphabet with random
+    incumbents (K3; every branch and the tie wk == w run) or random
+    candidates and weights some of which are <= 0 (K4); and the main
+    path's first iteration (labels = vertex ids; K3 from the incumbent
+    inits, K4 from that iteration's MG candidates). Times as in
+    ``kernels_vs_plain``, and the rescan merge's on the main graph."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sketch
+    from repro_torch.kernels.mg_sketch import fused
+
+    dev = graph.device
+    k, chunk = plan.k, plan.chunk
+    rnd = plan.rounds[0]
+    rows = rnd.row_start.numel()
+    entries = int(rnd.row_count.sum())
+    rtv0 = plan.row_to_vertex0
+    real = rtv0 >= 0
+    n = plan.n_nodes
+    rng = np.random.default_rng(99)
+    labels0 = torch.arange(n, dtype=torch.int32, device=dev)
+    main_el = torch.index_select(labels0, 0, graph.indices)
+    main_ew = graph.weights
+    rand_el = torch.from_numpy(rng.integers(-1, 6, rnd.n_entries_in)
+                               .astype(np.int32)).to(dev)
+    rand_ew = torch.from_numpy((rng.integers(0, 6, rnd.n_entries_in) * 0.375)
+                               .astype(np.float32)).to(dev)
+    # K4 counts entries of weight <= 0 too: shift some below zero
+    rand_ew4 = rand_ew - 0.5
+    rand_init = torch.where(real, torch.from_numpy(
+        rng.integers(-1, 6, rows).astype(np.int32)).to(dev), -1)
+    main_init = sketch.bm_init_rows(rtv0, labels0)
+    rand_cand = torch.from_numpy(rng.integers(-1, 6, (rows, k))
+                                 .astype(np.int32)).to(dev)
+    s_k, _ = fused.run_mg_plan_fused(plan, main_el, main_ew)
+    cand = torch.full((n + 1, k), -1, dtype=torch.int32, device=dev)
+    rtv = plan.row_to_vertex
+    cand[torch.where(rtv >= 0, rtv, n).long()] = s_k
+    cand[n] = -1
+    main_cand = cand[torch.where(real, rtv0, n).long()]
+    del s_k, cand
+
+    cases = {
+        "K3": (lambda el, ew, x: fused.bm_fold_round_fused(
+                   rnd, el, ew, x, chunk=chunk),
+               lambda el, ew, x: fused.bm_fold_round_plain(
+                   rnd, el, ew, x, chunk=chunk),
+               (rand_el, rand_ew, rand_init), (main_el, main_ew, main_init),
+               8 * entries + 12 * rows + 8 * rows, 4 * entries),
+        "K4": (lambda el, ew, x: fused.rescan_round_fused(
+                   rnd, el, ew, x, k=k, chunk=chunk),
+               lambda el, ew, x: fused.rescan_round_plain(
+                   rnd, el, ew, x, chunk=chunk),
+               (rand_el, rand_ew4, rand_cand),
+               (main_el, main_ew, main_cand),
+               8 * entries + (8 + 4 * k) * rows + 4 * k * rows,
+               2 * k * entries),
+    }
+    stats = {}
+    parts = None
+    for key, (kernel, plain, rand_in, main_in, n_bytes, n_ops) in \
+            cases.items():
+        err = 0.0
+        for name, args in (("random", rand_in), ("main-path", main_in)):
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            got, ref = (got, ref) if key == "K3" else ((got,), (ref,))
+            for a, b in zip(got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{key} differs from its plain "
+                                         f"version on {name} inputs")
+                err = max(err, _max_abs_err(a, b))
+            del got, ref
+        random_ms = _time_ms(lambda: kernel(*rand_in), warmup=3, reps=20)
+        ms = _time_ms(lambda: kernel(*main_in), warmup=3, reps=20)
+        plain_ms = _time_ms(lambda: plain(*main_in), warmup=1, reps=3)
+        bound, by = _bound_ms(n_bytes, n_ops)
+        stats[key] = {"ms": ms, "random_ms": random_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+                      "ops": n_ops, "max_abs_err": err, "rows": rows,
+                      "entries": entries}
+        print(f"{tag} phase 2: {key} round 0: rows {rows}, entries "
+              f"{entries}, exact match to plain on random and main-path "
+              f"inputs; kernel {ms:.4f} ms on the main path's inputs "
+              f"({random_ms:.4f} ms on random ones), plain {plain_ms:.3f} "
+              f"ms, {n_bytes} B, bound {bound:.4f} ms ({by} at 3.35 TB/s), "
+              f"{bound / ms:.1%} of bound", flush=True)
+        if key == "K4":
+            parts = kernel(*main_in)
+        torch.cuda.empty_cache()
+    merge_ms = _wall_ms(lambda: sketch.merge_rescan_partials(
+        n, k, plan.max_rows0, rtv0, plan.row_rank0, parts), reps=5)
+    stats["merge"] = {"ms": merge_ms, "max_rows0": plan.max_rows0,
+                      "vertices_past_rank_chunk": int(torch.unique(
+                          rtv0[plan.row_rank0 >= sketch._RANK_CHUNK]).numel())}
+    print(f"{tag} phase 2: rescan merge (merge_rescan_partials) on the main "
+          f"graph's first-iteration partials: {merge_ms:.3f} ms (host wall, "
+          f"synchronised), max_rows0 {plan.max_rows0}, "
+          f"{stats['merge']['vertices_past_rank_chunk']} vertices with more "
+          f"than {sketch._RANK_CHUNK} rows", flush=True)
+    return stats
+
+
+def _phase_took(tag: str, phase: int, t0: float, report: dict) -> None:
+    took = time.perf_counter() - t0
+    report.setdefault("phase_s", {})[str(phase)] = took
+    print(f"{tag} phase {phase} took {took:.1f} s", flush=True)
+
+
+def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
+              fused) -> dict:
+    """One path's whole ``lpa()`` run on the main graph with its launch
+    counts (set to 0 just before, read just after), peak device memory,
+    quality, and the seconds per iteration of a replay of the run's
+    (pick-less, seed) sequence through ``lpa_move`` between CUDA events,
+    queued behind a device-side wait as in ``_time_ms`` (a path that
+    synchronises inside an iteration holds the card to the host's pace
+    from there on). The replay must reproduce the run's labels."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = lpa(graph, cfg, ws=ws)
+    torch.cuda.synchronize()
+    lpa_s = time.perf_counter() - t0
+    launches = dict(fused.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    labels = res.labels
+    if (labels.shape != (graph.n_nodes,) or labels.dtype != torch.int32
+            or int(labels.min()) < 0 or int(labels.max()) >= graph.n_nodes):
+        raise AssertionError(f"{cfg.method}: labels out of shape or range")
+    q = float(modularity(graph, labels, ws.edge_src))
+    quality = nmi(labels, truth)
+    # modularity lies in [-1/2, 1] and NMI in [0, 1]
+    if not (np.isfinite(q) and -0.5 <= q <= 1.0 and 0.0 <= quality <= 1.0):
+        raise AssertionError(f"{cfg.method}: modularity {q} or NMI "
+                             f"{quality} out of range")
+    cur = torch.arange(graph.n_nodes, dtype=torch.int32, device=graph.device)
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_WAIT_CYCLES)
+    for it in range(res.iterations):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cur, _ = lpa_move(ws, cur, (it % cfg.rho) == 0, it + 1, cfg)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    if not torch.equal(cur, labels):
+        raise AssertionError(f"{cfg.method}: the timed replay diverged "
+                             f"from lpa()")
+    return {"result": res, "iterations": res.iterations,
+            "converged": res.converged,
+            "changed_history": res.changed_history, "modularity": q,
+            "nmi": quality, "lpa_s": lpa_s,
+            "iter_ms": [s.elapsed_time(e) for s, e in events],
+            "peak_bytes": peak, "resident_bytes": resident,
+            "working_bytes": peak - resident, "launches": launches}
+
+
+def _exact_vs_cpu(graph, truth, tag: str) -> dict:
+    """``exact_choose`` and its group sums on the card against the CPU's,
+    bit for bit, on one iteration of ``graph`` with random non-integer
+    weights and the planted communities as labels (groups of up to a
+    vertex's whole degree)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import exact
+
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy((rng.random(graph.n_edges) * 3 + 0.1)
+                         .astype(np.float32)).to(graph.device)
+    labels = torch.as_tensor(np.asarray(truth), dtype=torch.int32,
+                             device=graph.device)
+    src = graph.sources()
+    nbr = torch.index_select(labels, 0, graph.indices)
+    t0 = time.perf_counter()
+    got = exact.exact_choose(src, nbr, w, graph.n_nodes, labels, 1)
+    sums = exact.exact_linking_weights(src, nbr, w, graph.n_nodes, labels)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = exact.exact_choose(src.cpu(), nbr.cpu(), w.cpu(), graph.n_nodes,
+                             labels.cpu(), 1)
+    ref_sums = exact.exact_linking_weights(src.cpu(), nbr.cpu(), w.cpu(),
+                                           graph.n_nodes, labels.cpu())
+    cpu_s = time.perf_counter() - t0
+    if not (torch.equal(got.cpu(), ref) and torch.equal(sums.cpu(),
+                                                         ref_sums)):
+        raise AssertionError("exact: the card's group sums or choices "
+                             "differ from the CPU's")
+    longest = int(graph.degrees.max())
+    print(f"{tag} phase 4: exact on 2^{PARITY_SCALE} vertices, "
+          f"{graph.n_edges} slots, non-integer weights, planted labels: "
+          f"choices and linking-weight sums on the card equal the CPU's "
+          f"bit for bit (longest group up to {longest} edges); card "
+          f"{gpu_s:.3f} s, CPU {cpu_s:.3f} s (wall, first call)", flush=True)
+    return {"n_edges": graph.n_edges, "max_degree": longest,
+            "gpu_s": gpu_s, "cpu_s": cpu_s}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -292,154 +535,230 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     fplan = ws.fused_plan
+    deg = graph.degrees
+    d_max, n_wide = int(deg.max()), int((deg > cfg.chunk).sum())
+    rows0 = int((fplan.row_to_vertex0 >= 0).sum())
     print(f"{tag} set-up: powerlaw_communities(1<<{SCALE}): "
           f"{graph.n_nodes} vertices, {graph.n_edges} directed CSR slots, "
-          f"generated in {gen_s:.1f} s; plans built in {plan_s:.1f} s; "
-          f"fused plan {fplan.n_rounds} rounds, round-0 steps "
-          f"{fplan.rounds[0].n_steps} x {fplan.rounds[0].tile_r} rows",
+          f"largest degree {d_max}, {n_wide} vertices of degree > "
+          f"{cfg.chunk}, generated in {gen_s:.1f} s; plans built in "
+          f"{plan_s:.1f} s; fused plan {fplan.n_rounds} rounds, {rows0} "
+          f"round-0 rows in {fplan.rounds[0].n_steps} steps x "
+          f"{fplan.rounds[0].tile_r}, max_rows0 {fplan.max_rows0}",
           flush=True)
     report["graph"] = {"n_nodes": graph.n_nodes, "n_edges": graph.n_edges,
                        "scale": SCALE, "generate_s": gen_s,
                        "plan_build_s": plan_s, "n_rounds": fplan.n_rounds,
-                       "round0_steps": fplan.rounds[0].n_steps}
+                       "round0_steps": fplan.rounds[0].n_steps,
+                       "round0_rows": rows0, "max_degree": d_max,
+                       "vertices_past_chunk": n_wide,
+                       "max_rows0": fplan.max_rows0}
 
     # -- phase 2: each kernel against its plain version ----------------------
+    t_phase = time.perf_counter()
     kstats = kernels_vs_plain(graph, fplan, tag)
+    kstats.update(bm_rescan_vs_plain(graph, fplan, tag))
     report["kernels_vs_plain"] = kstats
+    _phase_took(tag, 2, t_phase, report)
 
     # -- phase 3: whole-path parity, kernels vs plain torch, on the card -----
-    # (a) the small graph through both engines. The paper defaults make
-    # LPA collapse on it (its hubs reach most vertices), so it checks the
-    # first iterations and the convergence bookkeeping more than settled
-    # communities; (b) holds the main graph's whole run.
+    # (a) the small graph through both engines, for mg and bm. The paper
+    # defaults make νMG collapse on it (its hubs reach most vertices; the
+    # JAX package does the same), νBM keeps communities; (b) holds the
+    # main graph's whole runs.
+    t_phase = time.perf_counter()
     g16, truth16 = powerlaw_communities(1 << PARITY_SCALE, p_in=0.5,
                                         mix=0.02, seed=1)
-    runs = {}
-    for backend in ("jnp", "pallas_fused"):
+    report["parity"] = {}
+    for method in ("mg", "bm"):
+        runs = {}
+        for backend in ("jnp", "pallas_fused"):
+            t0 = time.perf_counter()
+            runs[backend] = lpa(g16, LPAConfig(method=method, k=8, chunk=128,
+                                               fold_backend=backend))
+            torch.cuda.synchronize()
+            runs[backend + "_s"] = time.perf_counter() - t0
+        got = runs["pallas_fused"]
+        _check_same_run(runs["jnp"], got,
+                        f"phase 3, 2^{PARITY_SCALE}, {method}")
+        q16 = float(modularity(g16, got.labels))
+        nmi16 = nmi(got.labels, truth16)
+        print(f"{tag} phase 3: 2^{PARITY_SCALE} vertices, {method}: "
+              f"pallas_fused == jnp (labels, {got.iterations} iterations, "
+              f"changed_history {got.changed_history}, frontier and "
+              f"work-row histories); modularity {q16:.6f}, NMI vs planted "
+              f"{nmi16:.6f}; wall jnp {runs['jnp_s']:.2f} s, pallas_fused "
+              f"{runs['pallas_fused_s']:.2f} s", flush=True)
+        report["parity"][method] = {
+            "iterations": got.iterations,
+            "changed_history": got.changed_history, "modularity": q16,
+            "nmi": nmi16, "jnp_s": runs["jnp_s"],
+            "pallas_fused_s": runs["pallas_fused_s"]}
+    del runs, got
+    # (b) the plain-torch engine's whole runs on the main graph; phase 4's
+    # kernel runs must reproduce them
+    paths = {"mg": cfg, "bm": dataclasses.replace(cfg, method="bm"),
+             "rescan": dataclasses.replace(cfg, rescan=True)}
+    ws_plain = build_workspace(graph, dataclasses.replace(cfg,
+                                                          fold_backend="jnp"))
+    plain_res = {}
+    report["parity_main"] = {}
+    for path, pcfg in paths.items():
         t0 = time.perf_counter()
-        runs[backend] = lpa(g16, LPAConfig(method="mg", k=8, chunk=128,
-                                           fold_backend=backend))
+        plain_res[path] = lpa(graph, dataclasses.replace(
+            pcfg, fold_backend="jnp"), ws=ws_plain)
         torch.cuda.synchronize()
-        runs[backend + "_s"] = time.perf_counter() - t0
-    got = runs["pallas_fused"]
-    _check_same_run(runs["jnp"], got, f"phase 3, 2^{PARITY_SCALE}")
-    q16 = float(modularity(g16, got.labels))
-    nmi16 = nmi(got.labels, truth16)
-    print(f"{tag} phase 3: 2^{PARITY_SCALE} vertices: pallas_fused == "
-          f"jnp (labels, {got.iterations} iterations, changed_history "
-          f"{got.changed_history}, frontier and work-row histories); "
-          f"modularity {q16:.6f}, NMI vs planted {nmi16:.6f}; wall jnp "
-          f"{runs['jnp_s']:.2f} s, pallas_fused {runs['pallas_fused_s']:.2f} "
-          f"s", flush=True)
-    report["parity"] = {"iterations": got.iterations,
-                        "changed_history": got.changed_history,
-                        "modularity": q16, "nmi": nmi16,
-                        "jnp_s": runs["jnp_s"],
-                        "pallas_fused_s": runs["pallas_fused_s"]}
-    del g16, runs, got
-    # (b) the plain-torch engine's whole run on the main graph; phase 4's
-    # kernel run must reproduce it
-    t0 = time.perf_counter()
-    plain_res = lpa(graph, dataclasses.replace(cfg, fold_backend="jnp"))
-    torch.cuda.synchronize()
-    plain_lpa_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    print(f"{tag} phase 3: 2^{SCALE} vertices, plain-torch engine (jnp): "
-          f"{plain_res.iterations} iterations, changed_history "
-          f"{plain_res.changed_history}; lpa() wall {plain_lpa_s:.2f} s "
-          f"(plan build included)", flush=True)
-    report["parity_main"] = {"iterations": plain_res.iterations,
-                             "changed_history": plain_res.changed_history,
-                             "jnp_lpa_s": plain_lpa_s}
+        plain_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        r = plain_res[path]
+        print(f"{tag} phase 3: 2^{SCALE} vertices, {path}, plain-torch "
+              f"engine (jnp): {r.iterations} iterations, changed_history "
+              f"{r.changed_history}; lpa() wall {plain_s:.2f} s", flush=True)
+        report["parity_main"][path] = {"iterations": r.iterations,
+                                       "changed_history": r.changed_history,
+                                       "jnp_lpa_s": plain_s}
+    _phase_took(tag, 3, t_phase, report)
 
-    # -- phase 4: the main path at the real size -----------------------------
-    torch.cuda.reset_peak_memory_stats()
-    fused.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = lpa(graph, cfg, ws=ws)
-    torch.cuda.synchronize()
-    lpa_s = time.perf_counter() - t0
-    launches = dict(fused.LAUNCH_COUNTS)
-    peak = torch.cuda.max_memory_allocated()
+    # -- phase 4: the paths at the real size ---------------------------------
+    t_phase = time.perf_counter()
     n_rounds = fplan.n_rounds
-    if launches["fused_fold"] != res.iterations * (n_rounds - 1):
-        raise AssertionError(f"phase 4: K1 launched {launches['fused_fold']} "
-                             f"times, expected {res.iterations} x "
-                             f"{n_rounds - 1}")
-    if launches["fused_select"] != res.iterations:
-        raise AssertionError(f"phase 4: K2 launched "
-                             f"{launches['fused_select']} times, expected "
-                             f"{res.iterations}")
-    _check_same_run(plain_res, res, f"phase 4, 2^{SCALE}")
-    labels = res.labels
-    if (labels.shape != (graph.n_nodes,) or labels.dtype != torch.int32
-            or int(labels.min()) < 0 or int(labels.max()) >= graph.n_nodes):
-        raise AssertionError("phase 4: labels out of shape or range")
-    q = float(modularity(graph, labels, ws.edge_src))
-    quality = nmi(labels, truth)
-    # modularity lies in [-1/2, 1] and NMI in [0, 1]; the labels and
-    # histories were held to the plain engine's run (phase 3) just above
-    if not (np.isfinite(q) and -0.5 <= q <= 1.0 and 0.0 <= quality <= 1.0):
-        raise AssertionError(f"phase 4: modularity {q} or NMI {quality} "
-                             f"out of range")
-    # seconds per iteration: CUDA events around lpa_move, replaying the
-    # run's (pick-less, seed) sequence, queued behind a device-side wait as
-    # in _time_ms; it must reproduce the run's labels
-    cur = torch.arange(graph.n_nodes, dtype=torch.int32, device=graph.device)
-    events = []
-    torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_WAIT_CYCLES)
-    for it in range(res.iterations):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        cur, _ = lpa_move(ws, cur, (it % cfg.rho) == 0, it + 1, cfg)
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    iter_ms = [s.elapsed_time(e) for s, e in events]
-    if not torch.equal(cur, labels):
-        raise AssertionError("phase 4: the timed replay diverged from lpa()")
-    print(f"{tag} phase 4: 2^{SCALE} vertices, {graph.n_edges} slots: "
-          f"{res.iterations} iterations (converged {res.converged}), "
-          f"changed_history {res.changed_history}; modularity {q:.6f}, "
-          f"NMI vs planted {quality:.6f}; labels and histories equal to "
-          f"the plain-torch engine's run; lpa_move median "
-          f"{statistics.median(iter_ms) / 1e3:.6f} s/iteration (mean "
-          f"{statistics.mean(iter_ms) / 1e3:.6f} s); lpa() wall {lpa_s:.2f} "
-          f"s; plan build {plan_s:.1f} s; peak device memory {peak} B "
-          f"({peak / 2**30:.2f} GiB); launches K1 {launches['fused_fold']} "
-          f"= {res.iterations} x {n_rounds - 1}, K2 "
-          f"{launches['fused_select']} = {res.iterations}", flush=True)
-    report["main"] = {"iterations": res.iterations,
-                      "converged": res.converged,
-                      "changed_history": res.changed_history,
-                      "modularity": q, "nmi": quality,
-                      "iter_ms": iter_ms, "lpa_s": lpa_s,
-                      "peak_bytes": peak, "launches": launches}
+    report["main"] = {}
+    final_labels = {}
+    for path, pcfg in paths.items():
+        out = _run_path(graph, truth, ws, pcfg, lpa, lpa_move, modularity,
+                        nmi, fused)
+        res, launches = out.pop("result"), out["launches"]
+        it = res.iterations
+        want = {"fused_fold": 0, "fused_select": 0, "bm_fold": 0,
+                "rescan": 0}
+        if path == "mg":
+            want.update(fused_fold=it * (n_rounds - 1), fused_select=it)
+        elif path == "bm":
+            want.update(bm_fold=it)
+        else:
+            want.update(fused_fold=it * n_rounds, rescan=it)
+        if launches != want:
+            raise AssertionError(f"phase 4, {path}: launches {launches}, "
+                                 f"expected {want}")
+        _check_same_run(plain_res[path], res, f"phase 4, 2^{SCALE}, {path}")
+        if path == "rescan":
+            out["merge_share"] = (kstats["merge"]["ms"]
+                                  / statistics.median(out["iter_ms"]))
+        print(f"{tag} phase 4: 2^{SCALE} vertices, {graph.n_edges} slots, "
+              f"{path}: {it} iterations (converged {res.converged}), "
+              f"changed_history {res.changed_history}; modularity "
+              f"{out['modularity']:.6f}, NMI vs planted {out['nmi']:.6f}; "
+              f"labels and histories equal to the plain-torch engine's run; "
+              f"lpa_move median {statistics.median(out['iter_ms']) / 1e3:.6f}"
+              f" s/iteration (mean {statistics.mean(out['iter_ms']) / 1e3:.6f}"
+              f" s); lpa() wall {out['lpa_s']:.2f} s; peak device memory "
+              f"{out['peak_bytes']} B ({out['peak_bytes'] / 2**30:.3f} GiB), "
+              f"{out['working_bytes']} B above the {out['resident_bytes']} B "
+              f"resident at the start; launches {launches}"
+              + (f"; rescan merge {kstats['merge']['ms']:.3f} ms = "
+                 f"{out['merge_share']:.1%} of an iteration"
+                 if path == "rescan" else ""), flush=True)
+        report["main"][path] = out
+        final_labels[path] = res.labels
+    del plain_res
+    torch.cuda.empty_cache()
+    # exact LPA: plain torch (no kernel); its group sums first, on the
+    # 2^16 graph with non-integer weights, against the CPU's bits
+    report["exact_check"] = _exact_vs_cpu(g16, truth16, tag)
+    del g16
+    out = _run_path(graph, truth, ws_plain,
+                    dataclasses.replace(cfg, method="exact",
+                                        fold_backend="jnp"),
+                    lpa, lpa_move, modularity, nmi, fused)
+    res = out.pop("result")
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase 4, exact: a kernel ran: "
+                             f"{out['launches']}")
+    print(f"{tag} phase 4: 2^{SCALE} vertices, exact: {res.iterations} "
+          f"iterations (converged {res.converged}), changed_history "
+          f"{res.changed_history}; modularity {out['modularity']:.6f}, NMI "
+          f"vs planted {out['nmi']:.6f}; lpa_move median "
+          f"{statistics.median(out['iter_ms']) / 1e3:.6f} s/iteration; "
+          f"lpa() wall {out['lpa_s']:.2f} s; peak device memory "
+          f"{out['peak_bytes']} B ({out['peak_bytes'] / 2**30:.3f} GiB), "
+          f"{out['working_bytes']} B above the {out['resident_bytes']} B "
+          f"resident at the start", flush=True)
+    report["main"]["exact"] = out
+    final_labels["exact"] = res.labels
+    del res
+    # the same four runs without frontier tracking (mark_frontier's
+    # O(|E|) temporaries are then out of the peak); same labels
+    paths["exact"] = dataclasses.replace(cfg, method="exact",
+                                         fold_backend="jnp")
+    for path, pcfg in paths.items():
+        pws = ws_plain if path == "exact" else ws
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = lpa(graph, dataclasses.replace(pcfg, track_frontier=False),
+                  ws=pws)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.equal(res.labels, final_labels[path]):
+            raise AssertionError(f"phase 4, {path}: labels without "
+                                 f"frontier tracking differ")
+        report["main"][path]["untracked_peak_bytes"] = peak
+        report["main"][path]["untracked_working_bytes"] = peak - resident
+        del res
+    mem = {p: report["main"][p] for p in ("mg", "bm", "rescan", "exact")}
+    print(f"{tag} phase 4: peak device memory at 2^{SCALE} (B; working set "
+          f"above what was resident at the start in brackets): "
+          + ", ".join(f"{p} {m['peak_bytes']} ({m['working_bytes']})"
+                      for p, m in mem.items())
+          + "; exact's working set / "
+          + ", ".join(f"{p}'s {mem['exact']['working_bytes'] / max(m['working_bytes'], 1):.2f}x"
+                      for p, m in mem.items() if p != "exact"), flush=True)
+    print(f"{tag} phase 4: the same without frontier tracking "
+          f"(track_frontier=False, labels equal): "
+          + ", ".join(f"{p} {m['untracked_peak_bytes']} "
+                      f"({m['untracked_working_bytes']})"
+                      for p, m in mem.items())
+          + "; exact's working set / "
+          + ", ".join(f"{p}'s {mem['exact']['untracked_working_bytes'] / max(m['untracked_working_bytes'], 1):.2f}x"
+                      for p, m in mem.items() if p != "exact"), flush=True)
+    _phase_took(tag, 4, t_phase, report)
 
     # -- phase 5: the kernels line --------------------------------------------
-    replaces = {"K1": "src/repro/kernels/mg_sketch/fused.py:173",
-                "K2": "src/repro/kernels/mg_sketch/fused.py:234"}
-    names = {"K1": "mg_fused_fold", "K2": "mg_fused_select"}
-    counts = {"K1": launches["fused_fold"], "K2": launches["fused_select"]}
+    main = report["main"]
+    rows = (("K1", "mg_fused_fold", "src/repro/kernels/mg_sketch/fused.py:173",
+             main["mg"]["launches"]["fused_fold"],
+             {p: main[p]["launches"]["fused_fold"] for p in ("mg", "rescan")}),
+            ("K2", "mg_fused_select",
+             "src/repro/kernels/mg_sketch/fused.py:234",
+             main["mg"]["launches"]["fused_select"],
+             {"mg": main["mg"]["launches"]["fused_select"]}),
+            ("K3", "mg_fused_bm_fold",
+             "src/repro/kernels/mg_sketch/fused.py:181",
+             main["bm"]["launches"]["bm_fold"],
+             {"bm": main["bm"]["launches"]["bm_fold"]}),
+            ("K4", "mg_fused_rescan",
+             "src/repro/kernels/mg_sketch/fused.py:191",
+             main["rescan"]["launches"]["rescan"],
+             {"rescan": main["rescan"]["launches"]["rescan"]}))
     kernels = []
-    for key in ("K1", "K2"):
+    for key, name, replaces, launches, by_path in rows:
         s = kstats[key]
         kernels.append({
-            "name": names[key], "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": replaces[key], "launches": counts[key],
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None,
+            "launches_by_path": by_path,
             "parity": "exact (torch.equal) vs plain torch on the card",
             "ms_is": "one main-path iteration (sum over its launches)"})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     if args.out:
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps(report, indent=1))
+        out_path = Path(args.out)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(report, indent=1))
     print(f"{tag} total {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

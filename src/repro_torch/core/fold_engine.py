@@ -2,24 +2,35 @@
 
 A copy of the single-host half of ``repro.core.fold_engine``. Consumers
 build a :class:`repro_torch.core.fold_program.FoldRequest` and call
-:meth:`FoldEngine.run`, which routes it to the backend's executor and
-returns a :class:`FoldOutcome`. Backend names are the reference's, so one
-``LPAConfig`` means the same thing in both packages:
+:meth:`FoldEngine.run`, which routes it to the backend's family
+executor and returns a :class:`FoldOutcome`:
+
+  * **MG** (``mg_select``, plus ``mg_candidates`` for raw candidate sets);
+  * **MG + rescan** (``mg_rescan``): the double-scan ablation, which
+    re-scores the k candidates exactly against round 0 before selecting
+    (paper §4.4);
+  * **BM** (``bm_fold_plan``): round 0 folded into per-row weighted
+    Boyer-Moore states, max-reduce-merged per vertex (paper Alg. 3 /
+    §4.7).
+
+Backend names are the reference's, so one ``LPAConfig`` means the same
+thing in both packages:
 
   * ``jnp``          — the plain-torch bucketed reference engine
                        (``repro_torch.core.sketch``), on any device;
   * ``pallas_fused`` — the hand-written CUDA fused engine
-                       (``repro_torch.kernels.mg_sketch.fused``): one K1
-                       launch per round but the last, and one K2 launch
-                       that folds the last round and selects.
+                       (``repro_torch.kernels.mg_sketch.fused``): per MG
+                       iteration one K1 launch per round but the last and
+                       one K2 launch that folds the last round and selects;
+                       per rescan iteration one K1 launch per round and one
+                       K4 launch; per BM iteration one K3 launch.
 
 ``"auto"`` resolves exactly as the reference does (:func:`resolve_auto`,
 whose budget constant is the reference's TPU VMEM figure, kept so that
 the resolved name agrees). What this package does not port yet — the
-``pallas`` and ``pallas_stream`` backends, the BM family, the rescan
-ablation, sparse mode and the ``exact_weighted`` variant — raises
-``NotImplementedError`` naming its ``ROADMAP.md`` queue item; no request
-falls back to another engine.
+``pallas`` and ``pallas_stream`` backends, sparse mode and the
+``exact_weighted`` variant — raises ``NotImplementedError`` naming its
+``ROADMAP.md`` queue item; no request falls back to another engine.
 """
 from __future__ import annotations
 
@@ -61,10 +72,6 @@ def _require_plan(aux_plan, engine: str, plan_name: str):
 
 
 def _check_request(request: FoldRequest) -> None:
-    if request.family == "bm":
-        raise unported("the BM family (method='bm')", "Queue 1 item 6")
-    if request.rescan:
-        raise unported("the rescan ablation (rescan=True)", "Queue 1 item 6")
     if request.mode == "sparse":
         raise unported("sparse frontier mode", "Queue 1 item 7")
 
@@ -78,13 +85,21 @@ class FoldEngine:
 
     def run(self, bundle: "PlanBundle", request: FoldRequest,
             entry_labels, entry_weights, labels) -> FoldOutcome:
-        """Execute one fold iteration described by ``request``: the dense
-        MG family goes to :meth:`mg_select`; the rest of the request space
-        raises ``NotImplementedError``."""
+        """Execute one fold iteration described by ``request``:
+        ``family="bm"`` -> :meth:`bm_fold_plan` (the -1 "no candidate"
+        sentinel resolved to the incumbent here, once), ``rescan=True`` ->
+        :meth:`mg_rescan`, otherwise :meth:`mg_select`. Sparse mode raises
+        ``NotImplementedError``."""
         _check_request(request)
-        want = self.mg_select(bundle.plan, bundle.aux_for(self),
-                              entry_labels, entry_weights, labels,
-                              request.seed)
+        plan, aux_plan = bundle.plan, bundle.aux_for(self)
+        if request.family == "bm":
+            best, weight = self.bm_fold_plan(plan, aux_plan, entry_labels,
+                                             entry_weights, labels)
+            want = torch.where(best >= 0, best, labels)
+            return FoldOutcome(want=want, bm_label=best, bm_weight=weight)
+        executor = self.mg_rescan if request.rescan else self.mg_select
+        want = executor(plan, aux_plan, entry_labels, entry_weights, labels,
+                        request.seed)
         return FoldOutcome(want=want)
 
     def mg_candidates(self, plan: FoldPlan, aux_plan,
@@ -97,6 +112,20 @@ class FoldEngine:
                   entry_labels, entry_weights, labels, seed) -> torch.Tensor:
         """Full iteration: fold + move selection -> wanted label per vertex
         ([N] int32)."""
+        raise NotImplementedError
+
+    def mg_rescan(self, plan: FoldPlan, aux_plan,
+                  entry_labels, entry_weights, labels, seed) -> torch.Tensor:
+        """Full double-scan iteration (paper §4.4): MG fold, then re-read
+        the round-0 neighbourhood to score the k candidates exactly, then
+        select -> wanted label per vertex ([N] int32)."""
+        raise NotImplementedError
+
+    def bm_fold_plan(self, plan: FoldPlan, aux_plan, entry_labels,
+                     entry_weights, labels
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """νBM iteration core -> per-vertex ([N] int32 majority label, -1
+        when the vertex has no entries; [N] float32 vote weight)."""
         raise NotImplementedError
 
     def dispatches_per_iter(self, plan: FoldPlan, aux_plan,
@@ -126,6 +155,17 @@ class JnpEngine(FoldEngine):
         s_k, s_v = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights)
         return sketch_lib.select_best(plan, s_k, s_v, labels, seed)
 
+    def mg_rescan(self, plan, fused_plan, entry_labels, entry_weights,
+                  labels, seed):
+        s_k, _ = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights)
+        return sketch_lib.rescan_candidates(plan, s_k, entry_labels,
+                                            entry_weights, labels, seed)
+
+    def bm_fold_plan(self, plan, fused_plan, entry_labels, entry_weights,
+                     labels):
+        return sketch_lib.run_bm_plan(plan, entry_labels, entry_weights,
+                                      labels)
+
     def dispatches_per_iter(self, plan, fused_plan, request):
         return 0  # plain torch — no hand-written kernel launches
 
@@ -153,8 +193,27 @@ class PallasFusedEngine(FoldEngine):
         return select_best_fused(fused_plan, entry_labels, entry_weights,
                                  labels, seed)
 
+    def mg_rescan(self, plan, fused_plan, entry_labels, entry_weights,
+                  labels, seed):
+        from repro_torch.kernels.mg_sketch.fused import rescan_select_fused
+        _require_plan(fused_plan, 'pallas_fused', 'FusedFoldPlan')
+        return rescan_select_fused(fused_plan, entry_labels, entry_weights,
+                                   labels, seed)
+
+    def bm_fold_plan(self, plan, fused_plan, entry_labels, entry_weights,
+                     labels):
+        from repro_torch.kernels.mg_sketch.fused import run_bm_plan_fused
+        _require_plan(fused_plan, 'pallas_fused', 'FusedFoldPlan')
+        return run_bm_plan_fused(fused_plan, entry_labels, entry_weights,
+                                 labels)
+
     def dispatches_per_iter(self, plan, fused_plan, request):
         _check_request(request)
+        if request.family == "bm":
+            return 1  # the BM fold only ever walks round 0 (K3)
+        if request.rescan:
+            # all fold rounds (K1) + one rescan of round 0 (K4)
+            return fused_dispatches(fused_plan) + 1
         return fused_dispatches(fused_plan)  # n_rounds (the last one selects)
 
 

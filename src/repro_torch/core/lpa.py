@@ -1,6 +1,7 @@
-"""Label Propagation driver — νMG-LPA (the paper's Algorithms 1/2) in torch.
+"""Label Propagation driver — νMG-LPA / νBM-LPA (the paper's Algorithms
+1-3) and exact LPA, in torch.
 
-A copy of ``repro.core.lpa`` for the dense MG method: unique initial
+A copy of ``repro.core.lpa`` for dense iterations: unique initial
 labels; one synchronous move step per iteration; Pick-Less (PL) symmetry
 breaking every ``rho`` iterations starting at iteration 0 (a vertex may
 only adopt a *smaller* label while PL is active); convergence when the
@@ -8,11 +9,14 @@ changed fraction drops below ``tau`` in a non-PL iteration; hard cap
 ``max_iters``. The frontier of unprocessed vertices (paper Alg. 1 l. 31)
 is tracked every iteration and, with ``frontier_gate``, masks the moves.
 
-One iteration on ``fold_backend="pallas_fused"`` is: the neighbour-label
-gather; one K1 launch per fold round but the last; one K2 launch that
-folds the last round and selects; the Pick-Less/move mask; the changed
-count and the frontier marks. The gathers, the scatter and the masks are
-plain torch; the fold and the selection are the CUDA kernels.
+One νMG iteration on ``fold_backend="pallas_fused"`` is: the
+neighbour-label gather; one K1 launch per fold round but the last; one K2
+launch that folds the last round and selects; the Pick-Less/move mask;
+the changed count and the frontier marks. ``rescan=True`` folds every
+round with K1 and re-scores the candidates with one K4 launch;
+``method="bm"`` folds round 0 with one K3 launch. The gathers, scatters,
+merges and masks are plain torch; the folds are the CUDA kernels.
+``method="exact"`` is plain torch (``repro_torch.core.exact``).
 
 ``LPAConfig`` keeps every field of the reference, so a config carries
 across; a method, backend or option this package does not port yet raises
@@ -26,6 +30,7 @@ from typing import Literal, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.exact import exact_choose
 from repro_torch.core.fold_engine import get_engine, unported
 from repro_torch.core.fold_program import FoldRequest
 from repro_torch.core.plan_bundle import PlanBundle, build_plan_bundle, spec_for
@@ -69,14 +74,8 @@ class LPAConfig:
 def check_ported(config: LPAConfig) -> None:
     """Raise ``NotImplementedError`` for the parts of ``config`` this
     package does not run yet."""
-    if config.method == "exact":
-        raise unported("method='exact' (exact_choose)", "Queue 1 item 5")
-    if config.method == "bm":
-        raise unported("method='bm'", "Queue 1 item 6")
-    if config.method != "mg":
+    if config.method not in ("exact", "mg", "bm"):
         raise ValueError(f"unknown method {config.method!r}")
-    if config.rescan:
-        raise unported("rescan=True", "Queue 1 item 6")
     if config.frontier_sparse:
         raise unported("frontier_sparse=True", "Queue 1 item 7")
     if config.mg_variant != "paper":
@@ -120,24 +119,25 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
     sparse-request switches; sparse mode is not ported.
     """
     graph, bundle = ws.graph, ws.bundle
+    check_ported(config)
     if sparse:
         if frontier is None:
             raise ValueError("sparse=True needs a frontier (the compacted "
                              "fold is defined by the active vertex set)")
         raise unported("sparse frontier mode", "Queue 1 item 7")
-    if config.method == "exact":
-        raise unported("method='exact' (exact_choose)", "Queue 1 item 5")
-    if config.method not in ("mg", "bm"):
-        raise ValueError(f"unknown method {config.method!r}")
     # the bundle's spec carries the RESOLVED backend ("auto" was decided
     # at plan-build time), so the engine always finds its plan
     engine = get_engine(bundle.spec.backend, mg_variant=config.mg_variant)
     nbr_labels = torch.index_select(labels, 0, graph.indices)
-    request = FoldRequest(family=config.method, mode="dense",
-                          rescan=config.method == "mg" and config.rescan,
-                          seed=seed)
-    want = engine.run(bundle, request, nbr_labels, graph.weights,
-                      labels).want
+    if config.method == "exact":
+        want = exact_choose(ws.edge_src, nbr_labels, graph.weights,
+                            graph.n_nodes, labels, seed)
+    else:  # "mg" or "bm": check_ported refused any other method
+        request = FoldRequest(family=config.method, mode="dense",
+                              rescan=config.method == "mg" and config.rescan,
+                              seed=seed)
+        want = engine.run(bundle, request, nbr_labels, graph.weights,
+                          labels).want
 
     allowed = (want < labels) if pick_less else (want != labels)
     if frontier is not None:

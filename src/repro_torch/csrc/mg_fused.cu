@@ -1,4 +1,5 @@
-// Fused weighted Misra-Gries fold kernels for Hopper (sm_90a).
+// Fused sketch fold kernels for Hopper (sm_90a): the weighted Misra-Gries
+// fold and select, the weighted Boyer-Moore fold and the rescan pass.
 //
 // K1 mg_fused_fold_kernel replaces the TPU kernel
 //    src/repro/kernels/mg_sketch/fused.py:_fused_fold_kernel
@@ -9,6 +10,15 @@
 //    src/repro/kernels/mg_sketch/fused.py:_fused_select_kernel
 //    (bodies _select_rows and _hash_mix): the last round's fold, then the
 //    move selection among the slots with weight > 0 plus the incumbent.
+// K3 mg_fused_bm_fold_kernel replaces the TPU kernel
+//    src/repro/kernels/mg_sketch/fused.py:_bm_fold_kernel (body _bm_fold):
+//    round 0 only; row r runs a weighted Boyer-Moore scan over its entries
+//    from the carry (init[r], 0.0f).
+// K4 mg_fused_rescan_kernel replaces the TPU kernel
+//    src/repro/kernels/mg_sketch/fused.py:_rescan_fold_kernel (body
+//    _rescan_acc): the rescan second pass; row r re-reads its round-0
+//    entries and sums, per candidate of its vertex, the weights of the
+//    entries carrying that label.
 //
 // Design. One thread per fold row. The k (label, weight) slots live in
 // registers (K is a template parameter, every slot loop is unrolled), and
@@ -22,10 +32,13 @@
 // loop does not need. Pad rows (row_count == 0) write empty sketches
 // (-1, 0.0f), which the next round reads as exact no-ops.
 //
-// Bound on the H100. Both kernels are bound by bytes, not operations:
+// Bound on the H100. All four kernels are bound by bytes, not operations:
 // round 0 of K1 reads 8 B per entry (int32 label + float32 weight) plus
 // 8 B of (start, count) per row and writes 8*k B per row (64 B at k = 8);
-// K2 reads the same plus a 4 B incumbent per row and writes 4 B per row.
+// K2 reads the same plus a 4 B incumbent per row and writes 4 B per row;
+// K3 reads 8 B per entry and 12 B per row (start, count, init) and writes
+// 8 B per row; K4 reads 8 B per entry and 8 + 4*k B per row and writes
+// 4*k B per row.
 // One thread per row makes a warp's 32 loads of one step hit 32 different
 // rows, i.e. up to 32 different cache lines, so the kernels are expected
 // far from the 3.35 TB/s bound; rows sorted by ascending count keep a
@@ -177,6 +190,80 @@ mg_fused_select_kernel(const int* __restrict__ row_start,
   out_c[r] = select_row<K>(lab, val, incumbents[r], seed);
 }
 
+// K3: fused.py:_bm_fold for one row. The reference writes the update as
+// wk + where(same, w, 0) - where(bigger, w, 0); adding or subtracting
+// +0.0f leaves the carry's bits unchanged because the carry is never
+// -0.0f (it starts at +0.0f, grows by w > 0, shrinks only while wk > w),
+// so the branches below are bit-identical to it. Pad rows (count 0, init
+// -1) write (-1, 0.0f).
+__global__ void __launch_bounds__(kThreadsPerBlock)
+mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
+                        const int* __restrict__ row_count,
+                        const int* __restrict__ init,
+                        const int* __restrict__ elab,
+                        const float* __restrict__ ewgt,
+                        int* __restrict__ out_c, float* __restrict__ out_w,
+                        int n_rows) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rows) return;
+  const int start = row_start[r];
+  const int count = row_count[r];
+  int ck = init[r];
+  float wk = 0.0f;
+  for (int i = 0; i < count; ++i) {
+    const int c = __ldg(elab + start + i);
+    const float w = __ldg(ewgt + start + i);
+    if (!(w > 0.0f && c >= 0)) continue;
+    if (c == ck) {
+      wk = wk + w;
+    } else if (wk > w) {
+      wk = wk - w;
+    } else {
+      ck = c;
+      wk = w;
+    }
+  }
+  out_c[r] = ck;
+  out_w[r] = wk;
+}
+
+// K4: fused.py:_rescan_acc for one row. Unlike K1-K3 every entry counts,
+// w <= 0 included: acc[j] += w for each candidate j >= 0 equal to the
+// entry's label, in entry order from +0.0f. The reference adds 0.0f to the
+// other slots, which changes no bit (an accumulator that starts at +0.0f
+// is never -0.0f), so those adds are skipped.
+template <int K>
+__global__ void __launch_bounds__(kThreadsPerBlock)
+mg_fused_rescan_kernel(const int* __restrict__ row_start,
+                       const int* __restrict__ row_count,
+                       const int* __restrict__ cand,
+                       const int* __restrict__ elab,
+                       const float* __restrict__ ewgt,
+                       float* __restrict__ out, int n_rows) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rows) return;
+  const int64_t o = static_cast<int64_t>(r) * K;
+  int lab[K];
+  float acc[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    lab[j] = cand[o + j];
+    acc[j] = 0.0f;
+  }
+  const int start = row_start[r];
+  const int count = row_count[r];
+  for (int i = 0; i < count; ++i) {
+    const int c = __ldg(elab + start + i);
+    const float w = __ldg(ewgt + start + i);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (lab[j] >= 0 && lab[j] == c) acc[j] += w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) out[o + j] = acc[j];
+}
+
 inline dim3 grid_for(int n_rows) {
   return dim3(static_cast<unsigned>((n_rows + kThreadsPerBlock - 1) /
                                     kThreadsPerBlock));
@@ -185,7 +272,8 @@ inline dim3 grid_for(int n_rows) {
 }  // namespace
 
 // The widths a run or a test on the card uses: k = 8 on the main path,
-// 4 and 32 in tests/test_torch_cuda_kernels.py.
+// 4 and 32 in tests/test_torch_cuda_kernels.py (K1, K2 and K4; K3 keeps
+// one carry and has no k).
 #define MG_FUSED_FOR_EACH_K(X) X(4) X(8) X(32)
 
 // Launchers: plain C interface for ctypes. Each returns cudaGetLastError()
@@ -246,6 +334,52 @@ extern "C" int mg_fused_select(const void* row_start, const void* row_count,
     break;
     MG_FUSED_FOR_EACH_K(MG_SELECT_CASE)
 #undef MG_SELECT_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mg_fused_bm_fold(const void* row_start, const void* row_count,
+                                const void* init, const void* elab,
+                                const void* ewgt, void* out_c, void* out_w,
+                                int n_rows, int device, void* stream) {
+  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_rows == 0) return 0;
+  mg_fused_bm_fold_kernel<<<grid_for(n_rows), kThreadsPerBlock, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(row_start), static_cast<const int*>(row_count),
+      static_cast<const int*>(init), static_cast<const int*>(elab),
+      static_cast<const float*>(ewgt), static_cast<int*>(out_c),
+      static_cast<float*>(out_w), n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mg_fused_rescan(const void* row_start, const void* row_count,
+                               const void* cand, const void* elab,
+                               const void* ewgt, void* out, int n_rows, int k,
+                               int device, void* stream) {
+  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* rs = static_cast<const int*>(row_start);
+  const int* rc = static_cast<const int*>(row_count);
+  const int* cd = static_cast<const int*>(cand);
+  const int* el = static_cast<const int*>(elab);
+  const float* ew = static_cast<const float*>(ewgt);
+  float* o = static_cast<float*>(out);
+  switch (k) {
+#define MG_RESCAN_CASE(KK)                                                \
+  case KK:                                                                \
+    mg_fused_rescan_kernel<KK><<<grid_for(n_rows), kThreadsPerBlock, 0,   \
+                                 s>>>(rs, rc, cd, el, ew, o, n_rows);     \
+    break;
+    MG_FUSED_FOR_EACH_K(MG_RESCAN_CASE)
+#undef MG_RESCAN_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

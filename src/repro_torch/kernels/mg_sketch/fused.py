@@ -1,5 +1,5 @@
-"""Fused MG fold and select: hand-written CUDA kernels, their plain versions
-and the drivers that walk a ``FusedFoldPlan`` with them.
+"""Fused sketch folds: hand-written CUDA kernels, their plain versions and
+the drivers that walk a ``FusedFoldPlan`` with them.
 
 Kernels (``src/repro_torch/csrc/mg_fused.cu``, built by
 ``repro_torch.kernels.build``):
@@ -12,14 +12,22 @@ Kernels (``src/repro_torch/csrc/mg_fused.cu``, built by
     selection (max weight, then min ``hash_mix``, then min label, among the
     slots with weight > 0 and the incumbent). Replaces
     ``repro/kernels/mg_sketch/fused.py:_fused_select_kernel``.
+  * **K3** ``mg_fused_bm_fold`` — the whole νBM fold in one launch: every
+    round-0 row runs a weighted Boyer-Moore scan from its vertex's
+    incumbent. Replaces ``repro/kernels/mg_sketch/fused.py:_bm_fold_kernel``.
+  * **K4** ``mg_fused_rescan`` — the rescan second pass in one launch:
+    every round-0 row sums, per candidate of its vertex, the weights of
+    its entries with that label. Replaces
+    ``repro/kernels/mg_sketch/fused.py:_rescan_fold_kernel``.
 
-Each wrapper (``fused_fold_round``, ``fused_select_round``) takes one rule
-from the tensors it is given: on the CPU it calls the plain version
-(``fused_fold_round_plain``, ``fused_select_round_plain``); on CUDA it
-launches the kernel on the current stream, or raises. Nothing falls back.
-The plain versions are vectorised torch: the masked
-``row_start + arange(chunk)`` gather of the reference's ``_gather_tile``,
-then ``repro_torch.core.sketch.mg_fold_tile``'s column loop.
+Each wrapper (``fused_fold_round``, ``fused_select_round``,
+``bm_fold_round_fused``, ``rescan_round_fused``) takes one rule from the
+tensors it is given: on the CPU it calls the plain version (the same name
+with ``_plain``); on CUDA it launches the kernel on the current stream,
+or raises. Nothing falls back. The plain versions are vectorised torch:
+the masked ``row_start + arange(chunk)`` gather of the reference's
+``_gather_tile``, then the matching column loop of
+``repro_torch.core.sketch``.
 
 ``LAUNCH_COUNTS`` counts the kernel launches of each wrapper (and nothing
 else), so a run can show that the main path went through the kernels.
@@ -27,23 +35,30 @@ else), so a run can show that the main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.sketch import choose_from_candidates, mg_fold_tile
+from repro_torch.core.sketch import (bm_fold_tile, bm_init_rows,
+                                     bm_merge_rows, choose_from_candidates,
+                                     merge_rescan_partials, mg_fold_tile,
+                                     rescan_row_partials)
 from repro_torch.graphs.csr import FusedFoldPlan, FusedRound
 
 __all__ = ["SUPPORTED_K", "LAUNCH_COUNTS", "reset_launch_counts",
-           "fused_fold_round", "fused_select_round",
-           "fused_fold_round_plain", "fused_select_round_plain",
-           "run_mg_plan_fused", "select_best_fused"]
+           "fused_fold_round", "fused_select_round", "bm_fold_round_fused",
+           "rescan_round_fused", "fused_fold_round_plain",
+           "fused_select_round_plain", "bm_fold_round_plain",
+           "rescan_round_plain", "run_mg_plan_fused", "select_best_fused",
+           "run_bm_plan_generic", "run_bm_plan_fused",
+           "rescan_select_generic", "rescan_select_fused"]
 
-#: sketch widths k the CUDA kernels are instantiated for
+#: sketch widths k the CUDA kernels K1, K2 and K4 are instantiated for
 SUPPORTED_K = (4, 8, 32)
 
 #: kernel launches per wrapper since the last reset_launch_counts()
-LAUNCH_COUNTS = {"fused_fold": 0, "fused_select": 0}
+LAUNCH_COUNTS = {"fused_fold": 0, "fused_select": 0, "bm_fold": 0,
+                 "rescan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -63,14 +78,22 @@ def _library() -> ctypes.CDLL:
         lib.mg_fused_select.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr,
                                         i32, i32, i32, ptr]
         lib.mg_fused_select.restype = i32
+        lib.mg_fused_bm_fold.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                         i32, i32, ptr]
+        lib.mg_fused_bm_fold.restype = i32
+        lib.mg_fused_rescan.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                        i32, i32, ptr]
+        lib.mg_fused_rescan.restype = i32
         lib._repro_typed = True
     return lib
 
 
 def _check_inputs(rnd: FusedRound, entry_labels: torch.Tensor,
-                  entry_weights: torch.Tensor, k: int) -> torch.device:
-    """Device, dtype, contiguity and shape checks shared by both wrappers;
-    returns the device the round runs on."""
+                  entry_weights: torch.Tensor,
+                  k: Optional[int]) -> torch.device:
+    """Device, dtype, contiguity and shape checks shared by the wrappers
+    (``k=None`` for K3, which keeps one carry); returns the device the
+    round runs on."""
     dev = entry_labels.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
@@ -91,12 +114,23 @@ def _check_inputs(rnd: FusedRound, entry_labels: torch.Tensor,
         raise ValueError(f"entry arrays must be {want} (the round's "
                          f"n_entries_in), got {tuple(entry_labels.shape)} "
                          f"and {tuple(entry_weights.shape)}")
+    if k is None:
+        return dev
     if k < 1:
         raise ValueError(f"k must be positive, got {k}")
     if dev.type == "cuda" and k not in SUPPORTED_K:
         raise ValueError(f"the CUDA kernels are built for k in {SUPPORTED_K}, "
                          f"got k={k}")
     return dev
+
+
+def _check_row_tensor(t: torch.Tensor, name: str, shape: tuple,
+                      dev: torch.device) -> None:
+    """A per-row int32 operand (incumbents, BM inits, rescan candidates)."""
+    if (t.device != dev or t.dtype != torch.int32 or t.shape != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {list(shape)} int32 "
+                         f"tensor on {dev}")
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -149,6 +183,25 @@ def fused_select_round_plain(rnd: FusedRound, entry_labels: torch.Tensor,
                                   incumbents, seed)
 
 
+def bm_fold_round_plain(rnd: FusedRound, entry_labels: torch.Tensor,
+                        entry_weights: torch.Tensor, init_labels: torch.Tensor,
+                        *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's function in plain torch: per-row ([rows] int32 candidate,
+    [rows] float32 vote weight) BM states from the carries
+    (``init_labels``, 0.0), in fused row order."""
+    lab, wgt = _gather_tile(rnd, entry_labels, entry_weights, chunk)
+    return bm_fold_tile(lab, wgt, init_labels)
+
+
+def rescan_round_plain(rnd: FusedRound, entry_labels: torch.Tensor,
+                       entry_weights: torch.Tensor, cand_rows: torch.Tensor,
+                       *, chunk: int) -> torch.Tensor:
+    """K4's function in plain torch: [rows, k] float32 partial linking
+    weights of each row's candidates ``cand_rows`` [rows, k]."""
+    lab, wgt = _gather_tile(rnd, entry_labels, entry_weights, chunk)
+    return rescan_row_partials(lab, wgt, cand_rows)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -185,10 +238,7 @@ def fused_select_round(rnd: FusedRound, entry_labels: torch.Tensor,
     """The last round: fold + per-row winning label [n_steps*tile_r] (K2)."""
     dev = _check_inputs(rnd, entry_labels, entry_weights, k)
     rows = rnd.row_start.numel()
-    if (incumbents.device != dev or incumbents.dtype != torch.int32
-            or incumbents.shape != (rows,) or not incumbents.is_contiguous()):
-        raise ValueError(f"incumbents must be a contiguous [{rows}] int32 "
-                         f"tensor on {dev}")
+    _check_row_tensor(incumbents, "incumbents", (rows,), dev)
     seed = int(seed)
     if not -2**31 <= seed < 2**31:
         raise ValueError(f"seed {seed} does not fit int32")
@@ -204,6 +254,60 @@ def fused_select_round(rnd: FusedRound, entry_labels: torch.Tensor,
     _raise_on(rc, "mg_fused_select")
     LAUNCH_COUNTS["fused_select"] += 1
     return out_c
+
+
+def bm_fold_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
+                        entry_weights: torch.Tensor, init_labels: torch.Tensor,
+                        *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole BM fold in one launch (K3): only round 0 is ever folded,
+    BM partials merge by max-reduce, not by re-folding.
+
+    ``init_labels`` [n_steps*tile_r] int32 carries each row's incumbent
+    (-1 on pad rows). Returns per-row ([rows] int32 candidate, [rows]
+    float32 vote weight) partial states in fused row order.
+    """
+    dev = _check_inputs(rnd, entry_labels, entry_weights, None)
+    rows = rnd.row_start.numel()
+    _check_row_tensor(init_labels, "init_labels", (rows,), dev)
+    if dev.type == "cpu":
+        return bm_fold_round_plain(rnd, entry_labels, entry_weights,
+                                   init_labels, chunk=chunk)
+    out_c = torch.empty((rows,), dtype=torch.int32, device=dev)
+    out_w = torch.empty((rows,), dtype=torch.float32, device=dev)
+    rc = _library().mg_fused_bm_fold(
+        rnd.row_start.data_ptr(), rnd.row_count.data_ptr(),
+        init_labels.data_ptr(), entry_labels.data_ptr(),
+        entry_weights.data_ptr(), out_c.data_ptr(), out_w.data_ptr(), rows,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "mg_fused_bm_fold")
+    LAUNCH_COUNTS["bm_fold"] += 1
+    return out_c, out_w
+
+
+def rescan_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
+                       entry_weights: torch.Tensor, cand_rows: torch.Tensor,
+                       *, k: int, chunk: int) -> torch.Tensor:
+    """One launch re-reading round 0 to score each row's candidates (K4).
+
+    ``cand_rows`` [n_steps*tile_r, k] int32 holds each row's (owning
+    vertex's) candidate labels, -1 empties. Returns [n_steps*tile_r, k]
+    float32 partial linking weights in fused row order.
+    """
+    dev = _check_inputs(rnd, entry_labels, entry_weights, k)
+    rows = rnd.row_start.numel()
+    _check_row_tensor(cand_rows, "cand_rows", (rows, k), dev)
+    if dev.type == "cpu":
+        return rescan_round_plain(rnd, entry_labels, entry_weights,
+                                  cand_rows, chunk=chunk)
+    out = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    rc = _library().mg_fused_rescan(
+        rnd.row_start.data_ptr(), rnd.row_count.data_ptr(),
+        cand_rows.data_ptr(), entry_labels.data_ptr(),
+        entry_weights.data_ptr(), out.data_ptr(), rows, k, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "mg_fused_rescan")
+    LAUNCH_COUNTS["rescan"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -249,3 +353,83 @@ def select_best_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
     buf = torch.cat([labels, labels.new_zeros((1,))])
     buf[torch.where(real, rv, n).long()] = torch.where(real, choice, -1)
     return buf[:n]
+
+
+# ---------------------------------------------------------------------------
+# Boyer-Moore fold: round 0 in one launch
+# ---------------------------------------------------------------------------
+
+
+def run_bm_plan_generic(plan, entry_labels: torch.Tensor,
+                        entry_weights: torch.Tensor, cur_labels: torch.Tensor,
+                        fold_round_fn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared νBM driver: incumbent-initialise each round-0 row from
+    ``plan.row_to_vertex0``, run the engine's single round-0 launch
+    (``fold_round_fn(rnd, el, ew, init, *, chunk)``) and merge the per-row
+    partial states per vertex with the order-insensitive
+    ``sketch.bm_merge_rows``. Returns per-vertex (label [N], weight [N]);
+    vertices with no entries get -1."""
+    n = plan.n_nodes
+    if n == 0:
+        dev = entry_labels.device
+        return (torch.full((0,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((0,), dtype=torch.float32, device=dev))
+    rtv0 = plan.row_to_vertex0
+    init = bm_init_rows(rtv0, cur_labels)
+    ck, wk = fold_round_fn(plan.rounds[0], entry_labels, entry_weights, init,
+                           chunk=plan.chunk)
+    return bm_merge_rows(n, cur_labels, rtv0, ck, wk)
+
+
+def run_bm_plan_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
+                      entry_weights: torch.Tensor, cur_labels: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused νBM iteration core: ONE K3 launch + the max-reduce merge.
+    Bit-identical to ``repro_torch.core.sketch.run_bm_plan``: per-row
+    folds replay the same entry sequences, and the merge is an
+    order-insensitive max/min scatter."""
+    return run_bm_plan_generic(plan, entry_labels, entry_weights, cur_labels,
+                               bm_fold_round_fused)
+
+
+# ---------------------------------------------------------------------------
+# Rescan (double-scan ablation): the second pass in one launch
+# ---------------------------------------------------------------------------
+
+
+def rescan_select_generic(plan, entry_labels: torch.Tensor,
+                          entry_weights: torch.Tensor, labels: torch.Tensor,
+                          seed, run_plan_fn, rescan_round_fn) -> torch.Tensor:
+    """Shared double-scan driver: the engine's MG fold (``run_plan_fn``),
+    the final sketches scattered to per-vertex candidate sets and
+    broadcast to round-0 rows via ``plan.row_to_vertex0``, the engine's
+    single rescan launch (``rescan_round_fn``), then the deterministic
+    ``sketch.merge_rescan_partials`` and the shared selection."""
+    n, k = plan.n_nodes, plan.k
+    if n == 0:
+        return labels
+    s_k, _ = run_plan_fn(plan, entry_labels, entry_weights)
+    rtv = plan.row_to_vertex
+    cand = torch.full((n + 1, k), -1, dtype=torch.int32, device=s_k.device)
+    # real final rows own distinct vertices; pad rows hit the dump slot n
+    cand[torch.where(rtv >= 0, rtv, n).long()] = s_k
+    cand[n] = -1
+    rtv0 = plan.row_to_vertex0
+    cand_rows = cand[torch.where(rtv0 >= 0, rtv0, n).long()]
+    parts = rescan_round_fn(plan.rounds[0], entry_labels, entry_weights,
+                            cand_rows, k=k, chunk=plan.chunk)
+    acc = merge_rescan_partials(n, k, plan.max_rows0, rtv0, plan.row_rank0,
+                                parts)
+    cand = cand[:n]
+    return choose_from_candidates(torch.where(acc > 0, cand, -1), acc,
+                                  labels, seed)
+
+
+def rescan_select_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
+                        entry_weights: torch.Tensor, labels: torch.Tensor,
+                        seed) -> torch.Tensor:
+    """Full double-scan MG iteration on the fused engine: ``n_rounds`` K1
+    launches + ONE K4 launch. Bit-identical to the reference
+    ``run_mg_plan`` + ``rescan_candidates``."""
+    return rescan_select_generic(plan, entry_labels, entry_weights, labels,
+                                 seed, run_mg_plan_fused, rescan_round_fused)

@@ -1,6 +1,8 @@
-"""The hand-written CUDA kernels K1 (fold) and K2 (fold + select) against
-their plain-torch versions on the card, bit for bit, and the whole fused
-path on the card against the plain-torch reference engine.
+"""The hand-written CUDA kernels K1 (MG fold), K2 (MG fold + select), K3
+(BM fold) and K4 (rescan) against their plain-torch versions on the card,
+bit for bit; the whole fused path (νMG, νBM, rescan) on the card against
+the plain-torch reference engine; and ``exact_choose``'s group sums on
+the card against the CPU's.
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
 is taken inside the ``cuda`` fixture, never at import). On a machine with
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import exact, sketch
 from repro_torch.core.lpa import LPAConfig, lpa
 from repro_torch.graphs import generators as tgen
 from repro_torch.graphs.csr import build_fused_fold_plan
@@ -83,6 +86,104 @@ def test_fused_path_matches_reference_engine_on_the_card(cuda):
     assert got.changed_history == ref.changed_history
     assert got.frontier_history == ref.frontier_history
     assert fused.LAUNCH_COUNTS["fused_select"] == got.iterations
+
+
+@pytest.mark.parametrize("k,chunk,tile_r", [(8, 128, 128), (4, 16, 8),
+                                            (32, 128, 128)])
+def test_bm_fold_kernel_matches_plain(cuda, k, chunk, tile_r):
+    """K3 on round 0, from random incumbents over a small alphabet (all
+    three BM branches and ties wk == w run) and from vertex-id
+    incumbents."""
+    g, _ = tgen.powerlaw_communities(4096, p_in=0.4, mix=0.05, seed=7,
+                                     device="cpu")
+    plan = build_fused_fold_plan(g.degrees.numpy(), k=k, chunk=chunk,
+                                 tile_r=tile_r, device=cuda)
+    rng = np.random.default_rng(30 + k)
+    rnd = plan.rounds[0]
+    rv = plan.row_to_vertex0
+    el, ew = _round_inputs(rnd, rng, cuda, alphabet=6)
+    rand_init = torch.from_numpy(rng.integers(-1, 6, rv.numel())
+                                 .astype(np.int32)).to(cuda)
+    ids = torch.arange(g.n_nodes, dtype=torch.int32, device=cuda)
+    for init in (torch.where(rv >= 0, rand_init, -1),
+                 sketch.bm_init_rows(rv, ids)):
+        fused.reset_launch_counts()
+        got_c, got_w = fused.bm_fold_round_fused(rnd, el, ew, init,
+                                                 chunk=chunk)
+        torch.cuda.synchronize()
+        assert fused.LAUNCH_COUNTS["bm_fold"] == 1
+        ref_c, ref_w = fused.bm_fold_round_plain(rnd, el, ew, init,
+                                                 chunk=chunk)
+        assert torch.equal(got_c, ref_c)
+        assert torch.equal(got_w, ref_w)
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+def test_rescan_kernel_matches_plain(cuda, k):
+    """K4 on round 0 with random candidates (duplicates and -1 empties
+    included) over random entries whose weights include 0 and negatives."""
+    g, _ = tgen.powerlaw_communities(4096, p_in=0.4, mix=0.05, seed=7,
+                                     device="cpu")
+    chunk = 4 * k  # a plan's chunk must exceed k; rows of up to 4k entries
+    plan = build_fused_fold_plan(g.degrees.numpy(), k=k, chunk=chunk,
+                                 tile_r=32, device=cuda)
+    rng = np.random.default_rng(40 + k)
+    rnd = plan.rounds[0]
+    n_in = rnd.n_entries_in
+    el = torch.from_numpy(rng.integers(-1, 2 * k, n_in).astype(np.int32))
+    ew = torch.from_numpy(((rng.random(n_in) - 0.2) * 3).astype(np.float32))
+    rows = rnd.row_start.numel()
+    cand = torch.from_numpy(rng.integers(-1, 2 * k, (rows, k))
+                            .astype(np.int32))
+    el, ew, cand = el.to(cuda), ew.to(cuda), cand.to(cuda)
+    fused.reset_launch_counts()
+    got = fused.rescan_round_fused(rnd, el, ew, cand, k=k, chunk=chunk)
+    torch.cuda.synchronize()
+    assert fused.LAUNCH_COUNTS["rescan"] == 1
+    ref = fused.rescan_round_plain(rnd, el, ew, cand, chunk=chunk)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("method,rescan", [("bm", False), ("mg", True)])
+def test_bm_and_rescan_paths_match_reference_engine_on_the_card(
+        cuda, method, rescan):
+    g, _ = tgen.powerlaw_communities(4096, p_in=0.5, mix=0.02, seed=1,
+                                     device=cuda)
+    cfg = dict(method=method, rescan=rescan, rho=2)
+    ref = lpa(g, LPAConfig(fold_backend="jnp", **cfg))
+    fused.reset_launch_counts()
+    got = lpa(g, LPAConfig(fold_backend="pallas_fused", **cfg))
+    assert torch.equal(got.labels, ref.labels)
+    assert got.changed_history == ref.changed_history
+    key = "rescan" if rescan else "bm_fold"
+    assert fused.LAUNCH_COUNTS[key] == got.iterations
+
+
+def test_exact_group_sums_on_the_card_equal_the_cpu(cuda):
+    """Non-dyadic weights in groups of 1 to 10^5 values: the card's group
+    sums and exact_choose's choices equal the CPU's bit for bit."""
+    rng = np.random.default_rng(3)
+    sizes = np.asarray([1, 2, 5, 31, 32, 33, 64, 100, 1000, 4097, 100_000])
+    group = np.repeat(np.arange(len(sizes)), sizes)
+    values = (rng.random(group.size) * 3 + 0.1).astype(np.float32)
+    cpu = exact._group_sums(torch.from_numpy(values),
+                            torch.from_numpy(group), len(sizes))
+    gpu = exact._group_sums(torch.from_numpy(values).to(cuda),
+                            torch.from_numpy(group).to(cuda), len(sizes))
+    assert torch.equal(gpu.cpu(), cpu)
+    n, m = 3000, 400_000
+    src = np.sort(rng.integers(0, n, m)).astype(np.int32)
+    src[: m // 4] = 7  # one hub with 10^5 edges
+    src.sort()
+    nbr = rng.integers(0, 5, m).astype(np.int32)
+    w = (rng.random(m) * 3 + 0.1).astype(np.float32)
+    labels = rng.integers(0, n, n).astype(np.int32)
+    args = [torch.from_numpy(x) for x in (src, nbr, w)]
+    for seed in (1, 5):
+        cpu = exact.exact_choose(*args, n, torch.from_numpy(labels), seed)
+        gpu = exact.exact_choose(*[a.to(cuda) for a in args], n,
+                                 torch.from_numpy(labels).to(cuda), seed)
+        assert torch.equal(gpu.cpu(), cpu)
 
 
 def test_unsupported_k_raises_on_the_card(cuda):

@@ -145,7 +145,8 @@ def test_wrappers_check_their_inputs():
     tfused.reset_launch_counts()
     tfused.fused_fold_round(rnd, el, ew, k=8, chunk=128)
     # the CPU path runs the plain version: no kernel launch is counted
-    assert tfused.LAUNCH_COUNTS == {"fused_fold": 0, "fused_select": 0}
+    assert tfused.LAUNCH_COUNTS == {"fused_fold": 0, "fused_select": 0,
+                                    "bm_fold": 0, "rescan": 0}
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])

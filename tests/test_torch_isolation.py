@@ -86,9 +86,6 @@ def test_lpa_refuses_a_graph_on_another_device():
 @pytest.mark.parametrize("overrides", [
     {"fold_backend": "pallas"},
     {"fold_backend": "pallas_stream"},
-    {"method": "exact"},
-    {"method": "bm"},
-    {"rescan": True},
     {"frontier_gate": True, "frontier_sparse": True},
     {"mg_variant": "exact_weighted"},
 ])
@@ -128,4 +125,5 @@ def test_unported_engines_and_requests_raise():
                  frontier=frontier, sparse=True, cap_rows=4)
     with pytest.raises(NotImplementedError):
         lpa_move(ws, labels, True, 1,
-                 LPAConfig(method="bm", fold_backend="pallas_fused"))
+                 LPAConfig(fold_backend="pallas_fused",
+                           mg_variant="exact_weighted"))
