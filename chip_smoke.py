@@ -10,28 +10,37 @@ the kernel launch counts set to 0 just before it:
   * νBM-LPA — ``method="bm"`` on the same engine (K3);
   * the double-scan ablation — ``method="mg", rescan=True`` (K1, K4);
   * exact LPA — ``method="exact"``, plain torch (no kernel), the O(|E|)
-    baseline whose memory the sketches are compared against.
+    baseline whose memory the sketches are compared against;
+  * the streamed engine — νMG8 through ``fold_backend="auto"``, which
+    resolves to ``pallas_stream`` past the budget (K5, K6; unaligned),
+    and νMG8, νBM and the rescan ablation on ``pallas_stream`` with
+    ``aligned_layout=True`` (K5 + K6, K7, K5 + K8).
 
 Phases:
 
   0. the device (nvidia-smi name and power limit, torch's view of it);
-  1. build the kernels from ``src/repro_torch/csrc/`` (nvcc, sm_90a) and
-     print the build time and ptxas's registers and spills per kernel;
-  2. each kernel against its plain-torch version on the card, at the
-     round shapes of the main graph's fused plan, with exact equality,
-     and its time (CUDA events) beside the bytes it must move; the
-     rescan merge's time on the main graph;
+  1. build the kernel libraries from ``src/repro_torch/csrc/`` (one nvcc
+     per source, all started together; sm_90a) and print the build times
+     and ptxas's registers and spills per kernel;
+  2. each kernel against its plain-torch version on the card, with exact
+     equality, and its time (CUDA events) beside the bytes it must move:
+     K1–K4 at the round shapes of the main graph's fused plan, K5–K8 at
+     those of its streamed plan; the rescan merge's time and the
+     streamed engine's windowed re-layout per iteration, unaligned and
+     aligned, on the main graph;
   3. whole-path parity: on a 2^16-vertex graph the kernels
-     (``pallas_fused``) against the plain-torch engine (``jnp``) for mg
-     and bm, equal labels and histories; then the plain-torch engine's
-     whole mg, bm and mg+rescan runs on the main graph, which phase 4's
-     kernel runs must reproduce;
+     (``pallas_fused``, and ``auto``, which resolves to ``pallas_stream``
+     there) against the plain-torch engine (``jnp``) for mg and bm, equal
+     labels and histories; then the plain-torch engine's whole mg, bm and
+     mg+rescan runs on the main graph, which phase 4's kernel runs must
+     reproduce;
   4. the paths on ``powerlaw_communities(1 << 22)`` (4.19 M vertices,
      ~90 M directed CSR slots) with launch counts checked, labels and
-     histories equal to phase 3's plain runs, quality (modularity, NMI
+     histories equal to phase 3's plain runs (the streamed runs: equal to
+     the fused runs of the same method), quality (modularity, NMI
      against the planted truth), seconds per iteration and peak device
      memory; exact LPA's group sums held to the CPU's on non-integer
-     weights; the four peak memories side by side;
+     weights; the peak memories side by side;
   5. one JSON line describing every kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -41,6 +50,7 @@ CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import re
@@ -61,7 +71,12 @@ PARITY_SCALE = 16
 #: clock cycles of the device-side wait that timed launches queue behind
 #: (about 50 ms at the H100's ~1.98 GHz boost clock)
 QUEUE_WAIT_CYCLES = 100_000_000
-KERNEL_SOURCE = "src/repro_torch/csrc/mg_fused.cu"
+#: launch-count keys of the fused kernels K1–K4 and the streamed K5–K8
+FUSED_KEYS = ("fused_fold", "fused_select", "bm_fold", "rescan")
+STREAM_KEYS = ("stream_fold", "stream_select", "stream_bm", "stream_rescan")
+#: kernel library -> its source in the repo
+KERNEL_SOURCES = {"mg_fused": "src/repro_torch/csrc/mg_fused.cu",
+                  "mg_stream": "src/repro_torch/csrc/mg_stream.cu"}
 
 
 def _nvidia_smi() -> str:
@@ -72,7 +87,11 @@ def _nvidia_smi() -> str:
 
 
 #: mangled-name fragment -> kernel, most specific first
-_KERNEL_OF_SYMBOL = (("bm_fold", "K3 bm_fold"), ("rescan", "K4 rescan"),
+_KERNEL_OF_SYMBOL = (("stream_bm", "K7 stream_bm"),
+                     ("stream_rescan", "K8 stream_rescan"),
+                     ("stream_select", "K6 stream_select"),
+                     ("stream_fold", "K5 stream_fold"),
+                     ("bm_fold", "K3 bm_fold"), ("rescan", "K4 rescan"),
                      ("select", "K2 select"), ("fold", "K1 fold"))
 
 
@@ -140,7 +159,8 @@ def _check_same_run(ref, got, where: str) -> None:
     """Two ``lpa()`` results must agree on labels and every history."""
     import torch
     if not torch.equal(ref.labels, got.labels):
-        raise AssertionError(f"{where}: pallas_fused labels differ from jnp")
+        raise AssertionError(f"{where}: the labels differ from the "
+                             f"reference run's")
     for field in ("iterations", "converged", "changed_history",
                   "frontier_history", "work_rows_history"):
         if getattr(ref, field) != getattr(got, field):
@@ -250,12 +270,49 @@ def kernels_vs_plain(graph, plan, tag: str) -> dict:
               f"({random_ms:.4f} ms on random ones), plain {plain_ms:.3f} "
               f"ms, {n_bytes} B, bound {bound:.4f} ms ({by} at 3.35 TB/s), "
               f"{bound / ms:.1%} of bound", flush=True)
+        if r == 0:
+            s["row_contiguous_round0"] = _row_contiguous_k1(
+                rnd, main_el, main_ew, k, chunk, tag)
         if key == "K1":
             out_k, out_v = kernel(main_el, main_ew, None)
             main_el, main_ew = out_k.reshape(-1), out_v.reshape(-1)
         del rand_el, rand_ew
         torch.cuda.empty_cache()
     return stats
+
+
+def _row_contiguous_k1(rnd, el, ew, k: int, chunk: int, tag: str) -> dict:
+    """Diagnostic: K1 on round 0 with its entries copied into row order, so
+    that consecutive rows read consecutive entries (the streamed plan's
+    windows lay them out so; the fused plan reads each row where its
+    vertex sits in the CSR). Each row's entry sequence is unchanged, so
+    the sketches must be equal; only the time may move."""
+    import torch
+    from repro_torch.kernels.mg_sketch import fused
+
+    counts = rnd.row_count.reshape(-1).long()
+    firsts = torch.cumsum(counts, 0) - counts
+    total = int(counts.sum())
+    intra = torch.arange(total, device=el.device) - torch.repeat_interleave(
+        firsts, counts, output_size=total)
+    perm = torch.repeat_interleave(rnd.row_start.reshape(-1).long(), counts,
+                                   output_size=total) + intra
+    packed = dataclasses.replace(
+        rnd, row_start=firsts.to(torch.int32).reshape(rnd.row_start.shape),
+        n_entries_in=total)
+    c_el, c_ew = el[perm].contiguous(), ew[perm].contiguous()
+    got = fused.fused_fold_round(packed, c_el, c_ew, k=k, chunk=chunk)
+    ref = fused.fused_fold_round(rnd, el, ew, k=k, chunk=chunk)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError("K1 on row-contiguous entries changed the "
+                             "sketches")
+    ms = _time_ms(lambda: fused.fused_fold_round(packed, c_el, c_ew, k=k,
+                                                 chunk=chunk),
+                  warmup=3, reps=20)
+    print(f"{tag} phase 2: diagnostic: K1 round 0 on a row-contiguous copy "
+          f"of its entries: {ms:.4f} ms, sketches equal", flush=True)
+    return {"ms": ms}
 
 
 def _wall_ms(fn, *, reps: int) -> float:
@@ -379,6 +436,206 @@ def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
           f"synchronised), max_rows0 {plan.max_rows0}, "
           f"{stats['merge']['vertices_past_rank_chunk']} vertices with more "
           f"than {sketch._RANK_CHUNK} rows", flush=True)
+    return stats
+
+
+def _plan_bytes(obj) -> int:
+    """Device bytes of every tensor a plan holds (rounds included)."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(_plan_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return sum(_plan_bytes(x) for x in obj)
+    return 0
+
+
+def _stream_rounds_table(plan) -> list[dict]:
+    """Per round of a streamed plan: windows, stride W, window slots, real
+    entries and row slots (what the re-layout writes and what the kernels
+    read)."""
+    return [{"round": r, "windows": rnd.n_windows, "W": rnd.window_entries,
+             "window_slots": rnd.n_windows * rnd.window_entries,
+             "real_entries": int(rnd.row_count.sum()),
+             "row_slots": rnd.row_start.numel(), "aligned": rnd.aligned}
+            for r, rnd in enumerate(plan.rounds)]
+
+
+def stream_kernels_vs_plain(graph, plan, aligned_plan, tag: str) -> dict:
+    """Phase 2 for K5–K8 on the main graph's (unaligned) streamed plan: K5
+    on every round but the last, K6 on the last, K7 and K8 on round 0,
+    each held to exact equality with its plain version on random windowed
+    entries and on the main path's first iteration (labels = vertex ids,
+    each round fed the previous round's kernel output through its
+    re-layout). Each round is handed to the kernel and the plain version
+    as an aligned view (its entries already windowed), so their times
+    hold the fold alone; the re-layout (``windowed_entries``) is timed on
+    its own, per round, and the aligned plan's one label gather beside
+    ``labels[indices]``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sketch
+    from repro_torch.kernels.mg_sketch import streaming
+
+    dev = graph.device
+    k, chunk = plan.k, plan.chunk
+    n = plan.n_nodes
+    last = plan.n_rounds - 1
+    stats = {key: {"ms": 0.0, "plain_ms": 0.0, "random_ms": 0.0,
+                   "bound_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0.0,
+                   "rounds": []} for key in ("K5", "K6", "K7", "K8")}
+    labels0 = torch.arange(n, dtype=torch.int32, device=dev)
+    src_el = torch.index_select(labels0, 0, graph.indices)
+    src_ew = graph.weights
+    gather_ms = _time_ms(lambda: torch.index_select(labels0, 0,
+                                                    graph.indices),
+                         warmup=2, reps=10)
+    aev = aligned_plan.aligned_entry_vertex
+
+    def aligned_gather():
+        ext = torch.cat([labels0, labels0.new_full((1,), -1)])
+        return torch.index_select(ext, 0, aev)
+    aligned_gather_ms = _time_ms(aligned_gather, warmup=2, reps=10)
+    relayout_ms = []
+    rtv0 = plan.row_to_vertex0
+    real0 = rtv0 >= 0
+    for r, rnd in enumerate(plan.rounds):
+        slots = rnd.n_windows * rnd.window_entries
+        view = dataclasses.replace(rnd, aligned=True, n_entries_in=slots)
+        main_wl, main_ww = streaming.windowed_entries(rnd.entry_gather,
+                                                      src_el, src_ew)
+        relayout_ms.append(_time_ms(
+            lambda rnd=rnd, el=src_el, ew=src_ew: streaming.windowed_entries(
+                rnd.entry_gather, el, ew), warmup=2, reps=10))
+        rng = np.random.default_rng(100 + r)
+        rand_wl = torch.from_numpy(rng.integers(-1, 24, slots)
+                                   .astype(np.int32)).to(dev)
+        rand_ww = torch.from_numpy((rng.integers(0, 8, slots) * 0.375)
+                                   .astype(np.float32)).to(dev)
+        rows = rnd.row_start.numel()
+        entries = int(rnd.row_count.sum())
+        cases = {}
+        if r < last:
+            cases["K5"] = (
+                lambda el, ew, x: streaming.stream_fold_round(
+                    view, el, ew, k=k, chunk=chunk),
+                lambda el, ew, x: streaming.stream_fold_round_plain(
+                    view, el, ew, k=k, chunk=chunk),
+                None, None, 8 * entries + 8 * rows + 8 * k * rows,
+                2 * k * entries)
+        else:
+            rv = rnd.row_vertex
+            main_inc = torch.where(rv >= 0, labels0[torch.clamp_min(rv, 0)],
+                                   -1)
+            rand_inc = torch.where(rv >= 0, torch.from_numpy(
+                rng.integers(-1, 24, rows).astype(np.int32)).to(dev), -1)
+            cases["K6"] = (
+                lambda el, ew, x: streaming.stream_select_round(
+                    view, el, ew, x, 1, k=k, chunk=chunk),
+                lambda el, ew, x: streaming.stream_select_round_plain(
+                    view, el, ew, x, 1, k=k, chunk=chunk),
+                rand_inc, main_inc, 8 * entries + 8 * rows + 8 * rows,
+                2 * k * entries)
+        if r == 0:
+            main_init = sketch.bm_init_rows(rtv0, labels0)
+            rand_init = torch.where(real0, torch.from_numpy(
+                rng.integers(-1, 6, rows).astype(np.int32)).to(dev), -1)
+            s_k, _ = streaming.run_mg_plan_stream(plan, src_el, src_ew)
+            cand = torch.full((n + 1, k), -1, dtype=torch.int32, device=dev)
+            rtv = plan.row_to_vertex
+            cand[torch.where(rtv >= 0, rtv, n).long()] = s_k
+            cand[n] = -1
+            main_cand = cand[torch.where(real0, rtv0, n).long()]
+            del s_k, cand
+            rand_cand = torch.from_numpy(rng.integers(-1, 6, (rows, k))
+                                         .astype(np.int32)).to(dev)
+            cases["K7"] = (
+                lambda el, ew, x: streaming.bm_fold_round_stream(
+                    view, el, ew, x, chunk=chunk),
+                lambda el, ew, x: streaming.bm_fold_round_stream_plain(
+                    view, el, ew, x, chunk=chunk),
+                rand_init, main_init, 8 * entries + 12 * rows + 8 * rows,
+                4 * entries)
+            cases["K8"] = (
+                lambda el, ew, x: streaming.rescan_round_stream(
+                    view, el, ew, x, k=k, chunk=chunk),
+                lambda el, ew, x: streaming.rescan_round_stream_plain(
+                    view, el, ew, x, chunk=chunk),
+                rand_cand, main_cand,
+                8 * entries + (8 + 4 * k) * rows + 4 * k * rows,
+                2 * k * entries)
+        for key, (kernel, plain, rand_x, main_x, n_bytes, n_ops) in \
+                cases.items():
+            # K7 reads few labels on random inputs so every branch runs;
+            # K8 counts entries of weight <= 0 too
+            r_wl = torch.remainder(rand_wl, 6) if key == "K7" else rand_wl
+            r_ww = rand_ww - 0.5 if key == "K8" else rand_ww
+            err = 0.0
+            for name, args in (("random", (r_wl, r_ww, rand_x)),
+                               ("main-path", (main_wl, main_ww, main_x))):
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                ref = plain(*args)
+                got, ref = ((got, ref) if isinstance(got, tuple)
+                            else ((got,), (ref,)))
+                for a, b in zip(got, ref):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{key} differs from its plain version on "
+                            f"streamed round {r}, {name} inputs")
+                    err = max(err, _max_abs_err(a, b))
+                del got, ref
+            random_ms = _time_ms(lambda: kernel(r_wl, r_ww, rand_x),
+                                 warmup=3, reps=20)
+            ms = _time_ms(lambda: kernel(main_wl, main_ww, main_x), warmup=3,
+                          reps=20)
+            plain_ms = _time_ms(lambda: plain(main_wl, main_ww, main_x),
+                                warmup=1, reps=3)
+            bound, by = _bound_ms(n_bytes, n_ops)
+            st = stats[key]
+            st["ms"] += ms
+            st["plain_ms"] += plain_ms
+            st["random_ms"] += random_ms
+            st["bound_ms"] += bound
+            st["bytes"] += n_bytes
+            st["ops"] += n_ops
+            st["bound_by"] = by
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            st["rounds"].append({"round": r, "windows": rnd.n_windows,
+                                 "W": rnd.window_entries, "row_slots": rows,
+                                 "entries": entries, "ms": ms,
+                                 "random_ms": random_ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound})
+            print(f"{tag} phase 2: {key} streamed round {r}: {rnd.n_windows} "
+                  f"windows x W {rnd.window_entries}, row slots {rows}, "
+                  f"entries {entries}, exact match to plain on random and "
+                  f"main-path inputs; kernel {ms:.4f} ms on the main path's "
+                  f"inputs ({random_ms:.4f} ms on random ones), plain "
+                  f"{plain_ms:.3f} ms, {n_bytes} B, bound {bound:.4f} ms "
+                  f"({by} at 3.35 TB/s), {bound / ms:.1%} of bound",
+                  flush=True)
+        if r < last:
+            out_k, out_v = streaming.stream_fold_round(view, main_wl, main_ww,
+                                                       k=k, chunk=chunk)
+            src_el, src_ew = out_k.reshape(-1), out_v.reshape(-1)
+        del rand_wl, rand_ww, main_wl, main_ww, cases
+        torch.cuda.empty_cache()
+    unaligned_ms = gather_ms + sum(relayout_ms)
+    aligned_ms = aligned_gather_ms + sum(relayout_ms[1:])
+    stats["relayout"] = {"labels_gather_ms": gather_ms,
+                         "aligned_labels_gather_ms": aligned_gather_ms,
+                         "windowed_entries_ms": relayout_ms,
+                         "per_iteration_unaligned_ms": unaligned_ms,
+                         "per_iteration_aligned_ms": aligned_ms}
+    print(f"{tag} phase 2: streamed re-layout per iteration: "
+          f"labels[indices] {gather_ms:.4f} ms + windowed_entries per round "
+          + ", ".join(f"{m:.4f}" for m in relayout_ms)
+          + f" ms = {unaligned_ms:.4f} ms unaligned; aligned: "
+          f"labels_ext[aligned_entry_vertex] {aligned_gather_ms:.4f} ms + "
+          f"rounds 1.. {sum(relayout_ms[1:]):.4f} ms = {aligned_ms:.4f} ms",
+          flush=True)
     return stats
 
 
@@ -517,13 +774,21 @@ def main(argv=None) -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     report["device"] = {"nvidia_smi": smi, "kind": kind, "count": count}
 
-    # -- phase 1: build --------------------------------------------------------
-    built = load_library("mg_fused")
-    print(f"{tag} phase 1: built {built.path.name} in {built.seconds:.2f} s",
+    # -- phase 1: build (one nvcc per source, all started together) ----------
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = dict(zip(KERNEL_SOURCES,
+                          pool.map(load_library, KERNEL_SOURCES)))
+    build_wall = time.perf_counter() - t0
+    report["build_seconds"] = {name: b.seconds for name, b in builds.items()}
+    report["build_wall_seconds"] = build_wall
+    for name, built in builds.items():
+        print(f"{tag} phase 1: built {built.path.name} in "
+              f"{built.seconds:.2f} s", flush=True)
+        for line in _ptxas_summary(built.ptxas):
+            print(f"{tag} phase 1: ptxas {line}")
+    print(f"{tag} phase 1: both builds in {build_wall:.2f} s wall",
           flush=True)
-    for line in _ptxas_summary(built.ptxas):
-        print(f"{tag} phase 1: ptxas {line}")
-    report["build_seconds"] = built.seconds
 
     # -- the main-path graph and its plan (host-side set-up) -----------------
     cfg = LPAConfig(method="mg", k=8, chunk=128, fold_backend="pallas_fused")
@@ -552,12 +817,53 @@ def main(argv=None) -> int:
                        "round0_steps": fplan.rounds[0].n_steps,
                        "round0_rows": rows0, "max_degree": d_max,
                        "vertices_past_chunk": n_wide,
-                       "max_rows0": fplan.max_rows0}
+                       "max_rows0": fplan.max_rows0,
+                       "fused_plan_bytes": _plan_bytes(fplan)}
+    # the streamed workspaces: "auto" (past the budget: pallas_stream,
+    # unaligned) and pallas_stream with the aligned layout
+    cfg_auto = dataclasses.replace(cfg, fold_backend="auto")
+    cfg_aligned = dataclasses.replace(cfg, fold_backend="pallas_stream",
+                                      aligned_layout=True)
+    stream_ws = {}
+    report["stream_plans"] = {}
+    for key, scfg in (("auto", cfg_auto), ("aligned", cfg_aligned)):
+        t0 = time.perf_counter()
+        sws = build_workspace(graph, scfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if sws.bundle.spec.backend != "pallas_stream":
+            raise AssertionError(f"{key}: resolved to "
+                                 f"{sws.bundle.spec.backend}, not "
+                                 f"pallas_stream")
+        splan = sws.stream_plan
+        table = _stream_rounds_table(splan)
+        slots = sum(t["window_slots"] for t in table)
+        report["stream_plans"][key] = {
+            "plan_build_s": build_s, "plan_bytes": _plan_bytes(splan),
+            "aligned": splan.aligned, "n_rounds": splan.n_rounds,
+            "rounds": table, "window_slots": slots,
+            "gather_slots": sum(t["window_slots"] for t in table
+                                if not t["aligned"])}
+        stream_ws[key] = sws
+        print(f"{tag} set-up: {key} workspace resolves to pallas_stream "
+              f"(aligned {splan.aligned}); built in {build_s:.1f} s; "
+              f"streamed plan {splan.n_rounds} rounds, "
+              f"{_plan_bytes(splan)} B resident on the card, {slots} "
+              f"window slots per iteration, "
+              f"{report['stream_plans'][key]['gather_slots']} of them "
+              f"re-laid every iteration; rounds (windows, W, slots, real "
+              f"entries, row slots): "
+              + "; ".join(f"{t['windows']}, {t['W']}, {t['window_slots']}, "
+                          f"{t['real_entries']}, {t['row_slots']}"
+                          for t in table), flush=True)
 
     # -- phase 2: each kernel against its plain version ----------------------
     t_phase = time.perf_counter()
     kstats = kernels_vs_plain(graph, fplan, tag)
     kstats.update(bm_rescan_vs_plain(graph, fplan, tag))
+    kstats.update(stream_kernels_vs_plain(graph, stream_ws["auto"].stream_plan,
+                                          stream_ws["aligned"].stream_plan,
+                                          tag))
     report["kernels_vs_plain"] = kstats
     _phase_took(tag, 2, t_phase, report)
 
@@ -572,29 +878,48 @@ def main(argv=None) -> int:
     report["parity"] = {}
     for method in ("mg", "bm"):
         runs = {}
-        for backend in ("jnp", "pallas_fused"):
+        for backend in ("jnp", "pallas_fused", "auto"):
+            pcfg = LPAConfig(method=method, k=8, chunk=128,
+                             fold_backend=backend)
             t0 = time.perf_counter()
-            runs[backend] = lpa(g16, LPAConfig(method=method, k=8, chunk=128,
-                                               fold_backend=backend))
+            pws = build_workspace(g16, pcfg)
+            # 8·|E| is past the budget at 2^16: "auto" streams
+            if backend == "auto" and pws.bundle.spec.backend != \
+                    "pallas_stream":
+                raise AssertionError(f"phase 3, 2^{PARITY_SCALE}: auto "
+                                     f"resolved to {pws.bundle.spec.backend}")
+            fused.reset_launch_counts()
+            runs[backend] = lpa(g16, pcfg, ws=pws)
             torch.cuda.synchronize()
             runs[backend + "_s"] = time.perf_counter() - t0
+            runs[backend + "_launches"] = dict(fused.LAUNCH_COUNTS)
+        launched = runs["auto_launches"]
+        if (any(launched[key] for key in FUSED_KEYS)
+                or not any(launched[key] for key in STREAM_KEYS)):
+            raise AssertionError(f"phase 3, auto, {method}: launches "
+                                 f"{launched}")
+        for backend in ("pallas_fused", "auto"):
+            _check_same_run(runs["jnp"], runs[backend],
+                            f"phase 3, 2^{PARITY_SCALE}, {method}, "
+                            f"{backend}")
         got = runs["pallas_fused"]
-        _check_same_run(runs["jnp"], got,
-                        f"phase 3, 2^{PARITY_SCALE}, {method}")
         q16 = float(modularity(g16, got.labels))
         nmi16 = nmi(got.labels, truth16)
         print(f"{tag} phase 3: 2^{PARITY_SCALE} vertices, {method}: "
-              f"pallas_fused == jnp (labels, {got.iterations} iterations, "
+              f"pallas_fused == jnp and auto (pallas_stream, launches "
+              f"{launched}) == jnp (labels, {got.iterations} iterations, "
               f"changed_history {got.changed_history}, frontier and "
               f"work-row histories); modularity {q16:.6f}, NMI vs planted "
               f"{nmi16:.6f}; wall jnp {runs['jnp_s']:.2f} s, pallas_fused "
-              f"{runs['pallas_fused_s']:.2f} s", flush=True)
+              f"{runs['pallas_fused_s']:.2f} s, auto {runs['auto_s']:.2f} s "
+              f"(plans included)", flush=True)
         report["parity"][method] = {
             "iterations": got.iterations,
             "changed_history": got.changed_history, "modularity": q16,
             "nmi": nmi16, "jnp_s": runs["jnp_s"],
-            "pallas_fused_s": runs["pallas_fused_s"]}
-    del runs, got
+            "pallas_fused_s": runs["pallas_fused_s"],
+            "auto_s": runs["auto_s"], "auto_launches": launched}
+    del runs, got, pws
     # (b) the plain-torch engine's whole runs on the main graph; phase 4's
     # kernel runs must reproduce them
     paths = {"mg": cfg, "bm": dataclasses.replace(cfg, method="bm"),
@@ -624,13 +949,13 @@ def main(argv=None) -> int:
     n_rounds = fplan.n_rounds
     report["main"] = {}
     final_labels = {}
+    fused_res = {}
     for path, pcfg in paths.items():
         out = _run_path(graph, truth, ws, pcfg, lpa, lpa_move, modularity,
                         nmi, fused)
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
-        want = {"fused_fold": 0, "fused_select": 0, "bm_fold": 0,
-                "rescan": 0}
+        want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
         if path == "mg":
             want.update(fused_fold=it * (n_rounds - 1), fused_select=it)
         elif path == "bm":
@@ -660,7 +985,55 @@ def main(argv=None) -> int:
                  if path == "rescan" else ""), flush=True)
         report["main"][path] = out
         final_labels[path] = res.labels
+        fused_res[path] = res
     del plain_res
+    torch.cuda.empty_cache()
+    # the streamed engine: each run must give the fused run of its method
+    # (labels and every history), which equals the plain-torch run above
+    stream_paths = {
+        "stream_mg_auto": ("mg", "auto", cfg_auto),
+        "stream_mg_aligned": ("mg", "aligned", cfg_aligned),
+        "stream_bm_aligned": ("bm", "aligned",
+                              dataclasses.replace(cfg_aligned, method="bm")),
+        "stream_rescan_aligned": ("rescan", "aligned",
+                                  dataclasses.replace(cfg_aligned,
+                                                      rescan=True))}
+    for path, (fpath, wkey, scfg) in stream_paths.items():
+        sws = stream_ws[wkey]
+        s_rounds = sws.stream_plan.n_rounds
+        out = _run_path(graph, truth, sws, scfg, lpa, lpa_move, modularity,
+                        nmi, fused)
+        res, launches = out.pop("result"), out["launches"]
+        it = res.iterations
+        want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
+        if fpath == "mg":
+            want.update(stream_fold=it * (s_rounds - 1), stream_select=it)
+        elif fpath == "bm":
+            want.update(stream_bm=it)
+        else:
+            want.update(stream_fold=it * s_rounds, stream_rescan=it)
+        if launches != want:
+            raise AssertionError(f"phase 4, {path}: launches {launches}, "
+                                 f"expected {want}")
+        _check_same_run(fused_res[fpath], res,
+                        f"phase 4, 2^{SCALE}, {path} vs fused {fpath}")
+        out["plan"] = wkey
+        out["plan_bytes"] = report["stream_plans"][wkey]["plan_bytes"]
+        out["plan_build_s"] = report["stream_plans"][wkey]["plan_build_s"]
+        print(f"{tag} phase 4: 2^{SCALE} vertices, {path} "
+              f"({scfg.fold_backend} -> {sws.bundle.spec.backend}, aligned "
+              f"{sws.stream_plan.aligned}): {it} iterations, labels and "
+              f"histories equal to the fused {fpath} run; lpa_move median "
+              f"{statistics.median(out['iter_ms']) / 1e3:.6f} s/iteration "
+              f"(mean {statistics.mean(out['iter_ms']) / 1e3:.6f} s); lpa() "
+              f"wall {out['lpa_s']:.2f} s; peak device memory "
+              f"{out['peak_bytes']} B ({out['peak_bytes'] / 2**30:.3f} GiB), "
+              f"{out['working_bytes']} B above the {out['resident_bytes']} B "
+              f"resident at the start; streamed plan {out['plan_bytes']} B, "
+              f"built in {out['plan_build_s']:.1f} s; launches {launches}",
+              flush=True)
+        report["main"][path] = out
+    del fused_res
     torch.cuda.empty_cache()
     # exact LPA: plain torch (no kernel); its group sums first, on the
     # 2^16 graph with non-integer weights, against the CPU's bits
@@ -726,31 +1099,48 @@ def main(argv=None) -> int:
 
     # -- phase 5: the kernels line --------------------------------------------
     main = report["main"]
-    rows = (("K1", "mg_fused_fold", "src/repro/kernels/mg_sketch/fused.py:173",
-             main["mg"]["launches"]["fused_fold"],
-             {p: main[p]["launches"]["fused_fold"] for p in ("mg", "rescan")}),
-            ("K2", "mg_fused_select",
-             "src/repro/kernels/mg_sketch/fused.py:234",
-             main["mg"]["launches"]["fused_select"],
-             {"mg": main["mg"]["launches"]["fused_select"]}),
-            ("K3", "mg_fused_bm_fold",
-             "src/repro/kernels/mg_sketch/fused.py:181",
-             main["bm"]["launches"]["bm_fold"],
-             {"bm": main["bm"]["launches"]["bm_fold"]}),
-            ("K4", "mg_fused_rescan",
-             "src/repro/kernels/mg_sketch/fused.py:191",
-             main["rescan"]["launches"]["rescan"],
-             {"rescan": main["rescan"]["launches"]["rescan"]}))
+
+    def by_path(key, paths):
+        return {p: main[p]["launches"][key] for p in paths}
+    rows = (("K1", "mg_fused_fold", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:173", "mg",
+             by_path("fused_fold", ("mg", "rescan"))),
+            ("K2", "mg_fused_select", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:234", "mg",
+             by_path("fused_select", ("mg",))),
+            ("K3", "mg_fused_bm_fold", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:181", "bm",
+             by_path("bm_fold", ("bm",))),
+            ("K4", "mg_fused_rescan", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:191", "rescan",
+             by_path("rescan", ("rescan",))),
+            ("K5", "mg_stream_fold", "mg_stream",
+             "src/repro/kernels/mg_sketch/streaming.py:93", "stream_mg_auto",
+             by_path("stream_fold", ("stream_mg_auto", "stream_mg_aligned",
+                                     "stream_rescan_aligned"))),
+            ("K6", "mg_stream_select", "mg_stream",
+             "src/repro/kernels/mg_sketch/streaming.py:104",
+             "stream_mg_auto",
+             by_path("stream_select", ("stream_mg_auto",
+                                       "stream_mg_aligned"))),
+            ("K7", "mg_stream_bm_fold", "mg_stream",
+             "src/repro/kernels/mg_sketch/streaming.py:304",
+             "stream_bm_aligned", by_path("stream_bm", ("stream_bm_aligned",))),
+            ("K8", "mg_stream_rescan", "mg_stream",
+             "src/repro/kernels/mg_sketch/streaming.py:316",
+             "stream_rescan_aligned",
+             by_path("stream_rescan", ("stream_rescan_aligned",))))
     kernels = []
-    for key, name, replaces, launches, by_path in rows:
-        s = kstats[key]
+    for key, name, lib, replaces, main_path, launches_by_path in rows:
+        st = kstats[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None,
-            "launches_by_path": by_path,
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[lib],
+            "replaces": replaces,
+            "launches": launches_by_path[main_path],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": None,
+            "launches_by_path": launches_by_path,
             "parity": "exact (torch.equal) vs plain torch on the card",
             "ms_is": "one main-path iteration (sum over its launches)"})
     report["kernels"] = kernels

@@ -24,13 +24,20 @@ thing in both packages:
                        one K2 launch that folds the last round and selects;
                        per rescan iteration one K1 launch per round and one
                        K4 launch; per BM iteration one K3 launch.
+  * ``pallas_stream`` — the hand-written CUDA streamed engine
+                       (``repro_torch.kernels.mg_sketch.streaming``): the
+                       same launch structure over the windowed plan, with
+                       K5/K6 for the MG rounds, K7 for BM and K8 for the
+                       rescan; each unaligned round first re-lays its
+                       entries into windows (a plain torch gather).
 
 ``"auto"`` resolves exactly as the reference does (:func:`resolve_auto`,
 whose budget constant is the reference's TPU VMEM figure, kept so that
-the resolved name agrees). What this package does not port yet — the
-``pallas`` and ``pallas_stream`` backends, sparse mode and the
-``exact_weighted`` variant — raises ``NotImplementedError`` naming its
-``ROADMAP.md`` queue item; no request falls back to another engine.
+the resolved name agrees: past 8 MiB of round-0 entries it picks
+``pallas_stream``). What this package does not port yet — the ``pallas``
+backend, sparse mode and the ``exact_weighted`` variant — raises
+``NotImplementedError`` naming its ``ROADMAP.md`` queue item; no request
+falls back to another engine.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ if TYPE_CHECKING:  # import-time cycle guard: plan_bundle imports this module
 
 from repro_torch.core import sketch as sketch_lib
 from repro_torch.core.fold_program import FoldOutcome, FoldRequest
-from repro_torch.graphs.csr import FoldPlan, fused_dispatches
+from repro_torch.graphs.csr import (FoldPlan, fused_dispatches,
+                                    streamed_dispatches)
 
 #: The reference's "auto" budget (bytes) for the fused engine's round-0
 #: entry arrays (labels int32 + weights float32 = 8 bytes/entry). It is a
@@ -82,6 +90,8 @@ class FoldEngine:
     name: str = "base"
     #: does mg_select consume the FusedFoldPlan (vs the bucketed FoldPlan)?
     uses_fused_plan: bool = False
+    #: does mg_select consume the StreamedFoldPlan?
+    uses_stream_plan: bool = False
 
     def run(self, bundle: "PlanBundle", request: FoldRequest,
             entry_labels, entry_weights, labels) -> FoldOutcome:
@@ -217,9 +227,60 @@ class PallasFusedEngine(FoldEngine):
         return fused_dispatches(fused_plan)  # n_rounds (the last one selects)
 
 
+class PallasStreamEngine(FoldEngine):
+    """Windowed CUDA kernels — see kernels.mg_sketch.streaming. Named
+    ``pallas_stream`` after the reference engine it ports. Same launch
+    structure as ``pallas_fused`` (one launch per round, the last one
+    selecting; one round-0 launch for BM and for the rescan pass), over
+    the windowed plan."""
+
+    name = "pallas_stream"
+    uses_stream_plan = True
+
+    def mg_candidates(self, plan, stream_plan, entry_labels, entry_weights):
+        from repro_torch.kernels.mg_sketch.streaming import run_mg_plan_stream
+        _require_plan(stream_plan, 'pallas_stream', 'StreamedFoldPlan')
+        s_k, s_v = run_mg_plan_stream(stream_plan, entry_labels,
+                                      entry_weights)
+        return _scatter_padded_rows(stream_plan.n_nodes, stream_plan.k,
+                                    stream_plan.row_to_vertex, s_k, s_v)
+
+    def mg_select(self, plan, stream_plan, entry_labels, entry_weights,
+                  labels, seed):
+        from repro_torch.kernels.mg_sketch.streaming import select_best_stream
+        _require_plan(stream_plan, 'pallas_stream', 'StreamedFoldPlan')
+        return select_best_stream(stream_plan, entry_labels, entry_weights,
+                                  labels, seed)
+
+    def mg_rescan(self, plan, stream_plan, entry_labels, entry_weights,
+                  labels, seed):
+        from repro_torch.kernels.mg_sketch.streaming import (
+            rescan_select_stream)
+        _require_plan(stream_plan, 'pallas_stream', 'StreamedFoldPlan')
+        return rescan_select_stream(stream_plan, entry_labels,
+                                    entry_weights, labels, seed)
+
+    def bm_fold_plan(self, plan, stream_plan, entry_labels, entry_weights,
+                     labels):
+        from repro_torch.kernels.mg_sketch.streaming import run_bm_plan_stream
+        _require_plan(stream_plan, 'pallas_stream', 'StreamedFoldPlan')
+        return run_bm_plan_stream(stream_plan, entry_labels, entry_weights,
+                                  labels)
+
+    def dispatches_per_iter(self, plan, stream_plan, request):
+        _check_request(request)
+        if request.family == "bm":
+            return 1  # one K7 launch; the round-0 window grid lives inside
+        if request.rescan:
+            # all fold rounds (K5) + one rescan of round 0 (K8)
+            return streamed_dispatches(stream_plan) + 1
+        return streamed_dispatches(stream_plan)  # n_rounds (last: K6)
+
+
 def _scatter_padded_rows(n: int, k: int, row_to_vertex, s_k, s_v
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scatter padded per-row sketches to per-vertex candidate sets.
+    """Scatter padded per-row sketches to per-vertex candidate sets (the
+    fused and the streamed engines' shared tail).
 
     ``row_to_vertex`` [rows] int32 (-1 on pad rows) maps each padded row of
     ``s_k``/``s_v`` [rows, k] to its owning vertex. Real rows own distinct
@@ -271,10 +332,9 @@ def get_engine(name: str, mg_variant: str = "paper", *,
         return JnpEngine(mg_variant=mg_variant)
     if name == "pallas_fused":
         return PallasFusedEngine()
+    if name == "pallas_stream":
+        return PallasStreamEngine()
     if name == "pallas":
         raise unported("the per-bucket 'pallas' backend", "Queue 1 item 9")
-    if name == "pallas_stream":
-        raise unported("the streamed 'pallas_stream' backend",
-                       "Queue 1 item 8")
     raise ValueError(f"unknown fold backend {name!r}; expected one of "
                      f"{ENGINES + ('auto',)}")

@@ -14,9 +14,13 @@ neighbour-label gather; one K1 launch per fold round but the last; one K2
 launch that folds the last round and selects; the Pick-Less/move mask;
 the changed count and the frontier marks. ``rescan=True`` folds every
 round with K1 and re-scores the candidates with one K4 launch;
-``method="bm"`` folds round 0 with one K3 launch. The gathers, scatters,
-merges and masks are plain torch; the folds are the CUDA kernels.
-``method="exact"`` is plain torch (``repro_torch.core.exact``).
+``method="bm"`` folds round 0 with one K3 launch. On
+``fold_backend="pallas_stream"`` (and on ``"auto"`` past the budget) the
+same iterations run K5/K6, K5 + K8 and K7 over the windowed plan; with
+``aligned_layout=True`` the neighbour-label gather writes round 0's
+windows directly. The gathers, scatters, merges and masks are plain
+torch; the folds are the CUDA kernels. ``method="exact"`` is plain torch
+(``repro_torch.core.exact``).
 
 ``LPAConfig`` keeps every field of the reference, so a config carries
 across; a method, backend or option this package does not port yet raises
@@ -98,6 +102,10 @@ class LPAWorkspace:
     def fused_plan(self):
         return self.bundle.fused_plan
 
+    @property
+    def stream_plan(self):
+        return self.bundle.stream_plan
+
 
 def build_workspace(graph: CSRGraph, config: LPAConfig) -> LPAWorkspace:
     """Spec the config, build the bundle on the graph's device, attach the
@@ -128,15 +136,30 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
     # the bundle's spec carries the RESOLVED backend ("auto" was decided
     # at plan-build time), so the engine always finds its plan
     engine = get_engine(bundle.spec.backend, mg_variant=config.mg_variant)
-    nbr_labels = torch.index_select(labels, 0, graph.indices)
+    aux = bundle.aux_for(engine)
+    aligned = bool(engine.uses_stream_plan and aux is not None
+                   and aux.aligned)
     if config.method == "exact":
-        want = exact_choose(ws.edge_src, nbr_labels, graph.weights,
-                            graph.n_nodes, labels, seed)
+        want = exact_choose(ws.edge_src,
+                            torch.index_select(labels, 0, graph.indices),
+                            graph.weights, graph.n_nodes, labels, seed)
     else:  # "mg" or "bm": check_ported refused any other method
+        if aligned:
+            # window-aligned layout: ONE gather straight into round 0's
+            # window slots replaces labels[indices] AND the round's
+            # re-layout gather; the appended -1 slot absorbs the plan's
+            # n_nodes pad sentinel
+            labels_ext = torch.cat([labels, labels.new_full((1,), -1)])
+            nbr_labels = torch.index_select(labels_ext, 0,
+                                            aux.aligned_entry_vertex)
+            nbr_weights = aux.aligned_entry_weights
+        else:
+            nbr_labels = torch.index_select(labels, 0, graph.indices)
+            nbr_weights = graph.weights
         request = FoldRequest(family=config.method, mode="dense",
                               rescan=config.method == "mg" and config.rescan,
-                              seed=seed)
-        want = engine.run(bundle, request, nbr_labels, graph.weights,
+                              aligned=aligned, seed=seed)
+        want = engine.run(bundle, request, nbr_labels, nbr_weights,
                           labels).want
 
     allowed = (want < labels) if pick_less else (want != labels)

@@ -9,8 +9,8 @@ A copy of the single-host half of ``repro.core.plan_bundle``. A frozen
     outcome = engine.run(bundle, request, entry_labels, entry_weights,
                          labels)
 
-The plans are built on the graph's device. The per-shard half (the
-distributed workspace) is Queue 1 item 11.
+The plans are built on the graph's device (host numpy, then tensors).
+The per-shard half (the distributed workspace) is Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -19,8 +19,10 @@ from typing import Optional
 
 from repro_torch.core.fold_engine import ENGINES, resolve_auto, unported
 from repro_torch.graphs.csr import (CSRGraph, FoldPlan, FusedFoldPlan,
-                                    build_fold_plan, build_fused_fold_plan,
-                                    fused_work_rows)
+                                    StreamedFoldPlan, build_fold_plan,
+                                    build_fused_fold_plan,
+                                    build_streamed_fold_plan,
+                                    fused_work_rows, streamed_work_rows)
 
 __all__ = ["PlanSpec", "PlanBundle", "spec_for", "build_plan_bundle"]
 
@@ -39,9 +41,9 @@ class PlanSpec:
     k: int = 8             # MG sketch slots (paper: 8)
     chunk: int = 128       # virtual-vertex chunk width (paper D_H: 128)
     tile_r: int = 128      # fused plan rows per step (the padding unit)
-    # pallas_stream: pre-materialize round 0 window-aligned (not ported)
+    # pallas_stream: pre-materialize round 0 window-aligned
     aligned: bool = False
-    # pallas_stream: max entries per streamed window (not ported)
+    # pallas_stream: max entries per streamed window
     stream_window: int = 8192
     # "auto" resolution budget in bytes (None = the fold_engine default)
     vmem_budget_bytes: Optional[int] = None
@@ -65,35 +67,47 @@ class PlanBundle:
     """The plans one PlanSpec's requests consume, plus the sizing policy.
 
     The bucketed ``plan`` is always present (the jnp engine and the
-    reference oracles consume it); ``fused_plan`` is built iff the
-    resolved backend is ``pallas_fused``.
+    reference oracles consume it); exactly one aux plan is built for the
+    kernel engines: ``fused_plan`` iff the resolved backend is
+    ``pallas_fused``, ``stream_plan`` iff it is ``pallas_stream``.
     """
 
     # canonical bucketed multi-width plan (every backend's reference)
     plan: FoldPlan
     # whole-round fused plan — built iff spec.backend == "pallas_fused"
     fused_plan: Optional[FusedFoldPlan] = None
+    # windowed plan — built iff spec.backend == "pallas_stream" (carries
+    # the aligned layout when spec.aligned)
+    stream_plan: Optional[StreamedFoldPlan] = None
     # the resolved (never "auto") spec this bundle was built from
     spec: PlanSpec = dataclasses.field(default_factory=PlanSpec)
 
     def aux_for(self, engine):
         """The aux plan ``engine`` consumes next to the bucketed plan: the
-        fused plan for fused engines, None for the bucketed jnp backend."""
-        return self.fused_plan if engine.uses_fused_plan else None
+        streamed plan for stream engines, the fused plan for fused ones,
+        None for the bucketed jnp backend (its fused_plan slot is never
+        built)."""
+        return self.stream_plan if engine.uses_stream_plan \
+            else self.fused_plan
 
     def dense_work_rows(self) -> int:
         """Real (non-padding) fold rows one dense iteration computes."""
         if self.fused_plan is not None:
             return fused_work_rows(self.fused_plan)
+        if self.stream_plan is not None:
+            return streamed_work_rows(self.stream_plan)
         return sum(r.n_rows_total for r in self.plan.rounds)
 
     def default_cap_rows(self) -> int:
-        """Half the largest round's real rows — sparse only pays off once
-        the frontier has thinned below the compaction overhead's
-        break-even."""
+        """Half the largest round's real rows (windows, on the streamed
+        plan) — sparse only pays off once the frontier has thinned below
+        the compaction overhead's break-even."""
         if self.fused_plan is not None:
             worst = max(int((r.row_vertex >= 0).sum())
                         for r in self.fused_plan.rounds)
+        elif self.stream_plan is not None:
+            worst = max(r.row_start.shape[0]
+                        for r in self.stream_plan.rounds)
         else:
             worst = max(r.n_rows_total for r in self.plan.rounds)
         return max(1, worst // 2)
@@ -121,17 +135,24 @@ def build_plan_bundle(graph: CSRGraph, spec: PlanSpec) -> PlanBundle:
         spec = dataclasses.replace(spec, backend=backend)
     if backend == "pallas":
         raise unported("the per-bucket 'pallas' backend", "Queue 1 item 9")
-    if backend == "pallas_stream":
-        raise unported("the streamed 'pallas_stream' backend",
-                       "Queue 1 item 8")
     if backend not in ENGINES:
         raise ValueError(f"unknown fold backend {backend!r} in PlanSpec")
     plan = build_fold_plan(degrees, k=spec.k, chunk=spec.chunk,
                            device=graph.device)
-    fused_plan = None
+    fused_plan = stream_plan = None
     if backend == "pallas_fused":
         fused_plan = build_fused_fold_plan(degrees, k=spec.k,
                                            chunk=spec.chunk,
                                            tile_r=spec.tile_r,
                                            device=graph.device)
-    return PlanBundle(plan=plan, fused_plan=fused_plan, spec=spec)
+    elif backend == "pallas_stream":
+        # "auto" resolved above, so budget-forced streaming takes the
+        # aligned layout whenever the spec asks for it
+        stream_plan = build_streamed_fold_plan(
+            degrees, k=spec.k, chunk=spec.chunk, tile_r=spec.tile_r,
+            window_entries=spec.stream_window,
+            indices=graph.indices.cpu().numpy() if spec.aligned else None,
+            weights=graph.weights.cpu().numpy() if spec.aligned else None,
+            aligned=spec.aligned, device=graph.device)
+    return PlanBundle(plan=plan, fused_plan=fused_plan,
+                      stream_plan=stream_plan, spec=spec)

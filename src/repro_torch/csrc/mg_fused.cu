@@ -24,13 +24,13 @@
 // registers (K is a template parameter, every slot loop is unrolled), and
 // the thread walks its row's entries in entry order, so each row sees the
 // reference's exact sequence of float32 adds, subtracts and maxes: the
-// results are bit-identical to the reference. The fold has no multiply, so
-// contraction could not change a bit; the build still passes -fmad=false
-// and no fast-math flag. The thread reads exactly row_count entries: the
-// TPU kernel's chunk-wide slices, pad lanes, per-step loop bound
-// (step_dmax) and chunk slack entries are tiling devices that a per-thread
-// loop does not need. Pad rows (row_count == 0) write empty sketches
-// (-1, 0.0f), which the next round reads as exact no-ops.
+// results are bit-identical to the reference. The per-row bodies live in
+// sketch_rows.cuh, shared with the streamed kernels (mg_stream.cu), so
+// both engines run one fold body. The thread reads exactly row_count
+// entries: the TPU kernel's chunk-wide slices, pad lanes, per-step loop
+// bound (step_dmax) and chunk slack entries are tiling devices that a
+// per-thread loop does not need. Pad rows (row_count == 0) write empty
+// sketches (-1, 0.0f), which the next round reads as exact no-ops.
 //
 // Bound on the H100. All four kernels are bound by bytes, not operations:
 // round 0 of K1 reads 8 B per entry (int32 label + float32 weight) plus
@@ -51,107 +51,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sketch_rows.cuh"
+
 namespace {
 
+using sketch_rows::bm_fold_row;
+using sketch_rows::mg_fold_row;
+using sketch_rows::rescan_row;
+using sketch_rows::select_row;
+
 constexpr int kThreadsPerBlock = 128;
-constexpr int kIntMax = 0x7FFFFFFF;
-constexpr uint32_t kUintMax = 0xFFFFFFFFu;
-
-// Weighted MG accumulate of one row (reference: fused.py:_mg_fold and
-// repro.core.sketch.mg_fold_tile). An entry is valid iff w > 0 and c >= 0.
-// A valid entry adds w to the occupied slot holding c; else it claims the
-// first free slot as (c, w); else every slot loses w, clamped at 0.
-template <int K>
-__device__ __forceinline__ void mg_fold_row(const int* __restrict__ elab,
-                                            const float* __restrict__ ewgt,
-                                            int start, int count,
-                                            int (&lab)[K], float (&val)[K]) {
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    lab[j] = -1;
-    val[j] = 0.0f;
-  }
-  for (int i = 0; i < count; ++i) {
-    const int c = __ldg(elab + start + i);
-    const float w = __ldg(ewgt + start + i);
-    if (!(w > 0.0f && c >= 0)) continue;
-    bool matched = false;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (val[j] > 0.0f && lab[j] == c) {
-        val[j] += w;
-        matched = true;
-      }
-    }
-    if (matched) continue;
-    bool claimed = false;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (!claimed && !(val[j] > 0.0f)) {
-        lab[j] = c;
-        val[j] = w;
-        claimed = true;
-      }
-    }
-    if (claimed) continue;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const float d = val[j] - w;
-      val[j] = d < 0.0f ? 0.0f : d;  // the reference's maximum(d, 0.0)
-    }
-  }
-}
-
-// repro.core.sketch.hash_mix in native uint32 arithmetic (wraps mod 2^32).
-__device__ __forceinline__ uint32_t hash_mix(int x, int seed) {
-  uint32_t h = static_cast<uint32_t>(x) * 2654435761u;
-  h ^= static_cast<uint32_t>(seed) * 0x9E3779B9u;
-  h ^= h >> 15;
-  h *= 0x85EBCA77u;
-  return h ^ (h >> 13);
-}
-
-// fused.py:_select_rows for one row: candidates are the slots with weight
-// > 0 plus the incumbent at its sketched weight (0 if absent); the max
-// weight wins, ties go to the min hash, then to the min label; with no
-// candidate the row keeps the incumbent.
-template <int K>
-__device__ __forceinline__ int select_row(const int (&lab)[K],
-                                          const float (&val)[K], int inc,
-                                          int seed) {
-  int cand[K + 1];
-  float wgt[K + 1];
-  float cur_w = 0.0f;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    cand[j] = val[j] > 0.0f ? lab[j] : -1;
-    wgt[j] = val[j];
-    if (cand[j] == inc && val[j] > 0.0f && val[j] > cur_w) cur_w = val[j];
-  }
-  cand[K] = inc;
-  wgt[K] = cur_w;
-  float w_best = -1.0f;
-#pragma unroll
-  for (int j = 0; j <= K; ++j) {
-    const float w = cand[j] >= 0 ? wgt[j] : -1.0f;
-    if (w > w_best) w_best = w;
-  }
-  uint32_t h[K + 1];
-  uint32_t h_best = kUintMax;
-#pragma unroll
-  for (int j = 0; j <= K; ++j) {
-    const bool tied = cand[j] >= 0 && wgt[j] >= w_best;
-    h[j] = tied ? hash_mix(cand[j], seed) : kUintMax;
-    if (h[j] < h_best) h_best = h[j];
-  }
-  int c_best = kIntMax;
-#pragma unroll
-  for (int j = 0; j <= K; ++j) {
-    const bool tied = cand[j] >= 0 && wgt[j] >= w_best;
-    if (tied && h[j] <= h_best && cand[j] < c_best) c_best = cand[j];
-  }
-  return c_best == kIntMax ? inc : c_best;
-}
 
 template <int K>
 __global__ void __launch_bounds__(kThreadsPerBlock)
@@ -165,7 +74,8 @@ mg_fused_fold_kernel(const int* __restrict__ row_start,
   if (r >= n_rows) return;
   int lab[K];
   float val[K];
-  mg_fold_row<K>(elab, ewgt, row_start[r], row_count[r], lab, val);
+  const int start = row_start[r];
+  mg_fold_row<K>(elab + start, ewgt + start, row_count[r], lab, val);
   const int64_t o = static_cast<int64_t>(r) * K;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
@@ -186,16 +96,13 @@ mg_fused_select_kernel(const int* __restrict__ row_start,
   if (r >= n_rows) return;
   int lab[K];
   float val[K];
-  mg_fold_row<K>(elab, ewgt, row_start[r], row_count[r], lab, val);
+  const int start = row_start[r];
+  mg_fold_row<K>(elab + start, ewgt + start, row_count[r], lab, val);
   out_c[r] = select_row<K>(lab, val, incumbents[r], seed);
 }
 
-// K3: fused.py:_bm_fold for one row. The reference writes the update as
-// wk + where(same, w, 0) - where(bigger, w, 0); adding or subtracting
-// +0.0f leaves the carry's bits unchanged because the carry is never
-// -0.0f (it starts at +0.0f, grows by w > 0, shrinks only while wk > w),
-// so the branches below are bit-identical to it. Pad rows (count 0, init
-// -1) write (-1, 0.0f).
+// K3: one BM scan per row from its incumbent (pad rows: count 0, init -1,
+// write (-1, 0.0f)).
 __global__ void __launch_bounds__(kThreadsPerBlock)
 mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
                         const int* __restrict__ row_count,
@@ -207,31 +114,11 @@ mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rows) return;
   const int start = row_start[r];
-  const int count = row_count[r];
-  int ck = init[r];
-  float wk = 0.0f;
-  for (int i = 0; i < count; ++i) {
-    const int c = __ldg(elab + start + i);
-    const float w = __ldg(ewgt + start + i);
-    if (!(w > 0.0f && c >= 0)) continue;
-    if (c == ck) {
-      wk = wk + w;
-    } else if (wk > w) {
-      wk = wk - w;
-    } else {
-      ck = c;
-      wk = w;
-    }
-  }
-  out_c[r] = ck;
-  out_w[r] = wk;
+  bm_fold_row(elab + start, ewgt + start, row_count[r], init[r], out_c + r,
+              out_w + r);
 }
 
-// K4: fused.py:_rescan_acc for one row. Unlike K1-K3 every entry counts,
-// w <= 0 included: acc[j] += w for each candidate j >= 0 equal to the
-// entry's label, in entry order from +0.0f. The reference adds 0.0f to the
-// other slots, which changes no bit (an accumulator that starts at +0.0f
-// is never -0.0f), so those adds are skipped.
+// K4: per-candidate sums of one row's round-0 entries.
 template <int K>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 mg_fused_rescan_kernel(const int* __restrict__ row_start,
@@ -243,25 +130,8 @@ mg_fused_rescan_kernel(const int* __restrict__ row_start,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rows) return;
   const int64_t o = static_cast<int64_t>(r) * K;
-  int lab[K];
-  float acc[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    lab[j] = cand[o + j];
-    acc[j] = 0.0f;
-  }
   const int start = row_start[r];
-  const int count = row_count[r];
-  for (int i = 0; i < count; ++i) {
-    const int c = __ldg(elab + start + i);
-    const float w = __ldg(ewgt + start + i);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (lab[j] >= 0 && lab[j] == c) acc[j] += w;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) out[o + j] = acc[j];
+  rescan_row<K>(elab + start, ewgt + start, row_count[r], cand + o, out + o);
 }
 
 inline dim3 grid_for(int n_rows) {
@@ -270,11 +140,6 @@ inline dim3 grid_for(int n_rows) {
 }
 
 }  // namespace
-
-// The widths a run or a test on the card uses: k = 8 on the main path,
-// 4 and 32 in tests/test_torch_cuda_kernels.py (K1, K2 and K4; K3 keeps
-// one carry and has no k).
-#define MG_FUSED_FOR_EACH_K(X) X(4) X(8) X(32)
 
 // Launchers: plain C interface for ctypes. Each returns cudaGetLastError()
 // after the launch (0 = launched), or cudaErrorInvalidValue for a k that
@@ -301,7 +166,7 @@ extern "C" int mg_fused_fold(const void* row_start, const void* row_count,
     mg_fused_fold_kernel<KK><<<grid_for(n_rows), kThreadsPerBlock, 0, \
                                s>>>(rs, rc, el, ew, ok, ov, n_rows);  \
     break;
-    MG_FUSED_FOR_EACH_K(MG_FOLD_CASE)
+    SKETCH_ROWS_FOR_EACH_K(MG_FOLD_CASE)
 #undef MG_FOLD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -332,7 +197,7 @@ extern "C" int mg_fused_select(const void* row_start, const void* row_count,
                                  s>>>(rs, rc, inc, seed, el, ew, oc,      \
                                       n_rows);                            \
     break;
-    MG_FUSED_FOR_EACH_K(MG_SELECT_CASE)
+    SKETCH_ROWS_FOR_EACH_K(MG_SELECT_CASE)
 #undef MG_SELECT_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -378,7 +243,7 @@ extern "C" int mg_fused_rescan(const void* row_start, const void* row_count,
     mg_fused_rescan_kernel<KK><<<grid_for(n_rows), kThreadsPerBlock, 0,   \
                                  s>>>(rs, rc, cd, el, ew, o, n_rows);     \
     break;
-    MG_FUSED_FOR_EACH_K(MG_RESCAN_CASE)
+    SKETCH_ROWS_FOR_EACH_K(MG_RESCAN_CASE)
 #undef MG_RESCAN_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,0 +1,183 @@
+// Per-row sketch folds shared by the fused (mg_fused.cu) and the streamed
+// (mg_stream.cu) kernels: one fold body per sketch, so both engines keep
+// the reference's per-row float32 order. Each body reads exactly `count`
+// entries from `elab`/`ewgt`, already offset to the row's first entry, in
+// entry order; the kernels differ only in how they find that offset.
+//
+// Bit-exactness. Every body is a fixed sequence of float32 adds, subtracts
+// and maxes per row, the reference's sequence. The folds have no multiply,
+// so contraction could not change a bit; the build still passes
+// -fmad=false and no fast-math flag.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sketch_rows {
+
+constexpr int kIntMax = 0x7FFFFFFF;
+constexpr uint32_t kUintMax = 0xFFFFFFFFu;
+
+// Weighted MG accumulate of one row (reference: fused.py:_mg_fold and
+// repro.core.sketch.mg_fold_tile). An entry is valid iff w > 0 and c >= 0.
+// A valid entry adds w to the occupied slot holding c; else it claims the
+// first free slot as (c, w); else every slot loses w, clamped at 0.
+template <int K>
+__device__ __forceinline__ void mg_fold_row(const int* __restrict__ elab,
+                                            const float* __restrict__ ewgt,
+                                            int count, int (&lab)[K],
+                                            float (&val)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    lab[j] = -1;
+    val[j] = 0.0f;
+  }
+  for (int i = 0; i < count; ++i) {
+    const int c = __ldg(elab + i);
+    const float w = __ldg(ewgt + i);
+    if (!(w > 0.0f && c >= 0)) continue;
+    bool matched = false;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (val[j] > 0.0f && lab[j] == c) {
+        val[j] += w;
+        matched = true;
+      }
+    }
+    if (matched) continue;
+    bool claimed = false;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (!claimed && !(val[j] > 0.0f)) {
+        lab[j] = c;
+        val[j] = w;
+        claimed = true;
+      }
+    }
+    if (claimed) continue;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float d = val[j] - w;
+      val[j] = d < 0.0f ? 0.0f : d;  // the reference's maximum(d, 0.0)
+    }
+  }
+}
+
+// repro.core.sketch.hash_mix in native uint32 arithmetic (wraps mod 2^32).
+__device__ __forceinline__ uint32_t hash_mix(int x, int seed) {
+  uint32_t h = static_cast<uint32_t>(x) * 2654435761u;
+  h ^= static_cast<uint32_t>(seed) * 0x9E3779B9u;
+  h ^= h >> 15;
+  h *= 0x85EBCA77u;
+  return h ^ (h >> 13);
+}
+
+// fused.py:_select_rows for one row: candidates are the slots with weight
+// > 0 plus the incumbent at its sketched weight (0 if absent); the max
+// weight wins, ties go to the min hash, then to the min label; with no
+// candidate the row keeps the incumbent.
+template <int K>
+__device__ __forceinline__ int select_row(const int (&lab)[K],
+                                          const float (&val)[K], int inc,
+                                          int seed) {
+  int cand[K + 1];
+  float wgt[K + 1];
+  float cur_w = 0.0f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    cand[j] = val[j] > 0.0f ? lab[j] : -1;
+    wgt[j] = val[j];
+    if (cand[j] == inc && val[j] > 0.0f && val[j] > cur_w) cur_w = val[j];
+  }
+  cand[K] = inc;
+  wgt[K] = cur_w;
+  float w_best = -1.0f;
+#pragma unroll
+  for (int j = 0; j <= K; ++j) {
+    const float w = cand[j] >= 0 ? wgt[j] : -1.0f;
+    if (w > w_best) w_best = w;
+  }
+  uint32_t h[K + 1];
+  uint32_t h_best = kUintMax;
+#pragma unroll
+  for (int j = 0; j <= K; ++j) {
+    const bool tied = cand[j] >= 0 && wgt[j] >= w_best;
+    h[j] = tied ? hash_mix(cand[j], seed) : kUintMax;
+    if (h[j] < h_best) h_best = h[j];
+  }
+  int c_best = kIntMax;
+#pragma unroll
+  for (int j = 0; j <= K; ++j) {
+    const bool tied = cand[j] >= 0 && wgt[j] >= w_best;
+    if (tied && h[j] <= h_best && cand[j] < c_best) c_best = cand[j];
+  }
+  return c_best == kIntMax ? inc : c_best;
+}
+
+// fused.py:_bm_fold for one row, from the carry (init, 0.0f). The
+// reference writes the update as wk + where(same, w, 0) - where(bigger, w,
+// 0); adding or subtracting +0.0f leaves the carry's bits unchanged because
+// the carry is never -0.0f (it starts at +0.0f, grows by w > 0, shrinks
+// only while wk > w), so the branches below are bit-identical to it. A row
+// of count 0 keeps (init, 0.0f).
+__device__ __forceinline__ void bm_fold_row(const int* __restrict__ elab,
+                                            const float* __restrict__ ewgt,
+                                            int count, int init, int* ck_out,
+                                            float* wk_out) {
+  int ck = init;
+  float wk = 0.0f;
+  for (int i = 0; i < count; ++i) {
+    const int c = __ldg(elab + i);
+    const float w = __ldg(ewgt + i);
+    if (!(w > 0.0f && c >= 0)) continue;
+    if (c == ck) {
+      wk = wk + w;
+    } else if (wk > w) {
+      wk = wk - w;
+    } else {
+      ck = c;
+      wk = w;
+    }
+  }
+  *ck_out = ck;
+  *wk_out = wk;
+}
+
+// fused.py:_rescan_acc for one row. Unlike the other folds every entry
+// counts, w <= 0 included: acc[j] += w for each candidate j >= 0 equal to
+// the entry's label, in entry order from +0.0f. The reference adds 0.0f to
+// the other slots, which changes no bit (an accumulator that starts at
+// +0.0f is never -0.0f), so those adds are skipped. `cand` and `out` point
+// at the row's k candidates and k outputs.
+template <int K>
+__device__ __forceinline__ void rescan_row(const int* __restrict__ elab,
+                                           const float* __restrict__ ewgt,
+                                           int count,
+                                           const int* __restrict__ cand,
+                                           float* __restrict__ out) {
+  int lab[K];
+  float acc[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    lab[j] = cand[j];
+    acc[j] = 0.0f;
+  }
+  for (int i = 0; i < count; ++i) {
+    const int c = __ldg(elab + i);
+    const float w = __ldg(ewgt + i);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (lab[j] >= 0 && lab[j] == c) acc[j] += w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) out[j] = acc[j];
+}
+
+}  // namespace sketch_rows
+
+// The widths a run or a test on the card uses: k = 8 on the main path,
+// 4 and 32 in tests/test_torch_cuda_kernels.py (the MG folds, the select
+// and the rescan; the BM fold keeps one carry and has no k).
+#define SKETCH_ROWS_FOR_EACH_K(X) X(4) X(8) X(32)

@@ -1,9 +1,12 @@
 """CSR graph container and the sketch fold plans, on torch tensors.
 
-A copy of ``repro.graphs.csr`` (the JAX reference) for the two plans the
-main path runs: the bucketed ``FoldPlan`` that the plain-torch reference
-engine walks, and the ``FusedFoldPlan`` whose rounds the CUDA kernels in
-``repro_torch.kernels.mg_sketch.fused`` fold in one launch each.
+A copy of ``repro.graphs.csr`` (the JAX reference) for three plans: the
+bucketed ``FoldPlan`` that the plain-torch reference engine walks, the
+``FusedFoldPlan`` whose rounds the CUDA kernels in
+``repro_torch.kernels.mg_sketch.fused`` fold in one launch each, and the
+windowed ``StreamedFoldPlan`` (optionally with round 0 pre-aligned) whose
+rounds the kernels in ``repro_torch.kernels.mg_sketch.streaming`` fold in
+one launch each, one block per window.
 
 Plan construction is host-side numpy, line for line the reference's; only
 the final arrays become tensors on the requested device. Dtypes are kept:
@@ -391,6 +394,364 @@ def fused_dispatches(plan: FusedFoldPlan) -> int:
 
 
 def fused_work_rows(plan: FusedFoldPlan) -> int:
+    """Real fold rows one dense iteration computes (all rounds)."""
+    return sum(int(torch.count_nonzero(r.row_vertex >= 0))
+               for r in plan.rounds)
+
+
+# ---------------------------------------------------------------------------
+# Streamed plan: fixed-size entry windows, one block per window on the card
+# ---------------------------------------------------------------------------
+#
+# The streamed plan re-lays every round's entries into fixed-size windows of
+# at most ``window_entries`` slots such that no row straddles a window
+# boundary: each window owns at most ``tile_r`` rows whose entries are
+# packed contiguously at window-relative offsets, with the invariant
+# ``rel_start + chunk <= window_entries``. Windows close greedily on
+# whichever cap hits first (rows == tile_r, or entries past the slice-safe
+# limit), and the materialized window stride is shrunk to the widest window
+# actually produced (a multiple of _STREAM_ALIGN). The kernels
+# (repro_torch.kernels.mg_sketch.streaming) run one block per window.
+
+_STREAM_ALIGN = 128  # the materialized window stride is a multiple of this
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedRound:
+    """Per-round metadata of the windowed fold.
+
+    Shapes (W = ``window_entries``, R = rows per window = the plan's
+    ``tile_r``): the round covers ``n_windows`` windows; window ``w`` owns
+    entry slots ``[w*W, (w+1)*W)`` of the windowed layout and row slots
+    ``[w*R, (w+1)*R)`` of the padded output.
+    """
+
+    entry_gather: torch.Tensor  # [n_windows * W] int32 — source position per windowed slot (-1 = pad)
+    row_start: torch.Tensor     # [n_windows, R] int32 — window-RELATIVE entry offset (0 on pad rows)
+    row_count: torch.Tensor     # [n_windows, R] int32 — valid entries of the row (0 on pad rows)
+    step_dmax: torch.Tensor     # [n_windows, 1] int32 — max row_count within the window
+    n_entries_in: int           # int — flat source entry-array length this round consumes
+    window_entries: int         # int — W, entry slots per window (slice-safe: rel+chunk <= W)
+    # [n_windows * R] int32 — owning vertex of each row slot (-1 on pad slots)
+    row_vertex: Optional[torch.Tensor] = None
+    # bool — True when the round's source entries are ALREADY in the
+    # windowed layout (build_streamed_fold_plan(aligned=True) round 0):
+    # entry_gather is the identity over real slots, n_entries_in is
+    # n_windows * W, and the round wrappers skip the re-layout gather
+    aligned: bool = False
+
+    @property
+    def n_windows(self) -> int:
+        return self.row_start.shape[0]
+
+    @property
+    def tile_r(self) -> int:
+        return self.row_start.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedFoldPlan:
+    """Static windowed reduction plan: one kernel launch per round, one
+    block per window of at most ``window_entries`` entry slots.
+
+    With ``aligned_entry_vertex``/``aligned_entry_weights`` set
+    (``build_streamed_fold_plan(aligned=True)``), round 0's entry arrays
+    are pre-materialized in the windowed layout: ``lpa_move`` gathers
+    neighbour labels straight into window slots and round 0 skips the
+    per-iteration re-layout gather.
+    """
+
+    rounds: Tuple[StreamedRound, ...]  # tuple[StreamedRound] — one windowed fold round each
+    row_to_vertex: torch.Tensor  # [last n_windows * tile_r] int32 — owning vertex (-1 pad)
+    n_nodes: int   # int — vertex count N of the planned graph
+    k: int         # int — sketch slots per row
+    chunk: int     # int — entries per virtual-vertex row (paper D_H)
+    row_to_vertex0: Optional[torch.Tensor] = None  # [round-0 n_windows * tile_r] int32
+    row_rank0: Optional[torch.Tensor] = None       # [round-0 n_windows * tile_r] int32
+    max_rows0: int = 1  # int — max chunk rows any vertex owns on round 0
+    # [round-0 n_windows * W] int32 — neighbour VERTEX id per round-0
+    # window slot, sentinel n_nodes on pad slots (None: unaligned layout).
+    # ``lpa_move`` gathers labels_ext[aligned_entry_vertex], where
+    # labels_ext appends one -1 slot, yielding windowed entry labels.
+    aligned_entry_vertex: Optional[torch.Tensor] = None
+    # [round-0 n_windows * W] float32 — edge weight per round-0 window slot
+    # (0.0 on pad slots). None: unaligned layout.
+    aligned_entry_weights: Optional[torch.Tensor] = None
+
+    @property
+    def n_rounds(self) -> int:
+        return len(self.rounds)
+
+    @property
+    def aligned(self) -> bool:
+        """True when round 0 carries the pre-materialized windowed layout."""
+        return self.aligned_entry_vertex is not None
+
+
+def _pack_stream_windows(row_count: np.ndarray, chunk: int, tile_r: int,
+                         window_cap: int) -> dict:
+    """Greedily assign rows (kept in order) to slice-safe entry windows.
+
+    Rows pack contiguously: row i's window-relative start is the sum of the
+    counts of the rows before it in the same window. A window closes when it
+    holds ``tile_r`` rows or when the next row's ``rel_start + chunk`` would
+    exceed ``window_cap``.
+
+    Returns numpy arrays: ``win_of_row``/``rel_start``/``slot_of_row`` per
+    row, plus ``n_windows`` and the aligned ``window_entries`` stride
+    actually needed (>= ``chunk``).
+    """
+    if window_cap < chunk:
+        raise ValueError(f"window_cap ({window_cap}) must be >= chunk "
+                         f"({chunk}) for slice-safe rows")
+    n_rows = len(row_count)
+    if n_rows == 0:
+        w = -(-chunk // _STREAM_ALIGN) * _STREAM_ALIGN
+        return {"win_of_row": np.zeros(0, np.int64),
+                "rel_start": np.zeros(0, np.int64),
+                "slot_of_row": np.zeros(0, np.int64),
+                "n_windows": 1, "window_entries": w}
+    cum = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(row_count, out=cum[1:])
+    firsts = []
+    p = 0
+    while p < n_rows:
+        # last includable row q has rel_start = cum[q]-cum[p] <= cap - chunk
+        q = int(np.searchsorted(cum, cum[p] + window_cap - chunk,
+                                side="right"))
+        q = max(min(q, p + tile_r, n_rows), p + 1)
+        firsts.append(p)
+        p = q
+    firsts_arr = np.asarray(firsts, dtype=np.int64)
+    n_windows = len(firsts)
+    rows_per_win = np.diff(np.concatenate([firsts_arr, [n_rows]]))
+    win_of_row = np.repeat(np.arange(n_windows, dtype=np.int64), rows_per_win)
+    rel_start = cum[:-1] - cum[firsts_arr[win_of_row]]
+    slot_of_row = win_of_row * tile_r + (np.arange(n_rows) -
+                                         firsts_arr[win_of_row])
+    need = int((rel_start + chunk).max())
+    w = -(-max(need, chunk) // _STREAM_ALIGN) * _STREAM_ALIGN
+    return {"win_of_row": win_of_row, "rel_start": rel_start,
+            "slot_of_row": slot_of_row, "n_windows": n_windows,
+            "window_entries": w}
+
+
+def _materialize_stream_round(row_vstart: np.ndarray, row_count: np.ndarray,
+                              pack: dict, pos_table: np.ndarray | None,
+                              tile_r: int) -> dict:
+    """Build one round's arrays from a window packing.
+
+    ``row_vstart`` is each row's start in the round's *virtual* vertex-major
+    entry space; ``pos_table`` (None on round 0) maps virtual positions to
+    actual positions in the previous round's padded flattened output.
+    Returns int32 numpy arrays: ``entry_gather`` [n_windows * W],
+    ``row_start``/``row_count`` [n_windows, R], ``step_dmax`` [n_windows, 1].
+    """
+    n_rows = len(row_count)
+    n_windows, w = pack["n_windows"], pack["window_entries"]
+    gather = np.full(n_windows * w, -1, dtype=np.int64)
+    if n_rows:
+        cum = np.zeros(n_rows + 1, dtype=np.int64)
+        np.cumsum(row_count, out=cum[1:])
+        total = int(cum[-1])
+        row_of_entry = np.repeat(np.arange(n_rows, dtype=np.int64), row_count)
+        intra = np.arange(total, dtype=np.int64) - np.repeat(cum[:-1],
+                                                             row_count)
+        out_pos = (pack["win_of_row"][row_of_entry] * w
+                   + pack["rel_start"][row_of_entry] + intra)
+        src = row_vstart[row_of_entry] + intra
+        if pos_table is not None:
+            src = pos_table[src]
+        gather[out_pos] = src
+    rs = np.zeros((n_windows * tile_r,), dtype=np.int64)
+    rc = np.zeros((n_windows * tile_r,), dtype=np.int64)
+    rs[pack["slot_of_row"]] = pack["rel_start"]
+    rc[pack["slot_of_row"]] = row_count
+    rs = rs.reshape(n_windows, tile_r).astype(np.int32)
+    rc = rc.reshape(n_windows, tile_r).astype(np.int32)
+    return {"entry_gather": gather.astype(np.int32), "row_start": rs,
+            "row_count": rc,
+            "step_dmax": rc.max(axis=1, keepdims=True).astype(np.int32)}
+
+
+def build_streamed_rounds(counts: np.ndarray, starts: np.ndarray,
+                          n_entries: int, *, k: int, chunk: int, tile_r: int,
+                          window_cap: int, min_rounds: int = 1
+                          ) -> Tuple[List[dict], np.ndarray]:
+    """Host-side core of the streamed plan.
+
+    ``counts``/``starts`` [N] give each vertex's entry range in the round-0
+    source array of length ``n_entries`` (CSR degrees/offsets). Folds the
+    identical per-row entry sequences as ``build_fused_fold_plan`` (same
+    chunking, same ascending-count row sort), so per-vertex results are
+    bit-identical; only the window re-layout differs. ``min_rounds``
+    forces extra merge rounds.
+
+    Returns (one numpy dict per round with the ``StreamedRound`` fields,
+    final ``row_to_vertex`` [last n_windows * tile_r], -1 on pad slots).
+    """
+    counts = np.asarray(counts, dtype=np.int64).copy()
+    starts = np.asarray(starts, dtype=np.int64).copy()
+    n = len(counts)
+    rounds: List[dict] = []
+    pos_table: np.ndarray | None = None
+    r = 0
+    while True:
+        order = np.argsort(counts, kind="stable")  # ascending entry count
+        n_chunks = ((counts + chunk - 1) // chunk).astype(np.int64)
+        nc_ord = n_chunks[order]
+        total_rows = int(nc_ord.sum())
+        row_vertex = np.repeat(order, nc_ord)
+        row_rank = np.arange(total_rows, dtype=np.int64) - np.repeat(
+            np.cumsum(nc_ord) - nc_ord, nc_ord)
+        row_vstart = starts[row_vertex] + row_rank * chunk
+        row_count = np.minimum(counts[row_vertex] - row_rank * chunk, chunk)
+        pack = _pack_stream_windows(row_count, chunk, tile_r, window_cap)
+        rnd = _materialize_stream_round(row_vstart, row_count, pack,
+                                        pos_table, tile_r)
+        rnd.update(n_entries_in=int(n_entries),
+                   window_entries=pack["window_entries"])
+        # slot -> (owning vertex, chunk rank) of this round's rows (-1/0 on
+        # pad slots) — round 0's is what the BM fold and rescan reduce over
+        slot_v = np.full(pack["n_windows"] * tile_r, -1, dtype=np.int64)
+        slot_r = np.zeros(pack["n_windows"] * tile_r, dtype=np.int64)
+        slot_v[pack["slot_of_row"]] = row_vertex
+        slot_r[pack["slot_of_row"]] = row_rank
+        rnd.update(row_to_vertex=slot_v.astype(np.int32),
+                   row_rank=slot_r.astype(np.int32),
+                   max_rows=max(int(n_chunks.max()) if len(n_chunks) else 0,
+                                1))
+        rounds.append(rnd)
+        if np.all(n_chunks <= 1) and (r + 1) >= min_rounds:
+            rtv = np.full(pack["n_windows"] * tile_r, -1, dtype=np.int64)
+            rtv[pack["slot_of_row"]] = row_vertex
+            return rounds, rtv.astype(np.int32)
+        # Next round consumes each vertex's partial [k]-slot sketches in
+        # (vertex, rank) order; pos_table maps that vertex-major virtual
+        # space to the actual padded slots of this round's output.
+        vm = np.lexsort((row_rank, row_vertex))
+        slots_vm = pack["slot_of_row"][vm]
+        pos_table = (slots_vm[:, None] * k
+                     + np.arange(k, dtype=np.int64)).reshape(-1)
+        counts = n_chunks * k
+        starts = np.zeros(n, dtype=np.int64)
+        starts[1:] = np.cumsum(counts)[:-1]
+        n_entries = pack["n_windows"] * tile_r * k
+        r += 1
+
+
+def build_streamed_fold_plan(degrees: np.ndarray, k: int = 8,
+                             chunk: int = 128, tile_r: int = 128,
+                             window_entries: int = 8192, *,
+                             indices: np.ndarray | None = None,
+                             weights: np.ndarray | None = None,
+                             aligned: bool = False,
+                             device=None) -> StreamedFoldPlan:
+    """Construct the windowed plan from the degree sequence.
+
+    ``window_entries`` caps the entry slots per window. Folds the identical
+    entry sequences as ``build_fold_plan``/``build_fused_fold_plan``, so
+    per-vertex results are bit-identical; only the windowed layout and the
+    per-window launch grid differ.
+
+    ``aligned=True`` (requires the CSR ``indices``/``weights`` on the
+    host) stores the round-0 entry arrays window-aligned at build time:
+    the plan carries ``aligned_entry_vertex``/``aligned_entry_weights``,
+    round 0's ``entry_gather`` becomes the identity over window slots
+    (real slots -> themselves, pads -> -1) and its ``n_entries_in`` the
+    window-slot count. Later rounds are unchanged.
+    """
+    device = resolve_device(device)
+    degrees = np.asarray(degrees, dtype=np.int64)
+    n = len(degrees)
+    if chunk <= k:
+        raise ValueError(f"chunk ({chunk}) must exceed sketch slots k ({k})")
+    if aligned and (indices is None or weights is None):
+        raise ValueError("aligned=True needs the CSR indices and weights to "
+                         "pre-materialize the windowed round-0 entries")
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(degrees, out=offsets[1:])
+    rounds_np, rtv = build_streamed_rounds(
+        degrees, offsets[:-1], int(degrees.sum()), k=k, chunk=chunk,
+        tile_r=tile_r, window_cap=window_entries)
+    aev = aew = None
+    rounds = []
+    for ri, r in enumerate(rounds_np):
+        eg, n_in, is_aligned = r["entry_gather"], r["n_entries_in"], False
+        if aligned and ri == 0:
+            idx = np.asarray(indices, dtype=np.int64)
+            wgt = np.asarray(weights, dtype=np.float32)
+            valid = eg >= 0
+            safe = np.maximum(eg, 0)
+            src_v = idx[safe] if idx.size else np.zeros_like(safe)
+            src_w = wgt[safe] if wgt.size else np.zeros(safe.shape, np.float32)
+            # pad slots: sentinel vertex n (the -1 label slot lpa_move
+            # appends) and weight 0.0, the fold's no-op entry
+            aev = _tensor(np.where(valid, src_v, n).astype(np.int32), device)
+            aew = _tensor(np.where(valid, src_w, 0.0).astype(np.float32),
+                          device)
+            n_slots = eg.shape[0]
+            eg = np.where(valid, np.arange(n_slots, dtype=np.int64),
+                          -1).astype(np.int32)
+            n_in, is_aligned = n_slots, True
+        rounds.append(
+            StreamedRound(entry_gather=_tensor(eg, device),
+                          row_start=_tensor(r["row_start"], device),
+                          row_count=_tensor(r["row_count"], device),
+                          step_dmax=_tensor(r["step_dmax"], device),
+                          n_entries_in=int(n_in),
+                          window_entries=r["window_entries"],
+                          row_vertex=_tensor(r["row_to_vertex"], device),
+                          aligned=is_aligned))
+    return StreamedFoldPlan(rounds=tuple(rounds),
+                            row_to_vertex=_tensor(rtv, device),
+                            n_nodes=n, k=k, chunk=chunk,
+                            row_to_vertex0=_tensor(
+                                rounds_np[0]["row_to_vertex"], device),
+                            row_rank0=_tensor(rounds_np[0]["row_rank"],
+                                              device),
+                            max_rows0=rounds_np[0]["max_rows"],
+                            aligned_entry_vertex=aev,
+                            aligned_entry_weights=aew)
+
+
+def streamed_dispatches(plan: StreamedFoldPlan) -> int:
+    """Kernel launches per MG iteration: one per round (the final round's
+    launch also selects); the window grid lives inside each launch."""
+    return plan.n_rounds
+
+
+def streamed_window_slots(plan: StreamedFoldPlan) -> int:
+    """Windowed entry slots materialized per iteration across rounds
+    (pad slots included, unlike :func:`streamed_hbm_entries`)."""
+    return sum(r.n_windows * r.window_entries for r in plan.rounds)
+
+
+def streamed_gather_slots(plan: StreamedFoldPlan) -> int:
+    """Windowed re-layout gather slots the streamed engine materializes per
+    iteration. Aligned rounds are excluded: their windowed entries were
+    materialized once at build time."""
+    return sum(r.n_windows * r.window_entries for r in plan.rounds
+               if not r.aligned)
+
+
+def streamed_hbm_entries(plan: StreamedFoldPlan) -> int:
+    """Real entries the streamed fold reads per iteration (equal to the
+    fused plan's: the window re-layout adds pad slots, no real entries)."""
+    return int(sum(int(r.row_count.sum()) for r in plan.rounds))
+
+
+def streamed_peak_window_bytes(plan: StreamedFoldPlan) -> int:
+    """The reference's per-step resident entry bytes of the widest round:
+    a double-buffered (int32 label + float32 weight) window, ``2 * W * 8``
+    bytes. Kept for parity with the reference's accounting; the CUDA
+    kernels stage nothing and read each entry once from device memory."""
+    if not plan.rounds:
+        return 0
+    return max(2 * r.window_entries * 8 for r in plan.rounds)
+
+
+def streamed_work_rows(plan: StreamedFoldPlan) -> int:
     """Real fold rows one dense iteration computes (all rounds)."""
     return sum(int(torch.count_nonzero(r.row_vertex >= 0))
                for r in plan.rounds)

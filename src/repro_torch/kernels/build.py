@@ -3,10 +3,13 @@
 Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, in
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``). The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
-Nothing here runs at import: the CPU tests import every module, and this
-machine's CPU-only PyTorch never reaches ``load_library``.
+``.gitignore``). The library's file name carries a hash of the source,
+of every header under ``csrc/`` and of the flags
+(:func:`source_digest`), so an edited source or header is rebuilt and an
+unchanged one is reused. Libraries of different names build in parallel
+when they are loaded from several threads. Nothing here runs at import:
+the CPU tests import every module, and a CPU-only PyTorch never reaches
+``load_library``.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BuiltLibrary", "load_library", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "BuiltLibrary", "load_library", "nvcc_path",
+           "source_digest"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,7 +49,8 @@ class BuiltLibrary:
 
 
 _LIBS: dict[str, BuiltLibrary] = {}
-_LOCK = threading.Lock()
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -67,7 +72,8 @@ def _compile(source: Path, out: Path) -> tuple[float, str]:
     # workers) never load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(source.parent), "-o", tmp,
+           str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
@@ -81,15 +87,30 @@ def _compile(source: Path, out: Path) -> tuple[float, str]:
     return seconds, report
 
 
+def source_digest(source: Path) -> str:
+    """SHA-256 over ``source``, every ``*.cuh`` header beside it (names
+    and bytes, in name order) and :data:`NVCC_FLAGS`: what a build's
+    output depends on. A header counts for every source, included or
+    not."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def load_library(name: str) -> BuiltLibrary:
-    """Build (once per source hash) and load ``csrc/<name>.cu``."""
-    with _LOCK:
+    """Build (once per :func:`source_digest`) and load ``csrc/<name>.cu``.
+
+    Thread-safe; calls for different names build concurrently."""
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         source = _CSRC / f"{name}.cu"
-        digest = hashlib.sha256(source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+        out = _BUILD_DIR / f"lib{name}-{source_digest(source)[:16]}.so"
         if out.exists():
             seconds = 0.0
             log = out.with_suffix(".ptxas.txt")

@@ -29,8 +29,14 @@ the masked ``row_start + arange(chunk)`` gather of the reference's
 ``_gather_tile``, then the matching column loop of
 ``repro_torch.core.sketch``.
 
-``LAUNCH_COUNTS`` counts the kernel launches of each wrapper (and nothing
-else), so a run can show that the main path went through the kernels.
+``LAUNCH_COUNTS`` (``repro_torch.kernels.launches``, one table for the
+fused and the streamed kernels) counts the kernel launches of each wrapper
+and nothing else, so a run can show that a path went through the kernels.
+
+The MG, BM and rescan drivers are written once (``run_mg_plan_generic``,
+``select_best_generic``, ``run_bm_plan_generic``,
+``rescan_select_generic``) over an engine's round wrappers; the streamed
+engine (``kernels.mg_sketch.streaming``) reuses them with its own.
 """
 from __future__ import annotations
 
@@ -44,26 +50,20 @@ from repro_torch.core.sketch import (bm_fold_tile, bm_init_rows,
                                      merge_rescan_partials, mg_fold_tile,
                                      rescan_row_partials)
 from repro_torch.graphs.csr import FusedFoldPlan, FusedRound
+from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
 
 __all__ = ["SUPPORTED_K", "LAUNCH_COUNTS", "reset_launch_counts",
            "fused_fold_round", "fused_select_round", "bm_fold_round_fused",
            "rescan_round_fused", "fused_fold_round_plain",
            "fused_select_round_plain", "bm_fold_round_plain",
-           "rescan_round_plain", "run_mg_plan_fused", "select_best_fused",
+           "rescan_round_plain", "run_mg_plan_generic", "run_mg_plan_fused",
+           "select_best_generic", "select_best_fused",
            "run_bm_plan_generic", "run_bm_plan_fused",
            "rescan_select_generic", "rescan_select_fused"]
 
-#: sketch widths k the CUDA kernels K1, K2 and K4 are instantiated for
+#: sketch widths k the CUDA kernels K1, K2, K4, K5, K6 and K8 are
+#: instantiated for
 SUPPORTED_K = (4, 8, 32)
-
-#: kernel launches per wrapper since the last reset_launch_counts()
-LAUNCH_COUNTS = {"fused_fold": 0, "fused_select": 0, "bm_fold": 0,
-                 "rescan": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[name] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -148,9 +148,17 @@ def _gather_tile(rnd: FusedRound, entry_labels: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[rows, chunk] (label, weight) tiles: row r's lanes are
     ``row_start[r] + arange(chunk)``, masked to (-1, 0.0) past its count."""
+    return gather_rows(rnd.row_start.reshape(-1).long(),
+                       rnd.row_count.reshape(-1), entry_labels,
+                       entry_weights, chunk)
+
+
+def gather_rows(starts: torch.Tensor, counts: torch.Tensor,
+                entry_labels: torch.Tensor, entry_weights: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[rows, chunk] (label, weight) tiles of the rows at int64 ``starts``
+    with ``counts`` entries each, masked to (-1, 0.0) past the count."""
     dev = entry_labels.device
-    starts = rnd.row_start.reshape(-1).long()
-    counts = rnd.row_count.reshape(-1)
     lane = torch.arange(chunk, device=dev)
     valid = lane[None, :] < counts[:, None]
     # masked lanes read one appended pad entry (-1, 0.0)
@@ -315,17 +323,59 @@ def rescan_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def run_mg_plan_generic(plan, entry_labels: torch.Tensor,
+                        entry_weights: torch.Tensor, fold_round_fn
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared MG driver: every fold round through the engine's round
+    wrapper (``fold_round_fn(rnd, el, ew, *, k, chunk)``), each round
+    reading the previous one's flattened output. Returns the final-round
+    padded sketches in the plan's row order (map to vertices via
+    ``plan.row_to_vertex``)."""
+    labels, weights = entry_labels, entry_weights
+    for rnd in plan.rounds:
+        s_k, s_v = fold_round_fn(rnd, labels, weights, k=plan.k,
+                                 chunk=plan.chunk)
+        labels, weights = s_k.reshape(-1), s_v.reshape(-1)
+    return s_k, s_v
+
+
 def run_mg_plan_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
                       entry_weights: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All fold rounds, one K1 launch each. Returns the final-round padded
     sketches in fused row order (map to vertices via plan.row_to_vertex)."""
-    labels, weights = entry_labels, entry_weights
-    for rnd in plan.rounds:
-        s_k, s_v = fused_fold_round(rnd, labels, weights, k=plan.k,
-                                    chunk=plan.chunk)
-        labels, weights = s_k.reshape(-1), s_v.reshape(-1)
-    return s_k, s_v
+    return run_mg_plan_generic(plan, entry_labels, entry_weights,
+                               fused_fold_round)
+
+
+def select_best_generic(plan, entry_labels: torch.Tensor,
+                        entry_weights: torch.Tensor, labels: torch.Tensor,
+                        seed, fold_round_fn, select_round_fn
+                        ) -> torch.Tensor:
+    """Shared MG iteration: ``n_rounds - 1`` launches of the engine's fold
+    wrapper and one of its select wrapper
+    (``select_round_fn(rnd, el, ew, incumbents, seed, *, k, chunk)``),
+    then the [N] scatter of the per-row winners. Returns the wanted label
+    per vertex."""
+    if plan.n_nodes == 0:
+        return labels
+    el, ew = entry_labels, entry_weights
+    for rnd in plan.rounds[:-1]:
+        s_k, s_v = fold_round_fn(rnd, el, ew, k=plan.k, chunk=plan.chunk)
+        el, ew = s_k.reshape(-1), s_v.reshape(-1)
+    last, rv = plan.rounds[-1], plan.row_to_vertex
+    n = plan.n_nodes
+    real = rv >= 0
+    incumbents = torch.where(real, labels[torch.clamp_min(rv, 0)], -1)
+    choice = select_round_fn(last, el, ew, incumbents, seed, k=plan.k,
+                             chunk=plan.chunk)
+    # [N] scatter of per-row winners. A vertex owns at most one final row,
+    # so real rows write distinct slots; pad rows all write -1 into the
+    # dump slot n, which is sliced off. Vertices with no fold rows keep
+    # their label, as choose_from_candidates does for an empty set.
+    buf = torch.cat([labels, labels.new_zeros((1,))])
+    buf[torch.where(real, rv, n).long()] = torch.where(real, choice, -1)
+    return buf[:n]
 
 
 def select_best_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
@@ -334,25 +384,8 @@ def select_best_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
     """Full fused MG iteration: ``n_rounds - 1`` K1 launches and one K2
     launch. Bit-identical to ``run_mg_plan`` + ``select_best`` on the
     plain-torch reference engine. Returns the wanted label per vertex."""
-    if plan.n_nodes == 0:
-        return labels
-    el, ew = entry_labels, entry_weights
-    for rnd in plan.rounds[:-1]:
-        s_k, s_v = fused_fold_round(rnd, el, ew, k=plan.k, chunk=plan.chunk)
-        el, ew = s_k.reshape(-1), s_v.reshape(-1)
-    last, rv = plan.rounds[-1], plan.row_to_vertex
-    n = plan.n_nodes
-    real = rv >= 0
-    incumbents = torch.where(real, labels[torch.clamp_min(rv, 0)], -1)
-    choice = fused_select_round(last, el, ew, incumbents, seed,
-                                k=plan.k, chunk=plan.chunk)
-    # [N] scatter of per-row winners. A vertex owns at most one final row,
-    # so real rows write distinct slots; pad rows all write -1 into the
-    # dump slot n, which is sliced off. Vertices with no fold rows keep
-    # their label, as choose_from_candidates does for an empty set.
-    buf = torch.cat([labels, labels.new_zeros((1,))])
-    buf[torch.where(real, rv, n).long()] = torch.where(real, choice, -1)
-    return buf[:n]
+    return select_best_generic(plan, entry_labels, entry_weights, labels,
+                               seed, fused_fold_round, fused_select_round)
 
 
 # ---------------------------------------------------------------------------

@@ -7,12 +7,29 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.graphs.csr import graph_from_arrays
 from test_fused_engine import FIXTURES  # noqa: F401  (re-exported)
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread, then restore the count.
+
+    The parity tests' tensors are small and their plain folds issue many
+    small ops; with several test workers on one machine, every worker's
+    pool of one thread per core oversubscribes the cores and those ops
+    wait on each other (a 6-worker run of the streamed-engine files took
+    5x longer than with one thread each). Import it into a test module
+    to apply it there; the bits do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_np(x) -> np.ndarray:

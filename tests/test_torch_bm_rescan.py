@@ -297,9 +297,12 @@ def test_round_wrappers_check_inputs_and_count_no_cpu_launch():
     tfused.rescan_round_fused(rnd, el, ew,
                               torch.zeros((rows, 8), dtype=torch.int32),
                               k=8, chunk=128)
-    # the CPU path runs the plain versions: no kernel launch is counted
+    # the CPU path runs the plain versions: no kernel launch is counted;
+    # one table counts the fused and the streamed kernels
     assert set(tfused.LAUNCH_COUNTS) == {"fused_fold", "fused_select",
-                                         "bm_fold", "rescan"}
+                                         "bm_fold", "rescan", "stream_fold",
+                                         "stream_select", "stream_bm",
+                                         "stream_rescan"}
     assert not any(tfused.LAUNCH_COUNTS.values())
 
 

@@ -1,0 +1,42 @@
+"""The kernel build cache keys on everything a build reads: a source, the
+headers beside it and the nvcc flags (``repro_torch.kernels.build``). No
+nvcc is needed: the digest is a function of its own."""
+from repro_torch.kernels import build
+
+
+def test_digest_changes_with_a_header(tmp_path):
+    source = tmp_path / "k.cu"
+    source.write_text('#include "rows.cuh"\n')
+    header = tmp_path / "rows.cuh"
+    header.write_text("// v1\n")
+    before = build.source_digest(source)
+    assert build.source_digest(source) == before  # deterministic
+    header.write_text("// v2\n")
+    assert build.source_digest(source) != before
+    header.write_text("// v1\n")
+    assert build.source_digest(source) == before
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert build.source_digest(source) != before
+
+
+def test_digest_changes_with_the_source_and_the_flags(tmp_path,
+                                                      monkeypatch):
+    source = tmp_path / "k.cu"
+    source.write_text("// a\n")
+    before = build.source_digest(source)
+    source.write_text("// b\n")
+    after = build.source_digest(source)
+    assert after != before
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.source_digest(source) != after
+
+
+def test_both_kernel_sources_share_the_row_header():
+    csrc = build._CSRC
+    header = (csrc / "sketch_rows.cuh").read_text()
+    assert "mg_fold_row" in header and "bm_fold_row" in header
+    for name in ("mg_fused", "mg_stream"):
+        source = (csrc / f"{name}.cu").read_text()
+        assert '#include "sketch_rows.cuh"' in source
+    assert (build.source_digest(csrc / "mg_fused.cu")
+            != build.source_digest(csrc / "mg_stream.cu"))

@@ -1,13 +1,16 @@
 """The hand-written CUDA kernels K1 (MG fold), K2 (MG fold + select), K3
-(BM fold) and K4 (rescan) against their plain-torch versions on the card,
-bit for bit; the whole fused path (νMG, νBM, rescan) on the card against
-the plain-torch reference engine; and ``exact_choose``'s group sums on
-the card against the CPU's.
+(BM fold) and K4 (rescan), and their streamed counterparts K5–K8 over the
+windowed plan, against their plain-torch versions on the card, bit for
+bit; the whole fused and streamed paths (νMG, νBM, rescan; aligned and
+not) on the card against the plain-torch reference engine; and
+``exact_choose``'s group sums on the card against the CPU's.
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
 is taken inside the ``cuda`` fixture, never at import). On a machine with
 a card: ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda_kernels.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,8 +18,9 @@ import torch
 from repro_torch.core import exact, sketch
 from repro_torch.core.lpa import LPAConfig, lpa
 from repro_torch.graphs import generators as tgen
-from repro_torch.graphs.csr import build_fused_fold_plan
-from repro_torch.kernels.mg_sketch import fused
+from repro_torch.graphs.csr import (build_csr, build_fused_fold_plan,
+                                    build_streamed_fold_plan)
+from repro_torch.kernels.mg_sketch import fused, streaming
 
 pytestmark = pytest.mark.gpu
 
@@ -195,3 +199,156 @@ def test_unsupported_k_raises_on_the_card(cuda):
     ew = torch.ones(rnd.n_entries_in, dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError):
         fused.fused_fold_round(rnd, el, ew, k=3, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# K5–K8: the streamed kernels over the windowed plan
+# ---------------------------------------------------------------------------
+
+
+def _stream_plan(g, dev, *, k, chunk, tile_r, window, aligned):
+    return build_streamed_fold_plan(g.degrees.numpy(), k=k, chunk=chunk,
+                                    tile_r=tile_r, window_entries=window,
+                                    indices=g.indices.numpy(),
+                                    weights=g.weights.numpy(),
+                                    aligned=aligned, device=dev)
+
+
+def _stream_rounds_match_plain(plan, rng, dev):
+    """K5 on every round, K6 on the last, K7 and K8 on round 0, each
+    against its plain version with torch.equal; one launch each."""
+    k, chunk = plan.k, plan.chunk
+    for r, rnd in enumerate(plan.rounds):
+        el, ew = _round_inputs(rnd, rng, dev, alphabet=3 * k)
+        rows = rnd.row_start.numel()
+        streaming.reset_launch_counts()
+        got = streaming.stream_fold_round(rnd, el, ew, k=k, chunk=chunk)
+        torch.cuda.synchronize()
+        ref = streaming.stream_fold_round_plain(rnd, el, ew, k=k,
+                                                chunk=chunk)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        if r == plan.n_rounds - 1:
+            inc = torch.from_numpy(rng.integers(-1, 3 * k, rows)
+                                   .astype(np.int32)).to(dev)
+            for seed in (1, 5):
+                got = streaming.stream_select_round(rnd, el, ew, inc, seed,
+                                                    k=k, chunk=chunk)
+                torch.cuda.synchronize()
+                ref = streaming.stream_select_round_plain(
+                    rnd, el, ew, inc, seed, k=k, chunk=chunk)
+                assert torch.equal(got, ref)
+        if r == 0:
+            init = torch.from_numpy(rng.integers(-1, 6, rows)
+                                    .astype(np.int32)).to(dev)
+            el6 = torch.remainder(el, 6)  # few labels: every BM branch
+            got = streaming.bm_fold_round_stream(rnd, el6, ew, init,
+                                                 chunk=chunk)
+            torch.cuda.synchronize()
+            ref = streaming.bm_fold_round_stream_plain(rnd, el6, ew, init,
+                                                       chunk=chunk)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            cand = torch.from_numpy(rng.integers(-1, 3 * k, (rows, k))
+                                    .astype(np.int32)).to(dev)
+            ew4 = ew - 0.5  # K8 counts weights <= 0 too
+            got = streaming.rescan_round_stream(rnd, el, ew4, cand, k=k,
+                                                chunk=chunk)
+            torch.cuda.synchronize()
+            ref = streaming.rescan_round_stream_plain(rnd, el, ew4, cand,
+                                                      chunk=chunk)
+            assert torch.equal(got, ref)
+        counts = streaming.LAUNCH_COUNTS
+        assert counts["stream_fold"] == 1
+        assert counts["stream_select"] == (2 if r == plan.n_rounds - 1
+                                           else 0)
+        assert counts["stream_bm"] == counts["stream_rescan"] == int(r == 0)
+        assert not any(counts[key] for key in ("fused_fold", "fused_select",
+                                               "bm_fold", "rescan"))
+
+
+@pytest.mark.parametrize("k,chunk,tile_r,window", [
+    (8, 128, 128, 8192), (4, 16, 8, 64), (32, 128, 128, 8192),
+    (8, 128, 256, 8192)])  # 256 row slots: two per thread
+@pytest.mark.parametrize("aligned", [False, True])
+def test_stream_kernels_match_plain(cuda, k, chunk, tile_r, window,
+                                    aligned):
+    g, _ = tgen.powerlaw_communities(4096, p_in=0.4, mix=0.05, seed=7,
+                                     device="cpu")
+    plan = _stream_plan(g, cuda, k=k, chunk=chunk, tile_r=tile_r,
+                        window=window, aligned=aligned)
+    assert plan.n_rounds > 1 and plan.aligned == aligned
+    _stream_rounds_match_plain(plan, np.random.default_rng(50 + k), cuda)
+
+
+def test_stream_kernels_on_window_edges(cuda):
+    """Rows of exactly ``chunk`` entries pack two to a 256-slot window, so
+    every window's last row ends exactly at W and the last one at the end
+    of the windowed array; then one window of a real round turned all
+    pads."""
+    degrees = np.full(8, 128)
+    edges = np.stack([np.repeat(np.arange(8), 128),
+                      np.arange(8 * 128) % 1000 + 8], axis=1)
+    g = build_csr(edges, 1008, symmetrize=False, device="cpu")
+    assert np.array_equal(g.degrees.numpy()[:8], degrees)
+    plan = _stream_plan(g, cuda, k=8, chunk=128, tile_r=4, window=256,
+                        aligned=False)
+    rnd = plan.rounds[0]
+    assert rnd.window_entries == 256
+    ends = (rnd.row_start + rnd.row_count).cpu().numpy()
+    assert (ends.max(axis=1) == 256).all()
+    _stream_rounds_match_plain(plan, np.random.default_rng(60), cuda)
+    # window 1's row slots all pads: the kernels must fold nothing there
+    rc = rnd.row_count.clone()
+    rc[1] = 0
+    rs = rnd.row_start.clone()
+    rs[1] = 0
+    hollow = dataclasses.replace(rnd, row_start=rs, row_count=rc)
+    rng = np.random.default_rng(61)
+    el, ew = _round_inputs(hollow, rng, cuda, alphabet=24)
+    got = streaming.stream_fold_round(hollow, el, ew, k=8, chunk=128)
+    ref = streaming.stream_fold_round_plain(hollow, el, ew, k=8, chunk=128)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert bool((got[0][4:8] == -1).all()) and bool((got[1][4:8] == 0).all())
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+def test_stream_kernels_on_the_empty_graph(cuda, aligned):
+    g = build_csr(np.zeros((0, 2), np.int64), 5, device="cpu")
+    plan = _stream_plan(g, cuda, k=8, chunk=128, tile_r=128, window=8192,
+                        aligned=aligned)
+    _stream_rounds_match_plain(plan, np.random.default_rng(70), cuda)
+    gc = build_csr(np.zeros((0, 2), np.int64), 5, device=cuda)
+    for method in ("mg", "bm"):
+        res = lpa(gc, LPAConfig(method=method, fold_backend="pallas_stream",
+                                aligned_layout=aligned))
+        assert torch.equal(res.labels.cpu(), torch.arange(5,
+                                                          dtype=torch.int32))
+
+
+@pytest.mark.parametrize("method,rescan", [("mg", False), ("bm", False),
+                                           ("mg", True)])
+@pytest.mark.parametrize("aligned", [False, True])
+def test_stream_paths_match_reference_engine_on_the_card(cuda, method,
+                                                         rescan, aligned):
+    g, _ = tgen.powerlaw_communities(4096, p_in=0.5, mix=0.02, seed=1,
+                                     device=cuda)
+    cfg = dict(method=method, rescan=rescan, rho=2, stream_window=1024)
+    ref = lpa(g, LPAConfig(fold_backend="jnp", **cfg))
+    streaming.reset_launch_counts()
+    got = lpa(g, LPAConfig(fold_backend="pallas_stream",
+                           aligned_layout=aligned, **cfg))
+    assert torch.equal(got.labels, ref.labels)
+    assert got.changed_history == ref.changed_history
+    assert got.frontier_history == ref.frontier_history
+    it = got.iterations
+    want = dict.fromkeys(streaming.LAUNCH_COUNTS, 0)
+    if method == "bm":
+        want["stream_bm"] = it
+    else:
+        from repro_torch.core.lpa import build_workspace
+        n_rounds = build_workspace(g, LPAConfig(
+            fold_backend="pallas_stream", **cfg)).stream_plan.n_rounds
+        if rescan:
+            want.update(stream_fold=n_rounds * it, stream_rescan=it)
+        else:
+            want.update(stream_fold=(n_rounds - 1) * it, stream_select=it)
+    assert streaming.LAUNCH_COUNTS == want

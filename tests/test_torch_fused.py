@@ -145,8 +145,11 @@ def test_wrappers_check_their_inputs():
     tfused.reset_launch_counts()
     tfused.fused_fold_round(rnd, el, ew, k=8, chunk=128)
     # the CPU path runs the plain version: no kernel launch is counted
+    # (one table counts the fused and the streamed kernels)
     assert tfused.LAUNCH_COUNTS == {"fused_fold": 0, "fused_select": 0,
-                                    "bm_fold": 0, "rescan": 0}
+                                    "bm_fold": 0, "rescan": 0,
+                                    "stream_fold": 0, "stream_select": 0,
+                                    "stream_bm": 0, "stream_rescan": 0}
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])

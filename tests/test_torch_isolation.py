@@ -1,7 +1,7 @@
 """repro_torch stands alone: no import of jax or of the repro package, an
 import that leaves jax unloaded, CUDA by default with no silent move to
-the CPU, and NotImplementedError (never a fallback) for what is not
-ported yet."""
+the CPU, NotImplementedError (never a fallback) for what is not ported
+yet, and "auto" past the budget running the streamed engine."""
 import ast
 import os
 import subprocess
@@ -18,6 +18,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs import generators as tgen
 from repro_torch.graphs.csr import build_csr
 from _torch_parity import CPU
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
@@ -44,7 +45,8 @@ def test_no_jax_or_repro_import_in_the_port():
 
 def test_import_leaves_jax_unloaded():
     # the kernel module first: it must import without a cycle on its own
-    code = ("import sys, repro_torch.kernels.mg_sketch.fused, repro_torch.core, "
+    code = ("import sys, repro_torch.kernels.mg_sketch.fused, "
+            "repro_torch.kernels.mg_sketch.streaming, repro_torch.core, "
             "repro_torch.graphs.generators, repro_torch.kernels.build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
@@ -85,7 +87,6 @@ def test_lpa_refuses_a_graph_on_another_device():
 
 @pytest.mark.parametrize("overrides", [
     {"fold_backend": "pallas"},
-    {"fold_backend": "pallas_stream"},
     {"frontier_gate": True, "frontier_sparse": True},
     {"mg_variant": "exact_weighted"},
 ])
@@ -95,18 +96,43 @@ def test_unported_configs_raise(overrides):
         lpa(g, LPAConfig(**overrides), device=CPU)
 
 
-def test_auto_on_a_large_graph_raises():
-    """8·|E| past the reference's 8 MiB budget resolves "auto" to the
-    unported streamed engine: that raises, it does not fall back."""
-    n = 600_000  # a chain: 2·(n-1) > 2**20 directed entries
+def _large_chain():
+    """A chain whose 2·(n-1) directed entries put 8·|E| past the
+    reference's 8 MiB budget."""
+    n = 600_000
     edges = np.stack([np.arange(n - 1), np.arange(1, n)], axis=1)
     g = build_csr(edges, n, device=CPU)
     assert 8 * g.n_edges > 8 * 2**20
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        lpa(g, LPAConfig(fold_backend="auto"), device=CPU)
-    with pytest.raises(NotImplementedError):
-        get_engine("auto", n_entries=g.n_edges)
+    return g
+
+
+def test_auto_on_a_large_graph_raises():
+    """Past the budget "auto" resolves to the streamed engine; what that
+    engine does not port yet (sparse frontier mode) raises there, and
+    never falls back to another engine."""
+    g = _large_chain()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        lpa(g, LPAConfig(fold_backend="auto", frontier_gate=True,
+                         frontier_sparse=True), device=CPU)
+    with pytest.raises(ValueError, match="n_entries"):
+        get_engine("auto")
+    assert get_engine("auto", n_entries=g.n_edges).name == "pallas_stream"
     assert get_engine("auto", n_entries=1000).name == "pallas_fused"
+
+
+def test_auto_on_a_large_graph_streams():
+    """8·|E| past the reference's budget resolves "auto" to the streamed
+    engine, which runs and equals the fused engine's run."""
+    g = _large_chain()
+    cfg = dict(k=4, chunk=16, max_iters=2, track_frontier=False)
+    ws = build_workspace(g, LPAConfig(fold_backend="auto", **cfg))
+    assert ws.bundle.spec.backend == "pallas_stream"
+    assert ws.stream_plan is not None and ws.fused_plan is None
+    got = lpa(g, LPAConfig(fold_backend="auto", **cfg), ws=ws, device=CPU)
+    ref = lpa(g, LPAConfig(fold_backend="pallas_fused", **cfg), device=CPU)
+    assert torch.equal(got.labels, ref.labels)
+    assert got.changed_history == ref.changed_history
+    assert got.iterations == ref.iterations == 2
 
 
 def test_unported_engines_and_requests_raise():
