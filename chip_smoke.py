@@ -14,7 +14,15 @@ the kernel launch counts set to 0 just before it:
   * the streamed engine — νMG8 through ``fold_backend="auto"``, which
     resolves to ``pallas_stream`` past the budget (K5, K6; unaligned),
     and νMG8, νBM and the rescan ablation on ``pallas_stream`` with
-    ``aligned_layout=True`` (K5 + K6, K7, K5 + K8).
+    ``aligned_layout=True`` (K5 + K6, K7, K5 + K8);
+  * the per-bucket engine — νMG8, νBM and the rescan ablation on
+    ``fold_backend="pallas"`` (K9 on every bucket of every round; K10 on
+    every round-0 bucket; the padded tiles are a plain torch gather);
+  * sparse frontier execution — νMG8 with ``frontier_gate=True`` on
+    ``pallas_fused``, dense and ``frontier_sparse=True`` (K1, K2 over the
+    compacted rows), and sparse on ``pallas_stream`` with the aligned
+    layout (K5, K6 over the compacted windows); each sparse run at the
+    default capacity and at one every iteration fits.
 
 Phases:
 
@@ -25,22 +33,27 @@ Phases:
   2. each kernel against its plain-torch version on the card, with exact
      equality, and its time (CUDA events) beside the bytes it must move:
      K1–K4 at the round shapes of the main graph's fused plan, K5–K8 at
-     those of its streamed plan; the rescan merge's time and the
-     streamed engine's windowed re-layout per iteration, unaligned and
-     aligned, on the main graph;
+     those of its streamed plan, K9/K10 at every bucket shape of its
+     bucketed plan; the rescan merge's time, the streamed engine's
+     windowed re-layout per iteration, unaligned and aligned, and the
+     per-bucket engine's padded-tile gather per round, on the main graph;
   3. whole-path parity: on a 2^16-vertex graph the kernels
-     (``pallas_fused``, and ``auto``, which resolves to ``pallas_stream``
-     there) against the plain-torch engine (``jnp``) for mg and bm, equal
-     labels and histories; then the plain-torch engine's whole mg, bm and
-     mg+rescan runs on the main graph, which phase 4's kernel runs must
-     reproduce;
+     (``pallas_fused``, ``pallas``, and ``auto``, which resolves to
+     ``pallas_stream`` there) against the plain-torch engine (``jnp``)
+     for mg and bm, equal labels and histories; the frontier-gated mg
+     runs there, dense on ``jnp`` and ``pallas_fused`` and sparse on
+     ``pallas_fused`` at the default capacity and at one that overflows
+     on some iterations, all equal; then the plain-torch engine's whole
+     mg, bm and mg+rescan runs on the main graph, which phase 4's kernel
+     runs must reproduce;
   4. the paths on ``powerlaw_communities(1 << 22)`` (4.19 M vertices,
      ~90 M directed CSR slots) with launch counts checked, labels and
      histories equal to phase 3's plain runs (the streamed runs: equal to
-     the fused runs of the same method), quality (modularity, NMI
-     against the planted truth), seconds per iteration and peak device
-     memory; exact LPA's group sums held to the CPU's on non-integer
-     weights; the peak memories side by side;
+     the fused runs of the same method; the sparse runs: equal to the
+     fused dense gated run), quality (modularity, NMI against the
+     planted truth), seconds per iteration and peak device memory;
+     exact LPA's group sums held to the CPU's on non-integer weights;
+     the peak memories side by side;
   5. one JSON line describing every kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -71,12 +84,17 @@ PARITY_SCALE = 16
 #: clock cycles of the device-side wait that timed launches queue behind
 #: (about 50 ms at the H100's ~1.98 GHz boost clock)
 QUEUE_WAIT_CYCLES = 100_000_000
-#: launch-count keys of the fused kernels K1–K4 and the streamed K5–K8
+#: launch-count keys of the fused kernels K1–K4, the streamed K5–K8 and
+#: the per-bucket tile kernels K9–K10
 FUSED_KEYS = ("fused_fold", "fused_select", "bm_fold", "rescan")
 STREAM_KEYS = ("stream_fold", "stream_select", "stream_bm", "stream_rescan")
+TILE_KEYS = ("tile_mg_fold", "tile_bm_fold")
+#: a sparse row capacity every frontier fits: each iteration compacted
+FIT_ALL_CAP = 1 << 30
 #: kernel library -> its source in the repo
 KERNEL_SOURCES = {"mg_fused": "src/repro_torch/csrc/mg_fused.cu",
-                  "mg_stream": "src/repro_torch/csrc/mg_stream.cu"}
+                  "mg_stream": "src/repro_torch/csrc/mg_stream.cu",
+                  "mg_tile": "src/repro_torch/csrc/mg_tile.cu"}
 
 
 def _nvidia_smi() -> str:
@@ -87,7 +105,9 @@ def _nvidia_smi() -> str:
 
 
 #: mangled-name fragment -> kernel, most specific first
-_KERNEL_OF_SYMBOL = (("stream_bm", "K7 stream_bm"),
+_KERNEL_OF_SYMBOL = (("tile_bm_fold", "K10 tile_bm_fold"),
+                     ("tile_fold", "K9 tile_fold"),
+                     ("stream_bm", "K7 stream_bm"),
                      ("stream_rescan", "K8 stream_rescan"),
                      ("stream_select", "K6 stream_select"),
                      ("stream_fold", "K5 stream_fold"),
@@ -639,6 +659,224 @@ def stream_kernels_vs_plain(graph, plan, aligned_plan, tag: str) -> dict:
     return stats
 
 
+def _random_tile(shape, dev, seed: int):
+    """A random padded tile of ``shape`` on the card: labels in [-1, 24)
+    (-1 a pad), weights in {0, 0.375, ..., 2.625} (0 a no-op), from a
+    seeded device generator."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    labels = torch.randint(-1, 24, shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+    weights = torch.randint(0, 8, shape, generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.float32) * 0.375
+    return labels, weights
+
+
+def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
+    """Phase 2 for K9 (every bucket of every round of the main graph's
+    bucketed plan) and K10 (every round-0 bucket), each held to exact
+    equality with its plain version on the bucket's padded tile from the
+    main path's first iteration (labels = vertex ids, each round fed the
+    previous round's kernel output; K10 from the incumbents) and on a
+    random tile of the same shape. Kernel and plain times per round are
+    sums over the round's buckets; the padded-tile gather
+    (``sketch._gather_entries``, plain torch outside the kernels) is timed
+    on its own, per round."""
+    import torch
+    from repro_torch.core import sketch
+    from repro_torch.kernels.mg_sketch import ops
+
+    dev = graph.device
+    k = plan.k
+    labels0 = torch.arange(graph.n_nodes, dtype=torch.int32, device=dev)
+    el = torch.index_select(labels0, 0, graph.indices)
+    ew = graph.weights
+    stats = {key: {"ms": 0.0, "plain_ms": 0.0, "random_ms": 0.0,
+                   "bound_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0.0,
+                   "bound_by": "bytes", "rounds": []}
+             for key in ("K9", "K10")}
+    stats["gather"] = {"ms": 0.0, "rounds": []}
+    for r, rnd in enumerate(plan.rounds):
+        out_k = torch.zeros((rnd.n_rows_total, k), dtype=torch.int32,
+                            device=dev)
+        out_v = torch.zeros((rnd.n_rows_total, k), dtype=torch.float32,
+                            device=dev)
+        per = {key: {"ms": 0.0, "plain_ms": 0.0, "random_ms": 0.0,
+                     "bound_ms": 0.0, "bytes": 0, "ops": 0}
+               for key in ("K9", "K10")}
+        gather_ms, shapes = 0.0, []
+        for b, bucket in enumerate(rnd.buckets):
+            rows, width = bucket.n_rows, bucket.width
+            shapes.append(f"{width}x{rows}")
+            gl, gw = sketch._gather_entries(bucket.gather, el, ew)
+            gather_ms += _time_ms(
+                lambda bucket=bucket: sketch._gather_entries(bucket.gather,
+                                                             el, ew),
+                warmup=1, reps=5)
+            rand_l, rand_w = _random_tile((rows, width), dev,
+                                          1000 * r + b)
+            cases = {"K9": (
+                lambda l, w, x: ops.mg_fold_tile_pallas(l, w, k),
+                lambda l, w, x: sketch.mg_fold_tile(l, w, k),
+                None, None, 8 * rows * width + 8 * k * rows,
+                2 * k * rows * width)}
+            if r == 0:
+                main_init = labels0[bucket.vertex.long()]
+                rand_init = torch.remainder(main_init, 24)
+                cases["K10"] = (
+                    lambda l, w, x: ops.bm_fold_tile_pallas(l, w, x),
+                    lambda l, w, x: sketch.bm_fold_tile(l, w, x),
+                    rand_init, main_init, 8 * rows * width + 12 * rows,
+                    4 * rows * width)
+            for key, (kernel, plain, rand_x, main_x, n_bytes, n_ops) in \
+                    cases.items():
+                err = 0.0
+                for name, args in (("random", (rand_l, rand_w, rand_x)),
+                                   ("main-path", (gl, gw, main_x))):
+                    got = kernel(*args)
+                    torch.cuda.synchronize()
+                    ref = plain(*args)
+                    for a, c in zip(got, ref):
+                        if not torch.equal(a, c):
+                            raise AssertionError(
+                                f"{key} differs from its plain version on "
+                                f"round {r}, bucket {width} x {rows}, "
+                                f"{name} inputs")
+                        err = max(err, _max_abs_err(a, c))
+                    del got, ref
+                ms = _time_ms(lambda: kernel(gl, gw, main_x), warmup=3,
+                              reps=20)
+                random_ms = _time_ms(lambda: kernel(rand_l, rand_w, rand_x),
+                                     warmup=3, reps=20)
+                plain_ms = _time_ms(lambda: plain(gl, gw, main_x), warmup=1,
+                                    reps=3)
+                bound, _ = _bound_ms(n_bytes, n_ops)
+                pr = per[key]
+                pr["ms"] += ms
+                pr["random_ms"] += random_ms
+                pr["plain_ms"] += plain_ms
+                pr["bound_ms"] += bound
+                pr["bytes"] += n_bytes
+                pr["ops"] += n_ops
+                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"],
+                                                err)
+            s_k, s_v = ops.mg_fold_tile_pallas(gl, gw, k)
+            pos = bucket.out_pos.long()
+            out_k[pos] = s_k
+            out_v[pos] = s_v
+            del gl, gw, rand_l, rand_w, s_k, s_v, cases
+        el, ew = out_k.reshape(-1), out_v.reshape(-1)
+        stats["gather"]["ms"] += gather_ms
+        stats["gather"]["rounds"].append({"round": r, "ms": gather_ms})
+        for key, pr in per.items():
+            if not pr["bytes"]:
+                continue
+            st = stats[key]
+            for field in ("ms", "plain_ms", "random_ms", "bound_ms", "bytes",
+                          "ops"):
+                st[field] += pr[field]
+            st["rounds"].append(dict(round=r, buckets=len(rnd.buckets),
+                                     shapes=shapes, **pr))
+            print(f"{tag} phase 2: {key} round {r}: {len(rnd.buckets)} "
+                  f"buckets (width x rows: {', '.join(shapes)}), exact "
+                  f"match to plain on random and main-path tiles; kernel "
+                  f"{pr['ms']:.4f} ms on the main path's tiles "
+                  f"({pr['random_ms']:.4f} ms on random ones), plain "
+                  f"{pr['plain_ms']:.3f} ms, {pr['bytes']} B, bound "
+                  f"{pr['bound_ms']:.4f} ms (bytes at 3.35 TB/s), "
+                  f"{pr['bound_ms'] / pr['ms']:.1%} of bound", flush=True)
+        print(f"{tag} phase 2: padded-tile gather (_gather_entries) round "
+              f"{r}: {gather_ms:.4f} ms over {len(rnd.buckets)} buckets",
+              flush=True)
+        torch.cuda.empty_cache()
+    print(f"{tag} phase 2: per pallas iteration: K9 {stats['K9']['ms']:.4f} "
+          f"ms ({sum(len(r.buckets) for r in plan.rounds)} launches), "
+          f"padded-tile gather {stats['gather']['ms']:.4f} ms; per bm "
+          f"iteration: K10 {stats['K10']['ms']:.4f} ms "
+          f"({len(plan.rounds[0].buckets)} launches), gather "
+          f"{stats['gather']['rounds'][0]['ms']:.4f} ms", flush=True)
+    return stats
+
+
+def _with_cap(ws, cfg, cap: int):
+    """``ws`` and ``cfg`` with the sparse row capacity ``cap``. The
+    capacity is a field of the plan bundle's spec that ``lpa()`` reads;
+    the plans do not depend on it, so they are shared, not built again."""
+    spec = dataclasses.replace(ws.bundle.spec, frontier_cap_rows=cap)
+    bundle = dataclasses.replace(ws.bundle, spec=spec)
+    return (dataclasses.replace(ws, bundle=bundle),
+            dataclasses.replace(cfg, frontier_cap_rows=cap))
+
+
+def _gated_parity(graph, gcfg, build_workspace, lpa, lpa_move,
+                  mark_frontier, fused_active_rows, tag: str) -> dict:
+    """Phase 3 (b): the frontier-gated mg runs on the parity graph. The
+    dense gated run on the fused kernels equals the plain engine's; the
+    sparse runs equal it, at the default capacity and at a capacity that
+    some iterations overflow. That capacity comes from a replay of the
+    dense run's frontiers: the median over iterations 1.. of each
+    iteration's largest per-round active-row count. The overflowing run's
+    ``work_rows_history`` must show exactly the replay's fit decisions:
+    the active rows where every round fits, the dense rows elsewhere."""
+    import torch
+    ref = lpa(graph, dataclasses.replace(gcfg, fold_backend="jnp"))
+    fcfg = dataclasses.replace(gcfg, fold_backend="pallas_fused")
+    ws = build_workspace(graph, fcfg)
+    dense = lpa(graph, fcfg, ws=ws)
+    _check_same_run(ref, dense, "phase 3, gated, pallas_fused vs jnp")
+    frontier = torch.ones(graph.n_nodes, dtype=torch.bool,
+                          device=graph.device)
+    cur = torch.arange(graph.n_nodes, dtype=torch.int32, device=graph.device)
+    counts = []
+    for it in range(dense.iterations):
+        counts.append(fused_active_rows(ws.fused_plan, frontier))
+        pl = (it % gcfg.rho) == 0
+        cur, changed = lpa_move(ws, cur, pl, it + 1, fcfg, frontier=frontier)
+        marked = mark_frontier(ws, changed)
+        frontier = (frontier | marked) if pl else marked
+    if not torch.equal(cur, dense.labels):
+        raise AssertionError("phase 3, gated: the frontier replay diverged")
+    maxima = [max(c) for c in counts]
+    later = sorted(maxima[1:])
+    cap = later[len(later) // 2]
+    if cap == later[-1]:  # the upper half ties: overflow it by one
+        cap -= 1
+    if not later[0] <= cap < later[-1]:
+        raise AssertionError(f"phase 3, gated: no capacity both fits and "
+                             f"overflows iterations 1..: {maxima}")
+    out = {"iterations": dense.iterations, "row_maxima": maxima,
+           "overflow_cap": cap, "work_rows_history": {}}
+    for name, sparse_cap in (("default", None), ("overflow", cap)):
+        # the capacity is a plan-spec field: the workspace carries it
+        scfg = dataclasses.replace(fcfg, frontier_sparse=True,
+                                   frontier_cap_rows=sparse_cap)
+        got = lpa(graph, scfg)
+        for field in ("labels", "changed_history", "frontier_history",
+                      "iterations"):
+            a, b = getattr(dense, field), getattr(got, field)
+            same = torch.equal(a, b) if field == "labels" else a == b
+            if not same:
+                raise AssertionError(f"phase 3, gated, sparse ({name} cap):"
+                                     f" {field} differs from the dense run")
+        out["work_rows_history"][name] = got.work_rows_history
+    hist = out["work_rows_history"]["overflow"]
+    dense_rows = dense.work_rows_history[0]
+    want = [sum(c) if max(c) <= cap else dense_rows for c in counts]
+    if hist != want:
+        raise AssertionError(f"phase 3, gated: at cap {cap} the work rows "
+                             f"{hist} are not the fit decisions' {want}")
+    fell_back = sum(1 for m in maxima if m > cap)
+    print(f"{tag} phase 3: 2^{PARITY_SCALE} vertices, frontier-gated mg: "
+          f"pallas_fused dense == jnp ({dense.iterations} iterations, "
+          f"changed_history {dense.changed_history}); sparse == dense at "
+          f"the default cap (work rows "
+          f"{out['work_rows_history']['default']}) and at cap {cap} "
+          f"(largest active rows per iteration {maxima}; {fell_back} "
+          f"iterations overflow it and fold densely; work rows {hist})",
+          flush=True)
+    return out
+
+
 def _phase_took(tag: str, phase: int, t0: float, report: dict) -> None:
     took = time.perf_counter() - t0
     report.setdefault("phase_s", {})[str(phase)] = took
@@ -653,9 +891,14 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
     (pick-less, seed) sequence through ``lpa_move`` between CUDA events,
     queued behind a device-side wait as in ``_time_ms`` (a path that
     synchronises inside an iteration holds the card to the host's pace
-    from there on). The replay must reproduce the run's labels."""
+    from there on). A frontier-gated replay carries the frontier as
+    ``lpa()`` does, and a sparse one its per-iteration fit check
+    (``PlanBundle.sparse_fit``, which synchronises: its host wall time is
+    kept apart, and the event interval holds ``lpa_move`` alone). The
+    replay must reproduce the run's labels."""
     import numpy as np
     import torch
+    from repro_torch.core.lpa import mark_frontier
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -678,21 +921,40 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
         raise AssertionError(f"{cfg.method}: modularity {q} or NMI "
                              f"{quality} out of range")
     cur = torch.arange(graph.n_nodes, dtype=torch.int32, device=graph.device)
-    events = []
+    frontier = torch.ones(graph.n_nodes, dtype=torch.bool,
+                          device=graph.device)
+    cap_rows = ws.bundle.cap_rows()
+    events, fit_ms = [], []
     torch.cuda.synchronize()
     torch.cuda._sleep(QUEUE_WAIT_CYCLES)
     for it in range(res.iterations):
+        pl = (it % cfg.rho) == 0
+        sparse = False
+        if cfg.frontier_sparse:
+            # the check synchronises: time it alone, not the previous
+            # iteration's device work it would otherwise wait for
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sparse, _ = ws.bundle.sparse_fit(frontier, cap_rows)
+            fit_ms.append((time.perf_counter() - t0) * 1e3)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        cur, _ = lpa_move(ws, cur, (it % cfg.rho) == 0, it + 1, cfg)
+        cur, changed = lpa_move(
+            ws, cur, pl, it + 1, cfg,
+            frontier=frontier if cfg.frontier_gate else None, sparse=sparse,
+            cap_rows=cap_rows)
         end.record()
         events.append((start, end))
+        if cfg.frontier_gate:
+            marked = mark_frontier(ws, changed)
+            frontier = (frontier | marked) if pl else marked
     torch.cuda.synchronize()
     if not torch.equal(cur, labels):
         raise AssertionError(f"{cfg.method}: the timed replay diverged "
                              f"from lpa()")
     return {"result": res, "iterations": res.iterations,
+            "work_rows_history": res.work_rows_history, "fit_ms": fit_ms,
             "converged": res.converged,
             "changed_history": res.changed_history, "modularity": q,
             "nmi": quality, "lpa_s": lpa_s,
@@ -756,8 +1018,12 @@ def main(argv=None) -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     import numpy as np
-    from repro_torch.core.lpa import LPAConfig, build_workspace, lpa, lpa_move
+    from repro_torch.core.lpa import (LPAConfig, build_workspace, lpa,
+                                      lpa_move, mark_frontier)
     from repro_torch.core.modularity import modularity, nmi
+    from repro_torch.graphs.csr import (fused_active_rows,
+                                        plan_dispatches, plan_padded_entries,
+                                        plan_round0_dispatches)
     from repro_torch.graphs.generators import powerlaw_communities
     from repro_torch.kernels.build import load_library
     from repro_torch.kernels.mg_sketch import fused
@@ -787,7 +1053,8 @@ def main(argv=None) -> int:
               f"{built.seconds:.2f} s", flush=True)
         for line in _ptxas_summary(built.ptxas):
             print(f"{tag} phase 1: ptxas {line}")
-    print(f"{tag} phase 1: both builds in {build_wall:.2f} s wall",
+    print(f"{tag} phase 1: all {len(builds)} builds in {build_wall:.2f} s "
+          f"wall",
           flush=True)
 
     # -- the main-path graph and its plan (host-side set-up) -----------------
@@ -857,6 +1124,37 @@ def main(argv=None) -> int:
                           f"{t['real_entries']}, {t['row_slots']}"
                           for t in table), flush=True)
 
+    # the per-bucket workspace: the bucketed plan alone
+    cfg_pallas = dataclasses.replace(cfg, fold_backend="pallas")
+    t0 = time.perf_counter()
+    ws_pallas = build_workspace(graph, cfg_pallas)
+    torch.cuda.synchronize()
+    bplan = ws_pallas.plan
+    report["bucketed_plan"] = {
+        "plan_build_s": time.perf_counter() - t0,
+        "plan_bytes": _plan_bytes(bplan), "n_rounds": bplan.n_rounds,
+        "padded_slots": plan_padded_entries(bplan),
+        "dispatches": plan_dispatches(bplan),
+        "round0_dispatches": plan_round0_dispatches(bplan),
+        "rounds": [{"round": r, "rows": rnd.n_rows_total,
+                    "real_entries": int(sum(int((b.gather >= 0).sum())
+                                            for b in rnd.buckets)),
+                    "padded_slots": sum(b.width * b.n_rows
+                                        for b in rnd.buckets),
+                    "buckets": [[b.width, b.n_rows] for b in rnd.buckets]}
+                   for r, rnd in enumerate(bplan.rounds)]}
+    bp = report["bucketed_plan"]
+    print(f"{tag} set-up: pallas workspace (bucketed plan only) built in "
+          f"{bp['plan_build_s']:.1f} s, {bp['plan_bytes']} B on the card; "
+          f"{bp['n_rounds']} rounds, {bp['padded_slots']} padded slots, "
+          f"{bp['dispatches']} K9 launches per mg iteration, "
+          f"{bp['round0_dispatches']} K10 per bm iteration; rounds (rows, "
+          f"real entries, padded slots, width x rows): "
+          + "; ".join(f"{t['rows']}, {t['real_entries']}, "
+                      f"{t['padded_slots']}, "
+                      + " ".join(f"{w}x{n}" for w, n in t["buckets"])
+                      for t in bp["rounds"]), flush=True)
+
     # -- phase 2: each kernel against its plain version ----------------------
     t_phase = time.perf_counter()
     kstats = kernels_vs_plain(graph, fplan, tag)
@@ -864,21 +1162,23 @@ def main(argv=None) -> int:
     kstats.update(stream_kernels_vs_plain(graph, stream_ws["auto"].stream_plan,
                                           stream_ws["aligned"].stream_plan,
                                           tag))
+    kstats.update(tile_kernels_vs_plain(graph, bplan, tag))
     report["kernels_vs_plain"] = kstats
     _phase_took(tag, 2, t_phase, report)
 
     # -- phase 3: whole-path parity, kernels vs plain torch, on the card -----
-    # (a) the small graph through both engines, for mg and bm. The paper
+    # (a) the small graph through every engine, for mg and bm. The paper
     # defaults make νMG collapse on it (its hubs reach most vertices; the
-    # JAX package does the same), νBM keeps communities; (b) holds the
-    # main graph's whole runs.
+    # JAX package does the same), νBM keeps communities; (b) the
+    # frontier-gated runs there, dense and sparse; (c) holds the main
+    # graph's whole runs.
     t_phase = time.perf_counter()
     g16, truth16 = powerlaw_communities(1 << PARITY_SCALE, p_in=0.5,
                                         mix=0.02, seed=1)
     report["parity"] = {}
     for method in ("mg", "bm"):
         runs = {}
-        for backend in ("jnp", "pallas_fused", "auto"):
+        for backend in ("jnp", "pallas_fused", "auto", "pallas"):
             pcfg = LPAConfig(method=method, k=8, chunk=128,
                              fold_backend=backend)
             t0 = time.perf_counter()
@@ -894,11 +1194,17 @@ def main(argv=None) -> int:
             runs[backend + "_s"] = time.perf_counter() - t0
             runs[backend + "_launches"] = dict(fused.LAUNCH_COUNTS)
         launched = runs["auto_launches"]
-        if (any(launched[key] for key in FUSED_KEYS)
+        if (any(launched[key] for key in FUSED_KEYS + TILE_KEYS)
                 or not any(launched[key] for key in STREAM_KEYS)):
             raise AssertionError(f"phase 3, auto, {method}: launches "
                                  f"{launched}")
-        for backend in ("pallas_fused", "auto"):
+        tiled = runs["pallas_launches"]
+        if (any(tiled[key] for key in FUSED_KEYS + STREAM_KEYS)
+                or not tiled["tile_mg_fold" if method == "mg"
+                             else "tile_bm_fold"]):
+            raise AssertionError(f"phase 3, pallas, {method}: launches "
+                                 f"{tiled}")
+        for backend in ("pallas_fused", "auto", "pallas"):
             _check_same_run(runs["jnp"], runs[backend],
                             f"phase 3, 2^{PARITY_SCALE}, {method}, "
                             f"{backend}")
@@ -906,20 +1212,31 @@ def main(argv=None) -> int:
         q16 = float(modularity(g16, got.labels))
         nmi16 = nmi(got.labels, truth16)
         print(f"{tag} phase 3: 2^{PARITY_SCALE} vertices, {method}: "
-              f"pallas_fused == jnp and auto (pallas_stream, launches "
-              f"{launched}) == jnp (labels, {got.iterations} iterations, "
-              f"changed_history {got.changed_history}, frontier and "
-              f"work-row histories); modularity {q16:.6f}, NMI vs planted "
-              f"{nmi16:.6f}; wall jnp {runs['jnp_s']:.2f} s, pallas_fused "
-              f"{runs['pallas_fused_s']:.2f} s, auto {runs['auto_s']:.2f} s "
-              f"(plans included)", flush=True)
+              f"pallas_fused == jnp, auto (pallas_stream, launches "
+              f"{launched}) == jnp and pallas (launches {tiled}) == jnp "
+              f"(labels, {got.iterations} iterations, changed_history "
+              f"{got.changed_history}, frontier and work-row histories); "
+              f"modularity {q16:.6f}, NMI vs planted {nmi16:.6f}; wall jnp "
+              f"{runs['jnp_s']:.2f} s, pallas_fused "
+              f"{runs['pallas_fused_s']:.2f} s, auto {runs['auto_s']:.2f} s, "
+              f"pallas {runs['pallas_s']:.2f} s (plans included)",
+              flush=True)
         report["parity"][method] = {
             "iterations": got.iterations,
             "changed_history": got.changed_history, "modularity": q16,
             "nmi": nmi16, "jnp_s": runs["jnp_s"],
             "pallas_fused_s": runs["pallas_fused_s"],
-            "auto_s": runs["auto_s"], "auto_launches": launched}
+            "auto_s": runs["auto_s"], "auto_launches": launched,
+            "pallas_s": runs["pallas_s"], "pallas_launches": tiled}
     del runs, got, pws
+    # (b) frontier-gated mg at 2^16: dense on the plain engine and on the
+    # fused kernels, sparse at the default capacity and at the median of
+    # the iterations' largest per-round active-row counts, which some
+    # iterations overflow (dense fold) and others fit (sparse fold)
+    report["parity"]["gated"] = _gated_parity(
+        g16, LPAConfig(method="mg", k=8, chunk=128, frontier_gate=True),
+        build_workspace, lpa, lpa_move, mark_frontier, fused_active_rows,
+        tag)
     # (b) the plain-torch engine's whole runs on the main graph; phase 4's
     # kernel runs must reproduce them
     paths = {"mg": cfg, "bm": dataclasses.replace(cfg, method="bm"),
@@ -1033,7 +1350,96 @@ def main(argv=None) -> int:
               f"built in {out['plan_build_s']:.1f} s; launches {launches}",
               flush=True)
         report["main"][path] = out
+    # the per-bucket engine: each run must give the fused run of its
+    # method, which equals the plain-torch run above
+    for fpath in ("mg", "bm", "rescan"):
+        path = f"pallas_{fpath}"
+        pcfg = dataclasses.replace(paths[fpath], fold_backend="pallas")
+        out = _run_path(graph, truth, ws_pallas, pcfg, lpa, lpa_move,
+                        modularity, nmi, fused)
+        res, launches = out.pop("result"), out["launches"]
+        it = res.iterations
+        want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
+        if fpath == "bm":
+            want.update(tile_bm_fold=it * plan_round0_dispatches(bplan))
+        else:
+            want.update(tile_mg_fold=it * plan_dispatches(bplan))
+        if launches != want:
+            raise AssertionError(f"phase 4, {path}: launches {launches}, "
+                                 f"expected {want}")
+        _check_same_run(fused_res[fpath], res,
+                        f"phase 4, 2^{SCALE}, {path} vs fused {fpath}")
+        print(f"{tag} phase 4: 2^{SCALE} vertices, {path}: {it} "
+              f"iterations, labels and histories equal to the fused "
+              f"{fpath} run; lpa_move median "
+              f"{statistics.median(out['iter_ms']) / 1e3:.6f} s/iteration "
+              f"(mean {statistics.mean(out['iter_ms']) / 1e3:.6f} s); lpa() "
+              f"wall {out['lpa_s']:.2f} s; peak device memory "
+              f"{out['peak_bytes']} B ({out['peak_bytes'] / 2**30:.3f} GiB), "
+              f"{out['working_bytes']} B above the {out['resident_bytes']} B "
+              f"resident at the start; launches {launches}", flush=True)
+        report["main"][path] = out
     del fused_res
+    torch.cuda.empty_cache()
+    # sparse frontier execution: frontier-gated mg, dense and sparse on the
+    # fused engine, sparse on the aligned streamed engine, each sparse one
+    # at the default capacity and at one every iteration fits (so that
+    # every launch runs compacted); every sparse run equals the fused
+    # dense gated run (labels, changed and frontier histories, iterations)
+    cfg_gate = dataclasses.replace(cfg, frontier_gate=True)
+    sparse_fused = dataclasses.replace(cfg_gate, frontier_sparse=True)
+    sparse_stream = dataclasses.replace(cfg_aligned, frontier_gate=True,
+                                        frontier_sparse=True)
+    gated_paths = {
+        "gated_fused_dense": (ws, cfg_gate),
+        "gated_fused_sparse": (ws, sparse_fused),
+        "gated_fused_sparse_fit": _with_cap(ws, sparse_fused, FIT_ALL_CAP),
+        "gated_stream_sparse_aligned": (stream_ws["aligned"], sparse_stream),
+        "gated_stream_sparse_aligned_fit": _with_cap(
+            stream_ws["aligned"], sparse_stream, FIT_ALL_CAP)}
+    gated_dense = None
+    for path, (gws, gcfg) in gated_paths.items():
+        out = _run_path(graph, truth, gws, gcfg, lpa, lpa_move, modularity,
+                        nmi, fused)
+        res, launches = out.pop("result"), out["launches"]
+        it = res.iterations
+        want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
+        if gws.fused_plan is not None:
+            want.update(fused_fold=it * (n_rounds - 1), fused_select=it)
+        else:
+            want.update(stream_fold=it * (gws.stream_plan.n_rounds - 1),
+                        stream_select=it)
+        if launches != want:
+            raise AssertionError(f"phase 4, {path}: launches {launches}, "
+                                 f"expected {want}")
+        if gated_dense is None:
+            gated_dense = res
+        else:
+            for field in ("labels", "changed_history", "frontier_history",
+                          "iterations"):
+                a, b = getattr(gated_dense, field), getattr(res, field)
+                if not (torch.equal(a, b) if field == "labels" else a == b):
+                    raise AssertionError(f"phase 4, {path}: {field} differs "
+                                         f"from the dense gated run")
+        fit = (f"; sparse_fit median {statistics.median(out['fit_ms']):.3f}"
+               f" ms (host wall, synchronised)" if out["fit_ms"] else "")
+        print(f"{tag} phase 4: 2^{SCALE} vertices, {path}: {it} iterations "
+              f"(converged {res.converged}), changed_history "
+              f"{res.changed_history}, frontier_history "
+              f"{[round(f, 6) for f in res.frontier_history]}, "
+              f"work_rows_history {res.work_rows_history}"
+              + ("" if res is gated_dense else
+                 ", equal to the dense gated run")
+              + f"; modularity {out['modularity']:.6f}, NMI vs planted "
+              f"{out['nmi']:.6f}; lpa_move median "
+              f"{statistics.median(out['iter_ms']) / 1e3:.6f} s/iteration "
+              f"(mean {statistics.mean(out['iter_ms']) / 1e3:.6f} s){fit}; "
+              f"lpa() wall {out['lpa_s']:.2f} s; peak device memory "
+              f"{out['peak_bytes']} B ({out['peak_bytes'] / 2**30:.3f} GiB), "
+              f"{out['working_bytes']} B above the {out['resident_bytes']} B "
+              f"resident at the start; launches {launches}", flush=True)
+        report["main"][path] = out
+    del gated_dense, res
     torch.cuda.empty_cache()
     # exact LPA: plain torch (no kernel); its group sums first, on the
     # 2^16 graph with non-integer weights, against the CPU's bits
@@ -1104,10 +1510,14 @@ def main(argv=None) -> int:
         return {p: main[p]["launches"][key] for p in paths}
     rows = (("K1", "mg_fused_fold", "mg_fused",
              "src/repro/kernels/mg_sketch/fused.py:173", "mg",
-             by_path("fused_fold", ("mg", "rescan"))),
+             by_path("fused_fold", ("mg", "rescan", "gated_fused_dense",
+                                    "gated_fused_sparse",
+                                    "gated_fused_sparse_fit"))),
             ("K2", "mg_fused_select", "mg_fused",
              "src/repro/kernels/mg_sketch/fused.py:234", "mg",
-             by_path("fused_select", ("mg",))),
+             by_path("fused_select", ("mg", "gated_fused_dense",
+                                      "gated_fused_sparse",
+                                      "gated_fused_sparse_fit"))),
             ("K3", "mg_fused_bm_fold", "mg_fused",
              "src/repro/kernels/mg_sketch/fused.py:181", "bm",
              by_path("bm_fold", ("bm",))),
@@ -1117,19 +1527,29 @@ def main(argv=None) -> int:
             ("K5", "mg_stream_fold", "mg_stream",
              "src/repro/kernels/mg_sketch/streaming.py:93", "stream_mg_auto",
              by_path("stream_fold", ("stream_mg_auto", "stream_mg_aligned",
-                                     "stream_rescan_aligned"))),
+                                     "stream_rescan_aligned",
+                                     "gated_stream_sparse_aligned",
+                                     "gated_stream_sparse_aligned_fit"))),
             ("K6", "mg_stream_select", "mg_stream",
              "src/repro/kernels/mg_sketch/streaming.py:104",
              "stream_mg_auto",
              by_path("stream_select", ("stream_mg_auto",
-                                       "stream_mg_aligned"))),
+                                       "stream_mg_aligned",
+                                       "gated_stream_sparse_aligned",
+                                       "gated_stream_sparse_aligned_fit"))),
             ("K7", "mg_stream_bm_fold", "mg_stream",
              "src/repro/kernels/mg_sketch/streaming.py:304",
              "stream_bm_aligned", by_path("stream_bm", ("stream_bm_aligned",))),
             ("K8", "mg_stream_rescan", "mg_stream",
              "src/repro/kernels/mg_sketch/streaming.py:316",
              "stream_rescan_aligned",
-             by_path("stream_rescan", ("stream_rescan_aligned",))))
+             by_path("stream_rescan", ("stream_rescan_aligned",))),
+            ("K9", "mg_tile_fold", "mg_tile",
+             "src/repro/kernels/mg_sketch/mg_sketch.py:29", "pallas_mg",
+             by_path("tile_mg_fold", ("pallas_mg", "pallas_rescan"))),
+            ("K10", "mg_tile_bm_fold", "mg_tile",
+             "src/repro/kernels/mg_sketch/mg_sketch.py:61", "pallas_bm",
+             by_path("tile_bm_fold", ("pallas_bm",))))
     kernels = []
     for key, name, lib, replaces, main_path, launches_by_path in rows:
         st = kstats[key]

@@ -13,11 +13,24 @@ executor and returns a :class:`FoldOutcome`:
     Boyer-Moore states, max-reduce-merged per vertex (paper Alg. 3 /
     §4.7).
 
+Sparse (frontier-compacted) execution is a mode, not a family: ``run``
+lowers ``mode="sparse"`` to a ``RoundSelection`` threaded into the same
+executors; the fused and streamed drivers compact their launches to the
+frontier's rows or windows, the bucketed engines fold densely.
+
 Backend names are the reference's, so one ``LPAConfig`` means the same
 thing in both packages:
 
   * ``jnp``          — the plain-torch bucketed reference engine
-                       (``repro_torch.core.sketch``), on any device;
+                       (``repro_torch.core.sketch``), on any device; the
+                       only host of the ``exact_weighted`` MG variant;
+  * ``pallas``       — the per-bucket engine: the bucketed plan walk of
+                       ``jnp`` with each bucket's padded [R, D] tile (a
+                       plain torch gather) folded by a hand-written CUDA
+                       kernel (``repro_torch.kernels.mg_sketch.ops``): per
+                       MG iteration one K9 launch per bucket per round,
+                       per BM iteration one K10 launch per round-0 bucket;
+                       the rescan's second scan is plain torch;
   * ``pallas_fused`` — the hand-written CUDA fused engine
                        (``repro_torch.kernels.mg_sketch.fused``): per MG
                        iteration one K1 launch per round but the last and
@@ -34,10 +47,7 @@ thing in both packages:
 ``"auto"`` resolves exactly as the reference does (:func:`resolve_auto`,
 whose budget constant is the reference's TPU VMEM figure, kept so that
 the resolved name agrees: past 8 MiB of round-0 entries it picks
-``pallas_stream``). What this package does not port yet — the ``pallas``
-backend, sparse mode and the ``exact_weighted`` variant — raises
-``NotImplementedError`` naming its ``ROADMAP.md`` queue item; no request
-falls back to another engine.
+``pallas_stream``). No request falls back to another engine.
 """
 from __future__ import annotations
 
@@ -49,8 +59,10 @@ if TYPE_CHECKING:  # import-time cycle guard: plan_bundle imports this module
     from repro_torch.core.plan_bundle import PlanBundle
 
 from repro_torch.core import sketch as sketch_lib
-from repro_torch.core.fold_program import FoldOutcome, FoldRequest
+from repro_torch.core.fold_program import (FoldOutcome, FoldRequest,
+                                           RoundSelection)
 from repro_torch.graphs.csr import (FoldPlan, fused_dispatches,
+                                    plan_dispatches, plan_round0_dispatches,
                                     streamed_dispatches)
 
 #: The reference's "auto" budget (bytes) for the fused engine's round-0
@@ -63,12 +75,6 @@ DEFAULT_VMEM_BUDGET_BYTES = 8 * 2**20
 _BYTES_PER_ENTRY = 8
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error for a part of the reference this package has not ported."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
-
-
 def _require_plan(aux_plan, engine: str, plan_name: str):
     """Guard for the plan-consuming engines: the aux plan is built by
     build_workspace exactly when the config selects the engine."""
@@ -77,11 +83,6 @@ def _require_plan(aux_plan, engine: str, plan_name: str):
                          f"(build_workspace constructs one when "
                          f"fold_backend={engine!r})")
     return aux_plan
-
-
-def _check_request(request: FoldRequest) -> None:
-    if request.mode == "sparse":
-        raise unported("sparse frontier mode", "Queue 1 item 7")
 
 
 class FoldEngine:
@@ -98,20 +99,42 @@ class FoldEngine:
         """Execute one fold iteration described by ``request``:
         ``family="bm"`` -> :meth:`bm_fold_plan` (the -1 "no candidate"
         sentinel resolved to the incumbent here, once), ``rescan=True`` ->
-        :meth:`mg_rescan`, otherwise :meth:`mg_select`. Sparse mode raises
-        ``NotImplementedError``."""
-        _check_request(request)
+        :meth:`mg_rescan`, otherwise :meth:`mg_select`.
+
+        ``mode="sparse"`` lowers the request's frontier and capacity into
+        a :class:`RoundSelection` threaded to the executor. The caller
+        (``lpa()``'s loop) guarantees the frontier fits ``cap_rows`` and
+        sends a dense request on overflow. On every engine ``want`` then
+        equals the dense request's on the frontier's vertices; the gate
+        masks the rest."""
         plan, aux_plan = bundle.plan, bundle.aux_for(self)
+        selection = None
+        if request.mode == "sparse":
+            selection = RoundSelection(frontier=request.frontier,
+                                       cap_rows=request.cap_rows)
         if request.family == "bm":
             best, weight = self.bm_fold_plan(plan, aux_plan, entry_labels,
-                                             entry_weights, labels)
+                                             entry_weights, labels,
+                                             selection=selection)
             want = torch.where(best >= 0, best, labels)
             return FoldOutcome(want=want, bm_label=best, bm_weight=weight)
         executor = self.mg_rescan if request.rescan else self.mg_select
         want = executor(plan, aux_plan, entry_labels, entry_weights, labels,
-                        request.seed)
+                        request.seed, selection=selection)
         return FoldOutcome(want=want)
 
+    # -- tile-level folds (signatures of repro_torch.core.sketch's
+    #    mg_fold_tile/bm_fold_tile; the bucketed plan walk plugs them in)
+    def mg_fold_tile(self, labels, weights, k):
+        raise NotImplementedError
+
+    def bm_fold_tile(self, labels, weights, init_label=None):
+        raise NotImplementedError
+
+    # -- family executors. ``selection=None`` means dense (every plan row);
+    #    a RoundSelection compacts the fused and streamed launches to the
+    #    frontier (the bucketed jnp/pallas layouts have no row compaction
+    #    and fold densely either way)
     def mg_candidates(self, plan: FoldPlan, aux_plan,
                       entry_labels, entry_weights
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -119,20 +142,25 @@ class FoldEngine:
         raise NotImplementedError
 
     def mg_select(self, plan: FoldPlan, aux_plan,
-                  entry_labels, entry_weights, labels, seed) -> torch.Tensor:
+                  entry_labels, entry_weights, labels, seed, *,
+                  selection: Optional[RoundSelection] = None
+                  ) -> torch.Tensor:
         """Full iteration: fold + move selection -> wanted label per vertex
         ([N] int32)."""
         raise NotImplementedError
 
     def mg_rescan(self, plan: FoldPlan, aux_plan,
-                  entry_labels, entry_weights, labels, seed) -> torch.Tensor:
+                  entry_labels, entry_weights, labels, seed, *,
+                  selection: Optional[RoundSelection] = None
+                  ) -> torch.Tensor:
         """Full double-scan iteration (paper §4.4): MG fold, then re-read
         the round-0 neighbourhood to score the k candidates exactly, then
         select -> wanted label per vertex ([N] int32)."""
         raise NotImplementedError
 
     def bm_fold_plan(self, plan: FoldPlan, aux_plan, entry_labels,
-                     entry_weights, labels
+                     entry_weights, labels, *,
+                     selection: Optional[RoundSelection] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """νBM iteration core -> per-vertex ([N] int32 majority label, -1
         when the vertex has no entries; [N] float32 vote weight)."""
@@ -140,55 +168,107 @@ class FoldEngine:
 
     def dispatches_per_iter(self, plan: FoldPlan, aux_plan,
                             request: FoldRequest) -> int:
-        """Kernel launches one ``request`` iteration costs on this engine."""
+        """Kernel launches one ``request`` iteration costs on this engine;
+        ``mode`` never changes the count (sparse compacts the launches'
+        rows, not their number)."""
         raise NotImplementedError
 
 
-class JnpEngine(FoldEngine):
+class _BucketedEngine(FoldEngine):
+    """The bucketed plan walk of ``repro_torch.core.sketch`` over the
+    engine's tile folds: what the ``jnp`` and ``pallas`` engines share.
+    A ``selection`` is ignored: the bucketed layout has no row compaction,
+    so the fold is dense and the gate in ``lpa_move`` masks the moves."""
+
+    def mg_candidates(self, plan, aux_plan, entry_labels, entry_weights):
+        s_k, s_v = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights,
+                                          fold_tile=self.mg_fold_tile)
+        return sketch_lib.scatter_rows(plan, s_k, s_v)
+
+    def mg_select(self, plan, aux_plan, entry_labels, entry_weights,
+                  labels, seed, *, selection=None):
+        s_k, s_v = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights,
+                                          fold_tile=self.mg_fold_tile)
+        return sketch_lib.select_best(plan, s_k, s_v, labels, seed)
+
+    def mg_rescan(self, plan, aux_plan, entry_labels, entry_weights,
+                  labels, seed, *, selection=None):
+        # the second (re-scoring) scan is a plain torch pass over the
+        # bucketed round-0 tiles; only the MG fold uses the tile fold
+        s_k, _ = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights,
+                                        fold_tile=self.mg_fold_tile)
+        return sketch_lib.rescan_candidates(plan, s_k, entry_labels,
+                                            entry_weights, labels, seed)
+
+    def bm_fold_plan(self, plan, aux_plan, entry_labels, entry_weights,
+                     labels, *, selection=None):
+        return sketch_lib.run_bm_plan(plan, entry_labels, entry_weights,
+                                      labels, fold_tile=self.bm_fold_tile)
+
+
+class JnpEngine(_BucketedEngine):
     """Dense plain-torch reference (repro_torch.core.sketch); the
-    bit-exactness oracle for the CUDA engine. Named ``jnp`` after the
-    reference engine it copies."""
+    bit-exactness oracle for the CUDA engines, and the only host of the
+    ``exact_weighted`` MG variant. Named ``jnp`` after the reference
+    engine it copies."""
 
     name = "jnp"
 
     def __init__(self, mg_variant: str = "paper"):
-        if mg_variant != "paper":
-            raise unported(f"mg_variant={mg_variant!r}", "Queue 1 item 9")
         self.mg_variant = mg_variant
 
-    def mg_candidates(self, plan, fused_plan, entry_labels, entry_weights):
-        s_k, s_v = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights)
-        return sketch_lib.scatter_rows(plan, s_k, s_v)
+    def mg_fold_tile(self, labels, weights, k):
+        if self.mg_variant == "exact_weighted":
+            return sketch_lib.mg_fold_tile_exact_weighted(labels, weights, k)
+        return sketch_lib.mg_fold_tile(labels, weights, k)
 
-    def mg_select(self, plan, fused_plan, entry_labels, entry_weights,
-                  labels, seed):
-        s_k, s_v = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights)
-        return sketch_lib.select_best(plan, s_k, s_v, labels, seed)
+    def bm_fold_tile(self, labels, weights, init_label=None):
+        return sketch_lib.bm_fold_tile(labels, weights, init_label)
 
-    def mg_rescan(self, plan, fused_plan, entry_labels, entry_weights,
-                  labels, seed):
-        s_k, _ = sketch_lib.run_mg_plan(plan, entry_labels, entry_weights)
-        return sketch_lib.rescan_candidates(plan, s_k, entry_labels,
-                                            entry_weights, labels, seed)
-
-    def bm_fold_plan(self, plan, fused_plan, entry_labels, entry_weights,
-                     labels):
-        return sketch_lib.run_bm_plan(plan, entry_labels, entry_weights,
-                                      labels)
-
-    def dispatches_per_iter(self, plan, fused_plan, request):
+    def dispatches_per_iter(self, plan, aux_plan, request):
         return 0  # plain torch — no hand-written kernel launches
 
 
-class PallasFusedEngine(FoldEngine):
+class _KernelTileFolds:
+    """The per-bucket CUDA tile folds (K9, K10) as a kernel engine's
+    tile-level hooks, as the reference gives its Pallas engines the
+    per-bucket Pallas kernels."""
+
+    # the kernel modules import repro_torch.core.sketch, whose package
+    # imports this module: import them at call time, not at import time
+    def mg_fold_tile(self, labels, weights, k):
+        from repro_torch.kernels.mg_sketch import ops
+        return ops.mg_fold_tile_pallas(labels, weights, k)
+
+    def bm_fold_tile(self, labels, weights, init_label=None):
+        from repro_torch.kernels.mg_sketch import ops
+        return ops.bm_fold_tile_pallas(labels, weights, init_label)
+
+
+class PallasEngine(_KernelTileFolds, _BucketedEngine):
+    """Per-bucket CUDA tile kernels K9/K10 on the bucketed plan (the
+    reference's pre-fusion baseline). Named ``pallas`` after the
+    reference engine it ports."""
+
+    name = "pallas"
+
+    def dispatches_per_iter(self, plan, aux_plan, request):
+        if request.family == "bm":
+            return plan_round0_dispatches(plan)  # one K10 per round-0 bucket
+        # mg, with or without rescan: one K9 per bucket per round (the
+        # rescan's second scan is plain torch, not a kernel launch)
+        return plan_dispatches(plan)
+
+
+class PallasFusedEngine(_KernelTileFolds, FoldEngine):
     """Whole-round fused CUDA kernels — see kernels.mg_sketch.fused. Named
-    ``pallas_fused`` after the reference engine it ports."""
+    ``pallas_fused`` after the reference engine it ports. MG, BM and the
+    rescan run plan-level launches; the tile folds (K9/K10) serve
+    tile-level callers only."""
 
     name = "pallas_fused"
     uses_fused_plan = True
 
-    # the kernel module imports repro_torch.core.sketch, whose package
-    # imports this module: import it at call time, not at import time
     def mg_candidates(self, plan, fused_plan, entry_labels, entry_weights):
         from repro_torch.kernels.mg_sketch.fused import run_mg_plan_fused
         _require_plan(fused_plan, 'pallas_fused', 'FusedFoldPlan')
@@ -197,28 +277,27 @@ class PallasFusedEngine(FoldEngine):
                                     fused_plan.row_to_vertex, s_k, s_v)
 
     def mg_select(self, plan, fused_plan, entry_labels, entry_weights,
-                  labels, seed):
+                  labels, seed, *, selection=None):
         from repro_torch.kernels.mg_sketch.fused import select_best_fused
         _require_plan(fused_plan, 'pallas_fused', 'FusedFoldPlan')
         return select_best_fused(fused_plan, entry_labels, entry_weights,
-                                 labels, seed)
+                                 labels, seed, selection=selection)
 
     def mg_rescan(self, plan, fused_plan, entry_labels, entry_weights,
-                  labels, seed):
+                  labels, seed, *, selection=None):
         from repro_torch.kernels.mg_sketch.fused import rescan_select_fused
         _require_plan(fused_plan, 'pallas_fused', 'FusedFoldPlan')
         return rescan_select_fused(fused_plan, entry_labels, entry_weights,
-                                   labels, seed)
+                                   labels, seed, selection=selection)
 
     def bm_fold_plan(self, plan, fused_plan, entry_labels, entry_weights,
-                     labels):
+                     labels, *, selection=None):
         from repro_torch.kernels.mg_sketch.fused import run_bm_plan_fused
         _require_plan(fused_plan, 'pallas_fused', 'FusedFoldPlan')
         return run_bm_plan_fused(fused_plan, entry_labels, entry_weights,
-                                 labels)
+                                 labels, selection=selection)
 
     def dispatches_per_iter(self, plan, fused_plan, request):
-        _check_request(request)
         if request.family == "bm":
             return 1  # the BM fold only ever walks round 0 (K3)
         if request.rescan:
@@ -227,12 +306,13 @@ class PallasFusedEngine(FoldEngine):
         return fused_dispatches(fused_plan)  # n_rounds (the last one selects)
 
 
-class PallasStreamEngine(FoldEngine):
+class PallasStreamEngine(_KernelTileFolds, FoldEngine):
     """Windowed CUDA kernels — see kernels.mg_sketch.streaming. Named
     ``pallas_stream`` after the reference engine it ports. Same launch
     structure as ``pallas_fused`` (one launch per round, the last one
     selecting; one round-0 launch for BM and for the rescan pass), over
-    the windowed plan."""
+    the windowed plan. The tile folds (K9/K10) serve tile-level callers
+    only."""
 
     name = "pallas_stream"
     uses_stream_plan = True
@@ -246,29 +326,29 @@ class PallasStreamEngine(FoldEngine):
                                     stream_plan.row_to_vertex, s_k, s_v)
 
     def mg_select(self, plan, stream_plan, entry_labels, entry_weights,
-                  labels, seed):
+                  labels, seed, *, selection=None):
         from repro_torch.kernels.mg_sketch.streaming import select_best_stream
         _require_plan(stream_plan, 'pallas_stream', 'StreamedFoldPlan')
         return select_best_stream(stream_plan, entry_labels, entry_weights,
-                                  labels, seed)
+                                  labels, seed, selection=selection)
 
     def mg_rescan(self, plan, stream_plan, entry_labels, entry_weights,
-                  labels, seed):
+                  labels, seed, *, selection=None):
         from repro_torch.kernels.mg_sketch.streaming import (
             rescan_select_stream)
         _require_plan(stream_plan, 'pallas_stream', 'StreamedFoldPlan')
         return rescan_select_stream(stream_plan, entry_labels,
-                                    entry_weights, labels, seed)
+                                    entry_weights, labels, seed,
+                                    selection=selection)
 
     def bm_fold_plan(self, plan, stream_plan, entry_labels, entry_weights,
-                     labels):
+                     labels, *, selection=None):
         from repro_torch.kernels.mg_sketch.streaming import run_bm_plan_stream
         _require_plan(stream_plan, 'pallas_stream', 'StreamedFoldPlan')
         return run_bm_plan_stream(stream_plan, entry_labels, entry_weights,
-                                  labels)
+                                  labels, selection=selection)
 
     def dispatches_per_iter(self, plan, stream_plan, request):
-        _check_request(request)
         if request.family == "bm":
             return 1  # one K7 launch; the round-0 window grid lives inside
         if request.rescan:
@@ -318,9 +398,9 @@ def get_engine(name: str, mg_variant: str = "paper", *,
                vmem_budget_bytes: Optional[int] = None) -> FoldEngine:
     """Resolve a fold backend by config name.
 
-    ``mg_variant='exact_weighted'`` is not ported (the reference hosts it
-    on the jnp engine only; its kernel engines always compute the paper's
-    Alg. 2 rule). ``name="auto"`` picks from the round-0 entry volume
+    ``mg_variant='exact_weighted'`` is honoured on the jnp engine only;
+    the kernel engines always compute the paper's Alg. 2 rule, as the
+    reference's do. ``name="auto"`` picks from the round-0 entry volume
     ``n_entries`` (:func:`resolve_auto`).
     """
     if name == "auto":
@@ -330,11 +410,11 @@ def get_engine(name: str, mg_variant: str = "paper", *,
         name = resolve_auto(n_entries, vmem_budget_bytes)
     if name == "jnp":
         return JnpEngine(mg_variant=mg_variant)
+    if name == "pallas":
+        return PallasEngine()
     if name == "pallas_fused":
         return PallasFusedEngine()
     if name == "pallas_stream":
         return PallasStreamEngine()
-    if name == "pallas":
-        raise unported("the per-bucket 'pallas' backend", "Queue 1 item 9")
     raise ValueError(f"unknown fold backend {name!r}; expected one of "
                      f"{ENGINES + ('auto',)}")

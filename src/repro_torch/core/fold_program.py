@@ -9,9 +9,8 @@ A copy of ``repro.core.fold_program``. Every consumer builds a
 
 ``run`` routes the request to the backend's family executor and returns a
 :class:`FoldOutcome` whose ``want`` is always the per-vertex selection.
-The request space is the reference's, validation included; the engines of
-this package raise ``NotImplementedError`` for the part of it that is not
-ported yet (sparse mode).
+The request space is the reference's, validation included. A sparse
+request reaches the executors as a :class:`RoundSelection`.
 """
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
 """Label Propagation driver — νMG-LPA / νBM-LPA (the paper's Algorithms
 1-3) and exact LPA, in torch.
 
-A copy of ``repro.core.lpa`` for dense iterations: unique initial
-labels; one synchronous move step per iteration; Pick-Less (PL) symmetry
+A copy of the single-host ``repro.core.lpa``: unique initial labels;
+one synchronous move step per iteration; Pick-Less (PL) symmetry
 breaking every ``rho`` iterations starting at iteration 0 (a vertex may
 only adopt a *smaller* label while PL is active); convergence when the
 changed fraction drops below ``tau`` in a non-PL iteration; hard cap
 ``max_iters``. The frontier of unprocessed vertices (paper Alg. 1 l. 31)
 is tracked every iteration and, with ``frontier_gate``, masks the moves.
+``frontier_sparse`` also executes the gate: each iteration the loop
+checks the frontier against a row capacity and, when it fits, sends a
+``mode="sparse"`` request, whose fold launches cover only the frontier's
+rows (fused) or windows (streamed); on overflow it runs the dense gated
+fold. Both give the same labels.
 
 One νMG iteration on ``fold_backend="pallas_fused"`` is: the
 neighbour-label gather; one K1 launch per fold round but the last; one K2
@@ -18,13 +23,15 @@ round with K1 and re-scores the candidates with one K4 launch;
 ``fold_backend="pallas_stream"`` (and on ``"auto"`` past the budget) the
 same iterations run K5/K6, K5 + K8 and K7 over the windowed plan; with
 ``aligned_layout=True`` the neighbour-label gather writes round 0's
-windows directly. The gathers, scatters, merges and masks are plain
-torch; the folds are the CUDA kernels. ``method="exact"`` is plain torch
-(``repro_torch.core.exact``).
+windows directly. On ``fold_backend="pallas"`` each bucket of the
+bucketed plan is gathered into a padded tile and folded by one K9 launch
+(MG; K10 for BM's round 0). The gathers, scatters, merges and masks are
+plain torch; the folds are the CUDA kernels. ``method="exact"`` and
+``mg_variant="exact_weighted"`` (honoured on ``jnp`` only, as in the
+reference) are plain torch.
 
 ``LPAConfig`` keeps every field of the reference, so a config carries
-across; a method, backend or option this package does not port yet raises
-``NotImplementedError`` naming its ``ROADMAP.md`` queue item.
+across and means the same thing in both packages.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.exact import exact_choose
-from repro_torch.core.fold_engine import get_engine, unported
+from repro_torch.core.fold_engine import get_engine
 from repro_torch.core.fold_program import FoldRequest
 from repro_torch.core.plan_bundle import PlanBundle, build_plan_bundle, spec_for
 from repro_torch.device import check_same_device, resolve_device
@@ -75,17 +82,6 @@ class LPAConfig:
     track_frontier: bool = True
 
 
-def check_ported(config: LPAConfig) -> None:
-    """Raise ``NotImplementedError`` for the parts of ``config`` this
-    package does not run yet."""
-    if config.method not in ("exact", "mg", "bm"):
-        raise ValueError(f"unknown method {config.method!r}")
-    if config.frontier_sparse:
-        raise unported("frontier_sparse=True", "Queue 1 item 7")
-    if config.mg_variant != "paper":
-        raise unported(f"mg_variant={config.mg_variant!r}", "Queue 1 item 9")
-
-
 @dataclasses.dataclass
 class LPAWorkspace:
     """Graph + its plan bundle + CSR-expanded edge sources."""
@@ -123,16 +119,19 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
 
     ``seed`` varies per iteration and drives the hash tie-breaking.
     ``frontier`` (optional bool [N]) gates moves to unprocessed vertices
-    (config.frontier_gate). ``sparse``/``cap_rows`` are the reference's
-    sparse-request switches; sparse mode is not ported.
+    (config.frontier_gate). ``sparse``/``cap_rows`` put ``mode="sparse"``
+    on the request, so the engine folds only the frontier's rows; the
+    caller must have checked that the frontier fits ``cap_rows``
+    (``PlanBundle.sparse_fit``). Sparse wanted labels equal the dense
+    ones on the frontier and the gate masks the rest, so the two modes
+    give the same result.
     """
     graph, bundle = ws.graph, ws.bundle
-    check_ported(config)
-    if sparse:
-        if frontier is None:
-            raise ValueError("sparse=True needs a frontier (the compacted "
-                             "fold is defined by the active vertex set)")
-        raise unported("sparse frontier mode", "Queue 1 item 7")
+    if config.method not in ("exact", "mg", "bm"):
+        raise ValueError(f"unknown method {config.method!r}")
+    if sparse and frontier is None:
+        raise ValueError("sparse=True needs a frontier (the compacted fold "
+                         "is defined by the active vertex set)")
     # the bundle's spec carries the RESOLVED backend ("auto" was decided
     # at plan-build time), so the engine always finds its plan
     engine = get_engine(bundle.spec.backend, mg_variant=config.mg_variant)
@@ -143,7 +142,7 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
         want = exact_choose(ws.edge_src,
                             torch.index_select(labels, 0, graph.indices),
                             graph.weights, graph.n_nodes, labels, seed)
-    else:  # "mg" or "bm": check_ported refused any other method
+    else:  # "mg" or "bm"
         if aligned:
             # window-aligned layout: ONE gather straight into round 0's
             # window slots replaces labels[indices] AND the round's
@@ -156,9 +155,12 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
         else:
             nbr_labels = torch.index_select(labels, 0, graph.indices)
             nbr_weights = graph.weights
-        request = FoldRequest(family=config.method, mode="dense",
+        request = FoldRequest(family=config.method,
+                              mode="sparse" if sparse else "dense",
                               rescan=config.method == "mg" and config.rescan,
-                              aligned=aligned, seed=seed)
+                              aligned=aligned, seed=seed,
+                              frontier=frontier if sparse else None,
+                              cap_rows=cap_rows if sparse else 0)
         want = engine.run(bundle, request, nbr_labels, nbr_weights,
                           labels).want
 
@@ -201,8 +203,8 @@ class LPAResult:
     #: unprocessed-frontier fraction entering each iteration (diagnostics;
     #: the gate only acts on it when config.frontier_gate is set)
     frontier_history: list = dataclasses.field(default_factory=list)
-    #: rows the fold computed each iteration (the full plan row count:
-    #: every ported iteration is dense)
+    #: rows the fold computed each iteration: the full plan row count on
+    #: dense iterations, the compacted rows on sparse ones
     work_rows_history: list = dataclasses.field(default_factory=list)
 
 
@@ -222,7 +224,6 @@ def lpa(graph: CSRGraph, config: Optional[LPAConfig] = None,
         if config.method == "exact":
             raise ValueError("frontier_sparse does not apply to the exact "
                              "method (no fold plan to compact)")
-    check_ported(config)
     dev = resolve_device(device)
     check_same_device(dev, offsets=graph.offsets, indices=graph.indices,
                       weights=graph.weights)
@@ -235,15 +236,24 @@ def lpa(graph: CSRGraph, config: Optional[LPAConfig] = None,
     frontier_history = []
     work_rows_history = []
     dense_rows = ws.bundle.dense_work_rows()
+    cap_rows = ws.bundle.cap_rows()
     converged = False
     it = 0
     for it in range(config.max_iters):
         pl = (it % config.rho) == 0
         seed = it + 1
         gate = frontier if config.frontier_gate else None
+        sparse, work = False, dense_rows
+        if config.frontier_sparse:
+            # the fit is decided between iterations, on the host; on
+            # overflow this iteration runs the dense gated fold
+            fits, sparse_work = ws.bundle.sparse_fit(frontier, cap_rows)
+            if fits:
+                sparse, work = True, sparse_work
         labels, changed = lpa_move(ws, labels, pl, seed, config,
-                                   frontier=gate)
-        work_rows_history.append(dense_rows)
+                                   frontier=gate, sparse=sparse,
+                                   cap_rows=cap_rows)
+        work_rows_history.append(work)
         if need_marks:
             if config.track_frontier:
                 frontier_history.append(_mean_f32(frontier))

@@ -17,12 +17,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.core.fold_engine import ENGINES, resolve_auto, unported
+from repro_torch.core.fold_engine import ENGINES, resolve_auto
 from repro_torch.graphs.csr import (CSRGraph, FoldPlan, FusedFoldPlan,
                                     StreamedFoldPlan, build_fold_plan,
                                     build_fused_fold_plan,
                                     build_streamed_fold_plan,
-                                    fused_work_rows, streamed_work_rows)
+                                    fused_active_rows, fused_work_rows,
+                                    streamed_active_windows,
+                                    streamed_work_rows)
 
 __all__ = ["PlanSpec", "PlanBundle", "spec_for", "build_plan_bundle"]
 
@@ -66,10 +68,11 @@ def spec_for(config) -> PlanSpec:
 class PlanBundle:
     """The plans one PlanSpec's requests consume, plus the sizing policy.
 
-    The bucketed ``plan`` is always present (the jnp engine and the
-    reference oracles consume it); exactly one aux plan is built for the
-    kernel engines: ``fused_plan`` iff the resolved backend is
-    ``pallas_fused``, ``stream_plan`` iff it is ``pallas_stream``.
+    The bucketed ``plan`` is always present (the jnp and pallas engines
+    and the reference oracles consume it); at most one aux plan is built
+    for the whole-round kernel engines: ``fused_plan`` iff the resolved
+    backend is ``pallas_fused``, ``stream_plan`` iff it is
+    ``pallas_stream``.
     """
 
     # canonical bucketed multi-width plan (every backend's reference)
@@ -85,8 +88,8 @@ class PlanBundle:
     def aux_for(self, engine):
         """The aux plan ``engine`` consumes next to the bucketed plan: the
         streamed plan for stream engines, the fused plan for fused ones,
-        None for the bucketed jnp backend (its fused_plan slot is never
-        built)."""
+        None for the bucketed jnp/pallas backends (their fused_plan slot
+        is never built)."""
         return self.stream_plan if engine.uses_stream_plan \
             else self.fused_plan
 
@@ -97,6 +100,26 @@ class PlanBundle:
         if self.stream_plan is not None:
             return streamed_work_rows(self.stream_plan)
         return sum(r.n_rows_total for r in self.plan.rounds)
+
+    def sparse_fit(self, frontier, cap_rows: int) -> tuple[bool, int]:
+        """The sparse fold's overflow check.
+
+        Returns (fits, work_rows): whether every round's active unit count
+        is within ``cap_rows`` (rows on the fused plan, windows on the
+        streamed one, whose launches compact whole windows), and the rows
+        the sparse fold would compute. ``frontier`` is the [N] bool mask,
+        on the plans' device; the counts are taken there and only the
+        integers reach the host. The bucketed backends have no compacted
+        path, so they always fit, at the dense cost.
+        """
+        if self.fused_plan is not None:
+            counts = fused_active_rows(self.fused_plan, frontier)
+            return all(c <= cap_rows for c in counts), sum(counts)
+        if self.stream_plan is not None:
+            stats = streamed_active_windows(self.stream_plan, frontier)
+            return (all(w <= cap_rows for w, _ in stats),
+                    sum(r for _, r in stats))
+        return True, self.dense_work_rows()
 
     def default_cap_rows(self) -> int:
         """Half the largest round's real rows (windows, on the streamed
@@ -125,16 +148,14 @@ def build_plan_bundle(graph: CSRGraph, spec: PlanSpec) -> PlanBundle:
     device.
 
     ``spec.backend == "auto"`` resolves here against the graph's |E|, and
-    the returned bundle's spec carries the resolved name. A backend this
-    package does not port raises before any plan is built.
+    the returned bundle's spec carries the resolved name. The bucketed
+    backends (``jnp``, ``pallas``) need the bucketed plan only.
     """
     degrees = graph.degrees.cpu().numpy()
     backend = spec.backend
     if backend == "auto":
         backend = resolve_auto(int(degrees.sum()), spec.vmem_budget_bytes)
         spec = dataclasses.replace(spec, backend=backend)
-    if backend == "pallas":
-        raise unported("the per-bucket 'pallas' backend", "Queue 1 item 9")
     if backend not in ENGINES:
         raise ValueError(f"unknown fold backend {backend!r} in PlanSpec")
     plan = build_fold_plan(degrees, k=spec.k, chunk=spec.chunk,

@@ -1,15 +1,18 @@
 """Vectorized weighted Misra-Gries / Boyer-Moore sketch folds (plain torch).
 
-A copy of ``repro.core.sketch`` without the ``exact_weighted`` MG
-variant: every row of a tile owns one whole sketch (k MG slots on a
-trailing axis, or one BM carry), and one accumulate step is a handful of
-elementwise ops over all rows at once. Also here: the BM merge of
+A copy of ``repro.core.sketch``: every row of a tile owns one whole
+sketch (k MG slots on a trailing axis, or one BM carry), and one
+accumulate step is a handful of elementwise ops over all rows at once.
+The paper's MG rule (:func:`mg_fold_tile`) and the exact weighted MG
+variant (:func:`mg_fold_tile_exact_weighted`, plain torch only, as in the
+reference) share the plan walk :func:`run_mg_plan`, whose tile fold is
+injectable, as :func:`run_bm_plan`'s is. Also here: the BM merge of
 per-row partial states and the rescan (double-scan) second pass with its
 deterministic rank-ordered merge.
 
 These functions run on any device. They are the plain-torch reference
 engine (``fold_backend="jnp"``) and the oracle the CUDA kernels of
-``repro_torch.kernels.mg_sketch.fused`` are held against, bit for bit:
+``repro_torch.kernels.mg_sketch`` are held against, bit for bit:
 every fold is a fixed sequence of float32 adds, subtracts and maxes per
 row, with no multiply to contract and no reduction whose order is free.
 The one float reduction across rows, :func:`merge_rescan_partials`, is
@@ -97,6 +100,53 @@ def mg_fold_tile(labels: torch.Tensor, weights: torch.Tensor, k: int
     return s_k, s_v
 
 
+def mg_fold_tile_exact_weighted(labels: torch.Tensor, weights: torch.Tensor,
+                                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact weighted Misra-Gries fold (beyond the paper).
+
+    As :func:`mg_fold_tile` but for the eviction: a row with no match and
+    no free slot subtracts m = min(min slot weight, w) from every slot
+    (clamped at 0) and from the incoming w, then writes the leftover
+    w - m, if positive, into the first slot of least weight. Any label
+    with total weight > W/(k+1) survives for arbitrary positive weights.
+    The float32 order is the reference's: m, the clamped subtraction,
+    then ``w - m``.
+    """
+    r, d = labels.shape
+    dev = labels.device
+    slot_iota = torch.arange(k, dtype=torch.int32, device=dev)
+    s_k = torch.full((r, k), -1, dtype=torch.int32, device=dev)
+    s_v = torch.zeros((r, k), dtype=torch.float32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    for i in range(d):
+        c, w = labels[:, i], weights[:, i]  # [R]
+        valid = (w > 0) & (c >= 0)
+        occupied = s_v > 0
+        match = occupied & (s_k == c[:, None]) & valid[:, None]
+        any_match = match.any(dim=1)
+        s_v = s_v + torch.where(match, w[:, None], 0.0)
+        free = ~occupied
+        has_free = free.any(dim=1)
+        first_free = torch.argmax(free.to(torch.int32), dim=1)
+        claim_row = valid & ~any_match & has_free
+        claim = claim_row[:, None] & (slot_iota[None, :] == first_free[:, None])
+        s_k = torch.where(claim, c[:, None], s_k)
+        s_v = torch.where(claim, w[:, None], s_v)
+        dec_row = valid & ~any_match & ~has_free
+        m = torch.minimum(torch.amin(s_v, dim=1), w)
+        s_v = torch.clamp_min(
+            s_v - torch.where(dec_row[:, None], m[:, None], 0.0), 0.0)
+        leftover = w - m
+        # argmin returns the first index among equal minima, as jnp.argmin
+        min_slot = torch.argmin(torch.where(dec_row[:, None], s_v, inf),
+                                dim=1)
+        take = dec_row & (leftover > 0)
+        claim2 = take[:, None] & (slot_iota[None, :] == min_slot[:, None])
+        s_k = torch.where(claim2, c[:, None], s_k)
+        s_v = torch.where(claim2, leftover[:, None], s_v)
+    return s_k, s_v
+
+
 def bm_fold_tile(labels: torch.Tensor, weights: torch.Tensor,
                  init_label: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,14 +176,16 @@ def bm_fold_tile(labels: torch.Tensor, weights: torch.Tensor,
 
 
 def run_mg_plan(plan: FoldPlan, entry_labels: torch.Tensor,
-                entry_weights: torch.Tensor
+                entry_weights: torch.Tensor, *, fold_tile=mg_fold_tile
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the full multi-round MG fold.
 
     ``entry_labels/_weights`` are the round-0 entry arrays: the neighbor
     community labels C[graph.indices] and edge weights, in CSR order.
     Returns ([final_rows, k] sketch labels, weights); final rows map to
-    vertices via ``plan.row_to_vertex``.
+    vertices via ``plan.row_to_vertex``. ``fold_tile`` folds one bucket's
+    padded [R, D] tile (:func:`mg_fold_tile`, the exact weighted variant,
+    or the per-bucket CUDA kernel K9 of ``kernels.mg_sketch.ops``).
     """
     k = plan.k
     dev = entry_labels.device
@@ -144,7 +196,7 @@ def run_mg_plan(plan: FoldPlan, entry_labels: torch.Tensor,
                             device=dev)
         for bucket in rnd.buckets:
             gl, gw = _gather_entries(bucket.gather, labels, weights)
-            s_k, s_v = mg_fold_tile(gl, gw, k)
+            s_k, s_v = fold_tile(gl, gw, k)
             pos = bucket.out_pos.long()  # unique: each canonical row once
             out_k[pos] = s_k
             out_v[pos] = s_v
@@ -164,8 +216,8 @@ def _bm_select(n: int, cur_labels: torch.Tensor, best_w: torch.Tensor,
 
 
 def run_bm_plan(plan: FoldPlan, entry_labels: torch.Tensor,
-                entry_weights: torch.Tensor, cur_labels: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                entry_weights: torch.Tensor, cur_labels: torch.Tensor, *,
+                fold_tile=bm_fold_tile) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the BM fold + the paper's max-reduce merge across partial states.
 
     Every partial carry starts as the vertex's incumbent label with zero
@@ -174,6 +226,8 @@ def run_bm_plan(plan: FoldPlan, entry_labels: torch.Tensor,
     (paper §4.7), ties toward the incumbent and then the smaller label.
     Every reduction is a max/min scatter, exact in any order. Returns
     per-vertex (label [N], weight [N]); vertices with no entries get -1.
+    ``fold_tile`` folds one round-0 bucket's tile from its rows'
+    incumbents (:func:`bm_fold_tile`, or the CUDA kernel K10).
     """
     n = plan.n_nodes
     dev = entry_labels.device
@@ -182,7 +236,7 @@ def run_bm_plan(plan: FoldPlan, entry_labels: torch.Tensor,
     for bucket in plan.rounds[0].buckets:
         gl, gw = _gather_entries(bucket.gather, entry_labels, entry_weights)
         vertex = bucket.vertex.long()
-        ck, wk = bm_fold_tile(gl, gw, cur_labels[vertex])
+        ck, wk = fold_tile(gl, gw, cur_labels[vertex])
         parts.append((vertex, ck, wk))
         best_w.scatter_reduce_(0, vertex, wk, "amax")
     # prefer the incumbent among max-weight partials, then the smaller label

@@ -1,8 +1,9 @@
-// Per-row sketch folds shared by the fused (mg_fused.cu) and the streamed
-// (mg_stream.cu) kernels: one fold body per sketch, so both engines keep
-// the reference's per-row float32 order. Each body reads exactly `count`
-// entries from `elab`/`ewgt`, already offset to the row's first entry, in
-// entry order; the kernels differ only in how they find that offset.
+// Per-row sketch folds shared by the fused (mg_fused.cu), the streamed
+// (mg_stream.cu) and the per-bucket tile (mg_tile.cu) kernels: one fold
+// body per sketch, so every engine keeps the reference's per-row float32
+// order. Each body reads exactly `count` entries from `elab`/`ewgt`,
+// already offset to the row's first entry, in entry order; the kernels
+// differ only in how they find that offset.
 //
 // Bit-exactness. Every body is a fixed sequence of float32 adds, subtracts
 // and maxes per row, the reference's sequence. The folds have no multiply,

@@ -264,6 +264,24 @@ def build_fold_plan(degrees: np.ndarray, k: int = 8, chunk: int = 128,
                     max_rows0=max_rows0)
 
 
+def plan_padded_entries(plan: FoldPlan) -> int:
+    """Total padded entry slots across all rounds (the bucketed fold's
+    compute volume: every bucket's [R, D] tile)."""
+    return sum(b.width * b.n_rows for r in plan.rounds for b in r.buckets)
+
+
+def plan_dispatches(plan: FoldPlan) -> int:
+    """Kernel launches per MG iteration of the per-bucket ``pallas``
+    backend: one K9 launch per width bucket per round."""
+    return sum(len(r.buckets) for r in plan.rounds)
+
+
+def plan_round0_dispatches(plan: FoldPlan) -> int:
+    """Kernel launches of one round-0-only pass on the per-bucket backend
+    (the BM fold: one K10 launch per round-0 width bucket)."""
+    return len(plan.rounds[0].buckets) if plan.rounds else 0
+
+
 # ---------------------------------------------------------------------------
 # Fused plan: one kernel launch per round
 # ---------------------------------------------------------------------------
@@ -755,3 +773,89 @@ def streamed_work_rows(plan: StreamedFoldPlan) -> int:
     """Real fold rows one dense iteration computes (all rounds)."""
     return sum(int(torch.count_nonzero(r.row_vertex >= 0))
                for r in plan.rounds)
+
+
+# ---------------------------------------------------------------------------
+# Sparse frontier compaction
+# ---------------------------------------------------------------------------
+#
+# The sparse frontier path compacts each round's *active* rows (rows whose
+# owning vertex is on the frontier; on the streamed plan, whole windows
+# holding one) into a fixed-capacity index buffer, so the kernels launch
+# over the active rows only. Unfilled capacity slots hold a sentinel index
+# one past the last real row; the drivers read a neutral row (start 0,
+# count 0, vertex -1) there, which folds to an empty sketch and scatters
+# into a dump slot that is sliced off. Whether a frontier *fits* the
+# capacity is decided between iterations (``fused_active_rows``,
+# ``streamed_active_windows``); on overflow ``lpa()`` runs the dense gated
+# fold instead. The counts are taken on the plan's device and only the
+# integers reach the host.
+
+
+def compact_active_rows(active: torch.Tensor, cap: int) -> torch.Tensor:
+    """Compact the set lanes of ``active`` [rows] bool into a [cap] int32
+    index buffer.
+
+    Slot ``j`` holds the row index of the j-th active lane; slots past the
+    number of active lanes hold the sentinel ``rows``. Active lanes beyond
+    ``cap`` are dropped, so callers check the fit first. Every real slot
+    is written once; inactive and overflowing lanes all write the dump
+    slot ``cap``, which is sliced off (so the order in which a device
+    applies those duplicate writes does not matter).
+    """
+    rows = active.shape[0]
+    idx = torch.full((cap + 1,), rows, dtype=torch.int32,
+                     device=active.device)
+    if rows == 0:
+        return idx[:cap]
+    pos = torch.cumsum(active.to(torch.int32), 0) - 1
+    slot = torch.where(active & (pos < cap), pos, cap)
+    idx[slot] = torch.arange(rows, dtype=torch.int32, device=active.device)
+    return idx[:cap]
+
+
+def _round_active(row_vertex: torch.Tensor, frontier) -> torch.Tensor:
+    """Per-row activity mask of one round: real rows whose owning vertex
+    is on the frontier (a bool tensor or array of [N])."""
+    rv = row_vertex.reshape(-1)
+    front = torch.as_tensor(frontier, device=rv.device).to(torch.bool)
+    real = rv >= 0
+    return real & front[torch.clamp_min(rv, 0).long()]
+
+
+def fused_active_rows(plan: FusedFoldPlan, frontier) -> List[int]:
+    """Per-round active fold-row counts of a frontier.
+
+    The sparse fused fold fits a row capacity ``cap_rows`` iff every
+    round's count here is <= ``cap_rows``.
+    """
+    if not plan.rounds:
+        return []
+    counts = torch.stack([torch.count_nonzero(_round_active(r.row_vertex,
+                                                            frontier))
+                          for r in plan.rounds])
+    return [int(c) for c in counts.tolist()]
+
+
+def streamed_active_windows(plan: StreamedFoldPlan,
+                            frontier) -> List[Tuple[int, int]]:
+    """Per-round ``(active_windows, rows_in_active_windows)`` of a
+    frontier.
+
+    The sparse streamed fold compacts whole windows: a window is active
+    when any of its rows is, and every real row of an active window is
+    folded (the inactive ones compute values the gate then masks). Each
+    active window holds at least one active row, so a row capacity that
+    admits the fused path admits the streamed one too.
+    """
+    if not plan.rounds:
+        return []
+    stats = []
+    for rnd in plan.rounds:
+        shape = (rnd.n_windows, rnd.tile_r)
+        win_active = _round_active(rnd.row_vertex, frontier).reshape(
+            shape).any(dim=1)
+        real = (rnd.row_vertex.reshape(shape) >= 0) & win_active[:, None]
+        stats.append(torch.stack([torch.count_nonzero(win_active),
+                                  torch.count_nonzero(real)]))
+    return [(int(w), int(r)) for w, r in torch.stack(stats).tolist()]

@@ -35,13 +35,19 @@ and nothing else, so a run can show that a path went through the kernels.
 
 The MG, BM and rescan drivers are written once (``run_mg_plan_generic``,
 ``select_best_generic``, ``run_bm_plan_generic``,
-``rescan_select_generic``) over an engine's round wrappers; the streamed
-engine (``kernels.mg_sketch.streaming``) reuses them with its own.
+``rescan_select_generic``) over an engine's round wrappers and its sparse
+compaction (:class:`EngineRounds`); the streamed engine
+(``kernels.mg_sketch.streaming``) reuses them with its own. Each driver
+takes an optional ``selection`` (``core.fold_program.RoundSelection``):
+with one, every launch covers only the rows of the frontier's vertices,
+compacted by :func:`sparse_fused_round` and scattered back by
+:func:`scatter_sparse_rows`, and the kernels are unchanged.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -49,14 +55,17 @@ from repro_torch.core.sketch import (bm_fold_tile, bm_init_rows,
                                      bm_merge_rows, choose_from_candidates,
                                      merge_rescan_partials, mg_fold_tile,
                                      rescan_row_partials)
-from repro_torch.graphs.csr import FusedFoldPlan, FusedRound
+from repro_torch.graphs.csr import (FusedFoldPlan, FusedRound, _round_active,
+                                    compact_active_rows)
 from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
 
 __all__ = ["SUPPORTED_K", "LAUNCH_COUNTS", "reset_launch_counts",
            "fused_fold_round", "fused_select_round", "bm_fold_round_fused",
            "rescan_round_fused", "fused_fold_round_plain",
            "fused_select_round_plain", "bm_fold_round_plain",
-           "rescan_round_plain", "run_mg_plan_generic", "run_mg_plan_fused",
+           "rescan_round_plain", "EngineRounds", "FUSED_ROUNDS",
+           "take_ext", "sparse_fused_round", "scatter_sparse_rows",
+           "run_mg_plan_generic", "run_mg_plan_fused",
            "select_best_generic", "select_best_fused",
            "run_bm_plan_generic", "run_bm_plan_fused",
            "rescan_select_generic", "rescan_select_fused"]
@@ -319,60 +328,169 @@ def rescan_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Plan drivers
+# Sparse frontier compaction (the fused plan's rows)
+# ---------------------------------------------------------------------------
+#
+# The dense gated fold computes every row and lets the frontier mask drop
+# off-frontier moves afterwards. The sparse drivers compact each round's
+# active rows (rows whose owning vertex is on the frontier) into a capped
+# synthetic ``FusedRound`` and launch the unchanged kernels over it.
+# Activity is per vertex, so an active vertex's whole chain of rounds is
+# folded from real inputs and stays bit-identical to the dense fold; an
+# inactive vertex's partials stay empty sketches (-1, 0.0) in the
+# scatter-back buffers, read only by rows that are inactive too. The fit
+# of the frontier to the capacity is the caller's: ``lpa()`` checks it
+# (``csr.fused_active_rows``) and runs the dense fold on overflow.
+
+
+def take_ext(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """``x[idx]`` over the rows of ``x`` extended by one row of ``fill``
+    at index ``len(x)`` (the compaction's sentinel), without copying
+    ``x``."""
+    n = x.shape[0]
+    if n == 0:
+        return torch.full((idx.shape[0],) + tuple(x.shape[1:]), fill,
+                          dtype=x.dtype, device=x.device)
+    out = x[torch.clamp_max(idx, n - 1).long()]
+    out[idx == n] = fill
+    return out
+
+
+def sparse_fused_round(rnd: FusedRound, frontier: torch.Tensor,
+                       cap_rows: int
+                       ) -> Tuple[FusedRound, torch.Tensor, torch.Tensor]:
+    """Compact one round's active rows into a capped synthetic round.
+
+    Returns ``(sub_round, idx, row_vertex)``: a ``FusedRound`` of
+    ``min(ceil(cap_rows / tile_r), n_steps)`` steps whose rows are the
+    active rows in order, then neutral rows (start 0, count 0); the
+    [cap] compacted row indices (sentinel = the dense row count); and the
+    [cap] owning vertex per compacted row (-1 on sentinel rows).
+    """
+    n_steps, tile_r = rnd.row_start.shape
+    active = _round_active(rnd.row_vertex, frontier)
+    cap_steps = min(-(-cap_rows // tile_r), n_steps)
+    idx = compact_active_rows(active, cap_steps * tile_r)
+    rs = take_ext(rnd.row_start.reshape(-1), idx, 0).reshape(cap_steps,
+                                                             tile_r)
+    rc = take_ext(rnd.row_count.reshape(-1), idx, 0).reshape(cap_steps,
+                                                             tile_r)
+    sub = FusedRound(row_start=rs, row_count=rc,
+                     step_dmax=torch.amax(rc, dim=1, keepdim=True),
+                     n_entries_in=rnd.n_entries_in)
+    return sub, idx, take_ext(rnd.row_vertex, idx, -1)
+
+
+def scatter_sparse_rows(rnd: FusedRound, idx: torch.Tensor,
+                        values: torch.Tensor, fill) -> torch.Tensor:
+    """Scatter compacted per-row results back to the round's dense rows.
+
+    Real compacted rows hold distinct row indices, each written once;
+    sentinel rows all land in a dump row that is sliced off. Unwritten
+    rows keep ``fill`` (the empty-sketch value, so later rounds read
+    no-op entries for inactive vertices)."""
+    rows = rnd.row_start.numel()
+    buf = torch.full((rows + 1,) + tuple(values.shape[1:]), fill,
+                     dtype=values.dtype, device=values.device)
+    buf[idx.long()] = values
+    return buf[:rows]
+
+
+# ---------------------------------------------------------------------------
+# Plan drivers, shared by the fused and the streamed engines
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class EngineRounds:
+    """One engine's round wrappers and its sparse compaction: what the
+    generic drivers walk a plan with. The fused engine's are
+    :data:`FUSED_ROUNDS`, the streamed engine's
+    ``kernels.mg_sketch.streaming.STREAM_ROUNDS``."""
+
+    # (rnd, el, ew, *, k, chunk) -> ([rows, k] int32, [rows, k] float32)
+    fold: Callable
+    # (rnd, el, ew, incumbents, seed, *, k, chunk) -> [rows] int32
+    select: Callable
+    # (rnd, el, ew, init, *, chunk) -> ([rows] int32, [rows] float32)
+    bm: Callable
+    # (rnd, el, ew, cand_rows, *, k, chunk) -> [rows, k] float32
+    rescan: Callable
+    # (rnd, frontier, cap_rows) -> (sub_round, idx, compacted row_vertex)
+    compact: Callable
+    # (rnd, idx, values, fill) -> values at the round's dense rows
+    scatter: Callable
+
+
+def _fold_round(ops: EngineRounds, plan, rnd, el: torch.Tensor,
+                ew: torch.Tensor, selection
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MG fold round in dense row order: every row, or with a
+    ``selection`` only the compacted active rows, scattered back."""
+    if selection is None:
+        return ops.fold(rnd, el, ew, k=plan.k, chunk=plan.chunk)
+    sub, idx, _ = ops.compact(rnd, selection.frontier, selection.cap_rows)
+    c_k, c_v = ops.fold(sub, el, ew, k=plan.k, chunk=plan.chunk)
+    return ops.scatter(rnd, idx, c_k, -1), ops.scatter(rnd, idx, c_v, 0.0)
+
+
 def run_mg_plan_generic(plan, entry_labels: torch.Tensor,
-                        entry_weights: torch.Tensor, fold_round_fn
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        entry_weights: torch.Tensor, ops: EngineRounds,
+                        selection=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared MG driver: every fold round through the engine's round
-    wrapper (``fold_round_fn(rnd, el, ew, *, k, chunk)``), each round
-    reading the previous one's flattened output. Returns the final-round
-    padded sketches in the plan's row order (map to vertices via
-    ``plan.row_to_vertex``)."""
+    wrapper, each round reading the previous one's flattened output.
+    Returns the final-round padded sketches in the plan's row order (map
+    to vertices via ``plan.row_to_vertex``). With a ``selection``
+    (``core.fold_program.RoundSelection``) each round launches over its
+    compacted active rows only; the output layout is the same."""
     labels, weights = entry_labels, entry_weights
     for rnd in plan.rounds:
-        s_k, s_v = fold_round_fn(rnd, labels, weights, k=plan.k,
-                                 chunk=plan.chunk)
+        s_k, s_v = _fold_round(ops, plan, rnd, labels, weights, selection)
         labels, weights = s_k.reshape(-1), s_v.reshape(-1)
     return s_k, s_v
 
 
 def run_mg_plan_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
-                      entry_weights: torch.Tensor
+                      entry_weights: torch.Tensor, *, selection=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All fold rounds, one K1 launch each. Returns the final-round padded
     sketches in fused row order (map to vertices via plan.row_to_vertex)."""
     return run_mg_plan_generic(plan, entry_labels, entry_weights,
-                               fused_fold_round)
+                               FUSED_ROUNDS, selection)
 
 
 def select_best_generic(plan, entry_labels: torch.Tensor,
                         entry_weights: torch.Tensor, labels: torch.Tensor,
-                        seed, fold_round_fn, select_round_fn
+                        seed, ops: EngineRounds, selection=None
                         ) -> torch.Tensor:
     """Shared MG iteration: ``n_rounds - 1`` launches of the engine's fold
-    wrapper and one of its select wrapper
-    (``select_round_fn(rnd, el, ew, incumbents, seed, *, k, chunk)``),
-    then the [N] scatter of the per-row winners. Returns the wanted label
-    per vertex."""
+    wrapper and one of its select wrapper, then the [N] scatter of the
+    per-row winners. Returns the wanted label per vertex.
+
+    With a ``selection`` every round launches over its compacted active
+    rows: on the frontier the wanted label is bit-identical to the dense
+    run's; off the frontier a vertex keeps its label or gets a value the
+    gate masks."""
     if plan.n_nodes == 0:
         return labels
     el, ew = entry_labels, entry_weights
     for rnd in plan.rounds[:-1]:
-        s_k, s_v = fold_round_fn(rnd, el, ew, k=plan.k, chunk=plan.chunk)
+        s_k, s_v = _fold_round(ops, plan, rnd, el, ew, selection)
         el, ew = s_k.reshape(-1), s_v.reshape(-1)
     last, rv = plan.rounds[-1], plan.row_to_vertex
+    if selection is not None:
+        last, _, rv = ops.compact(last, selection.frontier,
+                                  selection.cap_rows)
     n = plan.n_nodes
     real = rv >= 0
     incumbents = torch.where(real, labels[torch.clamp_min(rv, 0)], -1)
-    choice = select_round_fn(last, el, ew, incumbents, seed, k=plan.k,
-                             chunk=plan.chunk)
+    choice = ops.select(last, el, ew, incumbents, seed, k=plan.k,
+                        chunk=plan.chunk)
     # [N] scatter of per-row winners. A vertex owns at most one final row,
-    # so real rows write distinct slots; pad rows all write -1 into the
-    # dump slot n, which is sliced off. Vertices with no fold rows keep
-    # their label, as choose_from_candidates does for an empty set.
+    # so real rows write distinct slots; pad and sentinel rows all write
+    # -1 into the dump slot n, which is sliced off. Vertices with no fold
+    # rows (degree 0, or off a selection's frontier) keep their label, as
+    # choose_from_candidates does for an empty set.
     buf = torch.cat([labels, labels.new_zeros((1,))])
     buf[torch.where(real, rv, n).long()] = torch.where(real, choice, -1)
     return buf[:n]
@@ -380,79 +498,89 @@ def select_best_generic(plan, entry_labels: torch.Tensor,
 
 def select_best_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
                       entry_weights: torch.Tensor, labels: torch.Tensor,
-                      seed) -> torch.Tensor:
+                      seed, *, selection=None) -> torch.Tensor:
     """Full fused MG iteration: ``n_rounds - 1`` K1 launches and one K2
     launch. Bit-identical to ``run_mg_plan`` + ``select_best`` on the
     plain-torch reference engine. Returns the wanted label per vertex."""
     return select_best_generic(plan, entry_labels, entry_weights, labels,
-                               seed, fused_fold_round, fused_select_round)
-
-
-# ---------------------------------------------------------------------------
-# Boyer-Moore fold: round 0 in one launch
-# ---------------------------------------------------------------------------
+                               seed, FUSED_ROUNDS, selection)
 
 
 def run_bm_plan_generic(plan, entry_labels: torch.Tensor,
                         entry_weights: torch.Tensor, cur_labels: torch.Tensor,
-                        fold_round_fn) -> Tuple[torch.Tensor, torch.Tensor]:
+                        ops: EngineRounds, selection=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared νBM driver: incumbent-initialise each round-0 row from
-    ``plan.row_to_vertex0``, run the engine's single round-0 launch
-    (``fold_round_fn(rnd, el, ew, init, *, chunk)``) and merge the per-row
-    partial states per vertex with the order-insensitive
-    ``sketch.bm_merge_rows``. Returns per-vertex (label [N], weight [N]);
-    vertices with no entries get -1."""
+    ``plan.row_to_vertex0``, run the engine's single round-0 launch and
+    merge the per-row partial states per vertex with the
+    order-insensitive ``sketch.bm_merge_rows``. Returns per-vertex (label
+    [N], weight [N]); vertices with no entries get -1.
+
+    With a ``selection`` the launch covers the compacted active round-0
+    rows. Every row of an active vertex is among them, so active vertices
+    merge their complete partial set; vertices with no compacted row come
+    back (-1, 0.0), which the gate masks."""
     n = plan.n_nodes
     if n == 0:
         dev = entry_labels.device
         return (torch.full((0,), -1, dtype=torch.int32, device=dev),
                 torch.zeros((0,), dtype=torch.float32, device=dev))
-    rtv0 = plan.row_to_vertex0
+    rnd0, rtv0 = plan.rounds[0], plan.row_to_vertex0
+    if selection is not None:
+        rnd0, _, rtv0 = ops.compact(rnd0, selection.frontier,
+                                    selection.cap_rows)
     init = bm_init_rows(rtv0, cur_labels)
-    ck, wk = fold_round_fn(plan.rounds[0], entry_labels, entry_weights, init,
-                           chunk=plan.chunk)
+    ck, wk = ops.bm(rnd0, entry_labels, entry_weights, init,
+                    chunk=plan.chunk)
     return bm_merge_rows(n, cur_labels, rtv0, ck, wk)
 
 
 def run_bm_plan_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
-                      entry_weights: torch.Tensor, cur_labels: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      entry_weights: torch.Tensor, cur_labels: torch.Tensor,
+                      *, selection=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused νBM iteration core: ONE K3 launch + the max-reduce merge.
     Bit-identical to ``repro_torch.core.sketch.run_bm_plan``: per-row
     folds replay the same entry sequences, and the merge is an
     order-insensitive max/min scatter."""
     return run_bm_plan_generic(plan, entry_labels, entry_weights, cur_labels,
-                               bm_fold_round_fused)
-
-
-# ---------------------------------------------------------------------------
-# Rescan (double-scan ablation): the second pass in one launch
-# ---------------------------------------------------------------------------
+                               FUSED_ROUNDS, selection)
 
 
 def rescan_select_generic(plan, entry_labels: torch.Tensor,
                           entry_weights: torch.Tensor, labels: torch.Tensor,
-                          seed, run_plan_fn, rescan_round_fn) -> torch.Tensor:
-    """Shared double-scan driver: the engine's MG fold (``run_plan_fn``),
-    the final sketches scattered to per-vertex candidate sets and
-    broadcast to round-0 rows via ``plan.row_to_vertex0``, the engine's
-    single rescan launch (``rescan_round_fn``), then the deterministic
-    ``sketch.merge_rescan_partials`` and the shared selection."""
+                          seed, ops: EngineRounds, selection=None
+                          ) -> torch.Tensor:
+    """Shared double-scan driver: the engine's MG fold, the final
+    sketches scattered to per-vertex candidate sets and broadcast to
+    round-0 rows via ``plan.row_to_vertex0``, the engine's single rescan
+    launch, then the deterministic ``sketch.merge_rescan_partials`` and
+    the shared selection.
+
+    With a ``selection`` the fold rounds and the rescan launch cover the
+    compacted active rows; the rescan partials are scattered back to
+    round 0's dense rows (0.0 elsewhere) before the merge, so inactive
+    vertices end with an all-empty candidate set and keep their label."""
     n, k = plan.n_nodes, plan.k
     if n == 0:
         return labels
-    s_k, _ = run_plan_fn(plan, entry_labels, entry_weights)
+    s_k, _ = run_mg_plan_generic(plan, entry_labels, entry_weights, ops,
+                                 selection)
     rtv = plan.row_to_vertex
     cand = torch.full((n + 1, k), -1, dtype=torch.int32, device=s_k.device)
     # real final rows own distinct vertices; pad rows hit the dump slot n
     cand[torch.where(rtv >= 0, rtv, n).long()] = s_k
     cand[n] = -1
-    rtv0 = plan.row_to_vertex0
-    cand_rows = cand[torch.where(rtv0 >= 0, rtv0, n).long()]
-    parts = rescan_round_fn(plan.rounds[0], entry_labels, entry_weights,
-                            cand_rows, k=k, chunk=plan.chunk)
-    acc = merge_rescan_partials(n, k, plan.max_rows0, rtv0, plan.row_rank0,
-                                parts)
+    rnd0, rv0 = plan.rounds[0], plan.row_to_vertex0
+    if selection is not None:
+        rnd0, idx0, rv0 = ops.compact(rnd0, selection.frontier,
+                                      selection.cap_rows)
+    cand_rows = cand[torch.where(rv0 >= 0, rv0, n).long()]
+    parts = ops.rescan(rnd0, entry_labels, entry_weights, cand_rows, k=k,
+                       chunk=plan.chunk)
+    if selection is not None:
+        parts = ops.scatter(plan.rounds[0], idx0, parts, 0.0)
+    acc = merge_rescan_partials(n, k, plan.max_rows0, plan.row_to_vertex0,
+                                plan.row_rank0, parts)
     cand = cand[:n]
     return choose_from_candidates(torch.where(acc > 0, cand, -1), acc,
                                   labels, seed)
@@ -460,9 +588,16 @@ def rescan_select_generic(plan, entry_labels: torch.Tensor,
 
 def rescan_select_fused(plan: FusedFoldPlan, entry_labels: torch.Tensor,
                         entry_weights: torch.Tensor, labels: torch.Tensor,
-                        seed) -> torch.Tensor:
+                        seed, *, selection=None) -> torch.Tensor:
     """Full double-scan MG iteration on the fused engine: ``n_rounds`` K1
     launches + ONE K4 launch. Bit-identical to the reference
     ``run_mg_plan`` + ``rescan_candidates``."""
     return rescan_select_generic(plan, entry_labels, entry_weights, labels,
-                                 seed, run_mg_plan_fused, rescan_round_fused)
+                                 seed, FUSED_ROUNDS, selection)
+
+
+#: the fused engine's round wrappers (K1–K4) and row compaction
+FUSED_ROUNDS = EngineRounds(
+    fold=fused_fold_round, select=fused_select_round,
+    bm=bm_fold_round_fused, rescan=rescan_round_fused,
+    compact=sparse_fused_round, scatter=scatter_sparse_rows)

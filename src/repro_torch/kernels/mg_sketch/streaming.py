@@ -34,10 +34,10 @@ re-lays the entries, then launches the kernel on the current stream, or
 raises. Nothing falls back. ``LAUNCH_COUNTS`` is the one table of the
 port's kernels (``repro_torch.kernels.launches``).
 
-The drivers are the fused module's generic ones over these wrappers. Only
-the dense drivers are ported; the sparse frontier path
-(``_sparse_stream_round``, ``_scatter_sparse_windows``) is ROADMAP Queue 1
-item 7.
+The drivers are the fused module's generic ones over these wrappers and
+the window compaction of the sparse frontier path
+(:func:`sparse_stream_round`, :func:`scatter_sparse_windows`):
+:data:`STREAM_ROUNDS`.
 """
 from __future__ import annotations
 
@@ -48,22 +48,26 @@ import torch
 
 from repro_torch.core.sketch import (bm_fold_tile, choose_from_candidates,
                                      mg_fold_tile, rescan_row_partials)
-from repro_torch.graphs.csr import StreamedFoldPlan, StreamedRound
+from repro_torch.graphs.csr import (StreamedFoldPlan, StreamedRound,
+                                    _round_active, compact_active_rows)
 from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
-from repro_torch.kernels.mg_sketch.fused import (SUPPORTED_K, _check_inputs,
+from repro_torch.kernels.mg_sketch.fused import (SUPPORTED_K, EngineRounds,
+                                                 _check_inputs,
                                                  _check_row_tensor,
                                                  _raise_on, gather_rows,
                                                  rescan_select_generic,
                                                  run_bm_plan_generic,
                                                  run_mg_plan_generic,
-                                                 select_best_generic)
+                                                 select_best_generic,
+                                                 take_ext)
 
 __all__ = ["SUPPORTED_K", "LAUNCH_COUNTS", "reset_launch_counts",
            "windowed_entries", "round_window_entries", "stream_fold_round",
            "stream_select_round", "bm_fold_round_stream",
            "rescan_round_stream", "stream_fold_round_plain",
            "stream_select_round_plain", "bm_fold_round_stream_plain",
-           "rescan_round_stream_plain", "run_mg_plan_stream",
+           "rescan_round_stream_plain", "sparse_stream_round",
+           "scatter_sparse_windows", "STREAM_ROUNDS", "run_mg_plan_stream",
            "select_best_stream", "run_bm_plan_stream",
            "rescan_select_stream"]
 
@@ -330,47 +334,115 @@ def rescan_round_stream(rnd: StreamedRound, entry_labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Plan drivers (dense)
+# Sparse frontier compaction (whole windows)
 # ---------------------------------------------------------------------------
+#
+# The streamed analogue of the fused module's compaction, at *window*
+# granularity: a window is active when any of its rows belongs to a
+# frontier vertex, and the synthetic round gathers the active windows'
+# entry_gather blocks and row metadata into ``min(cap_rows, n_windows)``
+# windows. Inactive rows that share a window with an active one are
+# folded too: on round 0 they compute what the dense fold would (the gate
+# masks it); on later rounds they read their vertex's empty scatter-back
+# partials and fold to empty sketches.
+
+
+def sparse_stream_round(rnd: StreamedRound, frontier: torch.Tensor,
+                        cap_rows: int
+                        ) -> Tuple[StreamedRound, torch.Tensor, torch.Tensor]:
+    """Compact one round's active windows into a capped synthetic round.
+
+    Returns ``(sub_round, widx, row_vertex)``: a ``StreamedRound`` over
+    ``min(cap_rows, n_windows)`` windows (sentinel windows are all pad:
+    entry_gather -1, counts 0), the [cap_w] compacted window indices
+    (sentinel = the dense window count), and the [cap_w * tile_r] owning
+    vertex per compacted row slot (-1 on sentinel windows).
+
+    The sub-round keeps ``aligned=False`` even on an aligned round: its
+    windows are a compacted subset of the aligned layout, not a prefix of
+    it, so it re-gathers through ``entry_gather[widx]`` (the identity over
+    window slots on an aligned round) from the round's source arrays.
+    """
+    n_win, tile_r = rnd.row_start.shape
+    w = rnd.window_entries
+    win_active = _round_active(rnd.row_vertex, frontier).reshape(
+        n_win, tile_r).any(dim=1)
+    widx = compact_active_rows(win_active, min(cap_rows, n_win))
+    sub = StreamedRound(
+        entry_gather=take_ext(rnd.entry_gather.reshape(n_win, w), widx,
+                              -1).reshape(-1),
+        row_start=take_ext(rnd.row_start, widx, 0),
+        row_count=take_ext(rnd.row_count, widx, 0),
+        step_dmax=take_ext(rnd.step_dmax, widx, 0),
+        n_entries_in=rnd.n_entries_in, window_entries=w)
+    row_vertex = take_ext(rnd.row_vertex.reshape(n_win, tile_r), widx, -1)
+    return sub, widx, row_vertex.reshape(-1)
+
+
+def scatter_sparse_windows(rnd: StreamedRound, widx: torch.Tensor,
+                           values: torch.Tensor, fill) -> torch.Tensor:
+    """Scatter compacted per-slot results back to the round's dense row
+    slots, whole windows at a time. Real compacted windows are distinct,
+    each slot written once; sentinel windows land in a dump window that is
+    sliced off; unwritten slots keep the empty-sketch ``fill``."""
+    n_win, tile_r = rnd.row_start.shape
+    lane = torch.arange(tile_r, dtype=torch.int64, device=widx.device)
+    targets = (widx.long()[:, None] * tile_r + lane[None, :]).reshape(-1)
+    buf = torch.full(((n_win + 1) * tile_r,) + tuple(values.shape[1:]), fill,
+                     dtype=values.dtype, device=values.device)
+    buf[targets] = values
+    return buf[:n_win * tile_r]
+
+
+# ---------------------------------------------------------------------------
+# Plan drivers: the fused module's generic ones over the streamed rounds
+# ---------------------------------------------------------------------------
+
+#: the streamed engine's round wrappers (K5–K8) and window compaction
+STREAM_ROUNDS = EngineRounds(
+    fold=stream_fold_round, select=stream_select_round,
+    bm=bm_fold_round_stream, rescan=rescan_round_stream,
+    compact=sparse_stream_round, scatter=scatter_sparse_windows)
 
 
 def run_mg_plan_stream(plan: StreamedFoldPlan, entry_labels: torch.Tensor,
-                       entry_weights: torch.Tensor
+                       entry_weights: torch.Tensor, *, selection=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All fold rounds, one K5 launch each. ``entry_labels``/
     ``entry_weights`` are CSR-order, or window-slot order when the plan is
     aligned (gathered from ``aligned_entry_vertex``/``_weights``). Returns
     the final-round padded sketches in row-slot order (map to vertices via
-    ``plan.row_to_vertex``)."""
+    ``plan.row_to_vertex``). A ``selection`` compacts every launch to the
+    frontier's windows."""
     return run_mg_plan_generic(plan, entry_labels, entry_weights,
-                               stream_fold_round)
+                               STREAM_ROUNDS, selection)
 
 
 def select_best_stream(plan: StreamedFoldPlan, entry_labels: torch.Tensor,
                        entry_weights: torch.Tensor, labels: torch.Tensor,
-                       seed) -> torch.Tensor:
+                       seed, *, selection=None) -> torch.Tensor:
     """Full streamed MG iteration: ``n_rounds - 1`` K5 launches and one K6
     launch. Bit-identical to ``run_mg_plan`` + ``select_best`` and to the
-    fused engine. Returns the wanted label per vertex."""
+    fused engine (on the frontier, with a ``selection``). Returns the
+    wanted label per vertex."""
     return select_best_generic(plan, entry_labels, entry_weights, labels,
-                               seed, stream_fold_round, stream_select_round)
+                               seed, STREAM_ROUNDS, selection)
 
 
 def run_bm_plan_stream(plan: StreamedFoldPlan, entry_labels: torch.Tensor,
-                       entry_weights: torch.Tensor, cur_labels: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       entry_weights: torch.Tensor, cur_labels: torch.Tensor,
+                       *, selection=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streamed νBM iteration core: ONE K7 launch + the max-reduce merge.
     Returns per-vertex (label [N], weight [N]); no-entry vertices get -1."""
     return run_bm_plan_generic(plan, entry_labels, entry_weights, cur_labels,
-                               bm_fold_round_stream)
+                               STREAM_ROUNDS, selection)
 
 
 def rescan_select_stream(plan: StreamedFoldPlan, entry_labels: torch.Tensor,
                          entry_weights: torch.Tensor, labels: torch.Tensor,
-                         seed) -> torch.Tensor:
+                         seed, *, selection=None) -> torch.Tensor:
     """Full double-scan MG iteration on the streamed engine: ``n_rounds``
     K5 launches + ONE K8 launch. Bit-identical to the reference
     ``run_mg_plan`` + ``rescan_candidates``."""
     return rescan_select_generic(plan, entry_labels, entry_weights, labels,
-                                 seed, run_mg_plan_stream,
-                                 rescan_round_stream)
+                                 seed, STREAM_ROUNDS, selection)

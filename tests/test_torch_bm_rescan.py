@@ -302,7 +302,8 @@ def test_round_wrappers_check_inputs_and_count_no_cpu_launch():
     assert set(tfused.LAUNCH_COUNTS) == {"fused_fold", "fused_select",
                                          "bm_fold", "rescan", "stream_fold",
                                          "stream_select", "stream_bm",
-                                         "stream_rescan"}
+                                         "stream_rescan", "tile_mg_fold",
+                                         "tile_bm_fold"}
     assert not any(tfused.LAUNCH_COUNTS.values())
 
 

@@ -32,11 +32,30 @@ def test_digest_changes_with_the_source_and_the_flags(tmp_path,
 
 
 def test_both_kernel_sources_share_the_row_header():
+    """Every kernel library (the fused K1–K4, the streamed K5–K8 and the
+    per-bucket tile K9/K10) includes the one row header, and each has a
+    build key of its own."""
     csrc = build._CSRC
     header = (csrc / "sketch_rows.cuh").read_text()
     assert "mg_fold_row" in header and "bm_fold_row" in header
-    for name in ("mg_fused", "mg_stream"):
+    names = ("mg_fused", "mg_stream", "mg_tile")
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(names)
+    for name in names:
         source = (csrc / f"{name}.cu").read_text()
         assert '#include "sketch_rows.cuh"' in source
-    assert (build.source_digest(csrc / "mg_fused.cu")
-            != build.source_digest(csrc / "mg_stream.cu"))
+    assert len({build.source_digest(csrc / f"{name}.cu")
+                for name in names}) == len(names)
+
+
+def test_tile_kernel_digest_covers_its_source_and_the_row_header(tmp_path):
+    """The per-bucket library is rebuilt when mg_tile.cu or the shared
+    row header changes: its key reads both."""
+    for name in ("mg_tile.cu", "sketch_rows.cuh"):
+        (tmp_path / name).write_bytes((build._CSRC / name).read_bytes())
+    source = tmp_path / "mg_tile.cu"
+    assert build.source_digest(source) == build.source_digest(
+        build._CSRC / "mg_tile.cu")
+    before = build.source_digest(source)
+    header = tmp_path / "sketch_rows.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert build.source_digest(source) != before

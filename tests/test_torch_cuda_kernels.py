@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels K1 (MG fold), K2 (MG fold + select), K3
-(BM fold) and K4 (rescan), and their streamed counterparts K5–K8 over the
-windowed plan, against their plain-torch versions on the card, bit for
-bit; the whole fused and streamed paths (νMG, νBM, rescan; aligned and
-not) on the card against the plain-torch reference engine; and
-``exact_choose``'s group sums on the card against the CPU's.
+(BM fold) and K4 (rescan), their streamed counterparts K5–K8 over the
+windowed plan and the per-bucket tile folds K9 (MG) and K10 (BM), against
+their plain-torch versions on the card, bit for bit; the whole fused,
+streamed and per-bucket paths (νMG, νBM, rescan; aligned and not) on the
+card against the plain-torch reference engine; the sparse frontier runs
+on the card against their dense gated runs; and ``exact_choose``'s group
+sums on the card against the CPU's.
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
 is taken inside the ``cuda`` fixture, never at import). On a machine with
@@ -18,9 +20,12 @@ import torch
 from repro_torch.core import exact, sketch
 from repro_torch.core.lpa import LPAConfig, lpa
 from repro_torch.graphs import generators as tgen
+from repro_torch.core.lpa import build_workspace
 from repro_torch.graphs.csr import (build_csr, build_fused_fold_plan,
-                                    build_streamed_fold_plan)
-from repro_torch.kernels.mg_sketch import fused, streaming
+                                    build_streamed_fold_plan,
+                                    plan_dispatches, plan_round0_dispatches)
+from repro_torch.kernels import launches
+from repro_torch.kernels.mg_sketch import fused, ops, streaming
 
 pytestmark = pytest.mark.gpu
 
@@ -352,3 +357,112 @@ def test_stream_paths_match_reference_engine_on_the_card(cuda, method,
         else:
             want.update(stream_fold=(n_rounds - 1) * it, stream_select=it)
     assert streaming.LAUNCH_COUNTS == want
+
+
+# ---------------------------------------------------------------------------
+# K9/K10: the per-bucket tile folds
+# ---------------------------------------------------------------------------
+
+
+def _tile(rng, r, d, dev, n_labels, pad_rows=()):
+    labels = rng.integers(0, n_labels, (r, d)).astype(np.int32)
+    weights = (rng.integers(1, 8, (r, d)) * 0.375).astype(np.float32)
+    pad = rng.random((r, d)) < 0.2
+    pad[list(pad_rows)] = True
+    labels[pad] = -1
+    weights[pad] = 0.0
+    return (torch.from_numpy(labels).to(dev),
+            torch.from_numpy(weights).to(dev))
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("r,d,pad_rows", [(1, 4, ()), (127, 16, (0, 126)),
+                                          (1000, 128, (5,)),
+                                          (4099, 8, ())])
+def test_tile_kernels_match_plain(cuda, k, r, d, pad_rows):
+    """K9 at each k and K10 (no k) on R = 1, odd R, all-pad rows, against
+    their plain versions; one launch each."""
+    rng = np.random.default_rng(r + d + k)
+    gl, gw = _tile(rng, r, d, cuda, n_labels=2 * k, pad_rows=pad_rows)
+    init = torch.from_numpy(rng.integers(-1, 2 * k, r).astype(np.int32)
+                            ).to(cuda)
+    launches.reset_launch_counts()
+    got = ops.mg_fold_tile_pallas(gl, gw, k)
+    got_bm = ops.bm_fold_tile_pallas(gl, gw, init)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(launches.LAUNCH_COUNTS, 0)
+    want.update(tile_mg_fold=1, tile_bm_fold=1)
+    assert launches.LAUNCH_COUNTS == want
+    ref = sketch.mg_fold_tile(gl, gw, k)
+    ref_bm = sketch.bm_fold_tile(gl, gw, init)
+    for a, b in zip(got + got_bm, ref + ref_bm):
+        assert torch.equal(a, b)
+    for row in pad_rows:
+        assert bool((got[0][row] == -1).all()) and float(got_bm[1][row]) == 0
+
+
+def test_tile_kernels_on_an_empty_tile_and_unsupported_k(cuda):
+    """R = 0 launches nothing (a zero-size grid is refused) and returns
+    empty outputs; a k without an instantiation raises, never running the
+    plain version."""
+    gl = torch.zeros((0, 16), dtype=torch.int32, device=cuda)
+    gw = torch.zeros((0, 16), dtype=torch.float32, device=cuda)
+    launches.reset_launch_counts()
+    s_k, s_v = ops.mg_fold_tile_pallas(gl, gw, 8)
+    ck, wk = ops.bm_fold_tile_pallas(gl, gw)
+    torch.cuda.synchronize()
+    assert s_k.shape == (0, 8) and ck.shape == (0,)
+    assert not any(launches.LAUNCH_COUNTS.values())
+    gl, gw = _tile(np.random.default_rng(1), 8, 16, cuda, n_labels=4)
+    with pytest.raises(ValueError):
+        ops.mg_fold_tile_pallas(gl, gw, 3)
+
+
+@pytest.mark.parametrize("method,rescan", [("mg", False), ("bm", False),
+                                           ("mg", True)])
+def test_pallas_paths_match_reference_engine_on_the_card(cuda, method,
+                                                         rescan):
+    """The per-bucket engine on the card: the plain engine's run, with one
+    K9 launch per bucket per round (mg, rescan) or one K10 launch per
+    round-0 bucket (bm) per iteration, and no other kernel."""
+    g, _ = tgen.powerlaw_communities(4096, p_in=0.5, mix=0.02, seed=1,
+                                     device=cuda)
+    cfg = dict(method=method, rescan=rescan, rho=2, chunk=16)
+    ref = lpa(g, LPAConfig(fold_backend="jnp", **cfg))
+    launches.reset_launch_counts()
+    got = lpa(g, LPAConfig(fold_backend="pallas", **cfg))
+    assert torch.equal(got.labels, ref.labels)
+    assert got.changed_history == ref.changed_history
+    assert got.frontier_history == ref.frontier_history
+    plan = build_workspace(g, LPAConfig(fold_backend="pallas",
+                                        **cfg)).plan
+    want = dict.fromkeys(launches.LAUNCH_COUNTS, 0)
+    if method == "bm":
+        want["tile_bm_fold"] = got.iterations * plan_round0_dispatches(plan)
+    else:
+        want["tile_mg_fold"] = got.iterations * plan_dispatches(plan)
+    assert launches.LAUNCH_COUNTS == want
+
+
+@pytest.mark.parametrize("backend,aligned", [("pallas_fused", False),
+                                             ("pallas_stream", False),
+                                             ("pallas_stream", True)])
+@pytest.mark.parametrize("method,rescan", [("mg", False), ("bm", False),
+                                           ("mg", True)])
+def test_sparse_paths_match_dense_gated_on_the_card(cuda, backend, aligned,
+                                                    method, rescan):
+    """Sparse frontier runs on the card equal their dense gated runs, at
+    the default capacity and at one small enough to fall back to the
+    dense fold on some iterations."""
+    g, _ = tgen.sbm(8, 64, 0.3, 0.002, seed=1, device=cuda)
+    cfg = dict(method=method, rescan=rescan, chunk=16, tau=0.0,
+               max_iters=8, frontier_gate=True, fold_backend=backend,
+               aligned_layout=aligned, stream_window=256)
+    dense = lpa(g, LPAConfig(**cfg))
+    for cap in (None, 40):
+        sparse = lpa(g, LPAConfig(frontier_sparse=True,
+                                  frontier_cap_rows=cap, **cfg))
+        assert torch.equal(sparse.labels, dense.labels)
+        assert sparse.changed_history == dense.changed_history
+        assert sparse.frontier_history == dense.frontier_history
+        assert sparse.iterations == dense.iterations

@@ -1,7 +1,9 @@
 """repro_torch stands alone: no import of jax or of the repro package, an
 import that leaves jax unloaded, CUDA by default with no silent move to
-the CPU, NotImplementedError (never a fallback) for what is not ported
-yet, and "auto" past the budget running the streamed engine."""
+the CPU, every configuration the reference accepts running (the per-bucket
+backend, sparse frontier mode and the exact weighted variant, once
+refused, now equal to the reference's runs), and "auto" past the budget
+running the streamed engine."""
 import ast
 import os
 import subprocess
@@ -12,12 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.lpa import LPAConfig as JConfig
+from repro.core.lpa import lpa as jlpa
+from repro.graphs import generators as jgen
 from repro_torch.core.fold_engine import get_engine
 from repro_torch.core.lpa import LPAConfig, lpa, lpa_move, build_workspace
 from repro_torch.device import resolve_device
 from repro_torch.graphs import generators as tgen
 from repro_torch.graphs.csr import build_csr
-from _torch_parity import CPU
+from test_torch_lpa import _assert_same_run
+from _torch_parity import CPU, carry_graph
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -46,7 +52,10 @@ def test_no_jax_or_repro_import_in_the_port():
 def test_import_leaves_jax_unloaded():
     # the kernel module first: it must import without a cycle on its own
     code = ("import sys, repro_torch.kernels.mg_sketch.fused, "
-            "repro_torch.kernels.mg_sketch.streaming, repro_torch.core, "
+            "repro_torch.kernels.mg_sketch.streaming, "
+            "repro_torch.kernels.mg_sketch.ops, "
+            "repro_torch.kernels.mg_sketch.mg_sketch, "
+            "repro_torch.kernels.mg_sketch.ref, repro_torch.core, "
             "repro_torch.graphs.generators, repro_torch.kernels.build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
@@ -91,9 +100,12 @@ def test_lpa_refuses_a_graph_on_another_device():
     {"mg_variant": "exact_weighted"},
 ])
 def test_unported_configs_raise(overrides):
-    g = tgen.ring_of_cliques(4, 4, device=CPU)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lpa(g, LPAConfig(**overrides), device=CPU)
+    """The configurations this package once refused run now, and give
+    the JAX package's run (labels, iterations and every history)."""
+    gj = jgen.ring_of_cliques(4, 4)[0]
+    ref = jlpa(gj, JConfig(rho=2, **overrides))
+    got = lpa(carry_graph(gj), LPAConfig(rho=2, **overrides), device=CPU)
+    _assert_same_run(ref, got)
 
 
 def _large_chain():
@@ -107,13 +119,19 @@ def _large_chain():
 
 
 def test_auto_on_a_large_graph_raises():
-    """Past the budget "auto" resolves to the streamed engine; what that
-    engine does not port yet (sparse frontier mode) raises there, and
-    never falls back to another engine."""
+    """Past the budget "auto" resolves to the streamed engine, sparse
+    frontier mode included (equal to the dense gated run there); what
+    still raises is "auto" without the entry volume to resolve it."""
     g = _large_chain()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        lpa(g, LPAConfig(fold_backend="auto", frontier_gate=True,
-                         frontier_sparse=True), device=CPU)
+    cfg = dict(fold_backend="auto", frontier_gate=True, k=4, chunk=16,
+               max_iters=3, track_frontier=False)
+    ws = build_workspace(g, LPAConfig(**cfg))
+    assert ws.bundle.spec.backend == "pallas_stream"
+    dense = lpa(g, LPAConfig(**cfg), ws=ws, device=CPU)
+    sparse = lpa(g, LPAConfig(frontier_sparse=True, **cfg), ws=ws,
+                 device=CPU)
+    assert torch.equal(dense.labels, sparse.labels)
+    assert dense.changed_history == sparse.changed_history
     with pytest.raises(ValueError, match="n_entries"):
         get_engine("auto")
     assert get_engine("auto", n_entries=g.n_edges).name == "pallas_stream"
@@ -136,20 +154,28 @@ def test_auto_on_a_large_graph_streams():
 
 
 def test_unported_engines_and_requests_raise():
-    with pytest.raises(NotImplementedError):
-        get_engine("pallas")
-    with pytest.raises(NotImplementedError):
-        get_engine("jnp", mg_variant="exact_weighted")
+    """Every backend name resolves (``pallas`` to the per-bucket engine,
+    ``exact_weighted`` to the plain engine's variant); an unknown name
+    raises; a sparse request and an ``exact_weighted`` config run on the
+    fused engine, the first equal to the dense move on the frontier, the
+    second computing the paper's rule, as the reference's engines do."""
+    assert get_engine("pallas").name == "pallas"
+    assert get_engine("jnp", mg_variant="exact_weighted").mg_variant == \
+        "exact_weighted"
     with pytest.raises(ValueError):
         get_engine("nope")
     g = tgen.ring_of_cliques(4, 4, device=CPU)[0]
-    ws = build_workspace(g, LPAConfig(fold_backend="pallas_fused"))
+    cfg = LPAConfig(fold_backend="pallas_fused")
+    ws = build_workspace(g, cfg)
     labels = torch.arange(g.n_nodes, dtype=torch.int32)
-    frontier = torch.ones(g.n_nodes, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        lpa_move(ws, labels, True, 1, LPAConfig(fold_backend="pallas_fused"),
-                 frontier=frontier, sparse=True, cap_rows=4)
-    with pytest.raises(NotImplementedError):
-        lpa_move(ws, labels, True, 1,
-                 LPAConfig(fold_backend="pallas_fused",
-                           mg_variant="exact_weighted"))
+    frontier = torch.zeros(g.n_nodes, dtype=torch.bool)
+    frontier[::3] = True
+    dense, _ = lpa_move(ws, labels, True, 1, cfg, frontier=frontier)
+    sparse, _ = lpa_move(ws, labels, True, 1, cfg, frontier=frontier,
+                         sparse=True, cap_rows=4)
+    assert torch.equal(dense, sparse)
+    paper, _ = lpa_move(ws, labels, True, 1, cfg)
+    variant, _ = lpa_move(ws, labels, True, 1,
+                          LPAConfig(fold_backend="pallas_fused",
+                                    mg_variant="exact_weighted"))
+    assert torch.equal(paper, variant)
