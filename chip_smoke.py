@@ -292,7 +292,7 @@ def kernels_vs_plain(graph, plan, tag: str) -> dict:
               f"{bound / ms:.1%} of bound", flush=True)
         if r == 0:
             s["row_contiguous_round0"] = _row_contiguous_k1(
-                rnd, main_el, main_ew, k, chunk, tag)
+                rnd, main_el, main_ew, k, chunk, ms, tag)
         if key == "K1":
             out_k, out_v = kernel(main_el, main_ew, None)
             main_el, main_ew = out_k.reshape(-1), out_v.reshape(-1)
@@ -301,12 +301,14 @@ def kernels_vs_plain(graph, plan, tag: str) -> dict:
     return stats
 
 
-def _row_contiguous_k1(rnd, el, ew, k: int, chunk: int, tag: str) -> dict:
+def _row_contiguous_k1(rnd, el, ew, k: int, chunk: int, csr_ms: float,
+                       tag: str) -> dict:
     """Diagnostic: K1 on round 0 with its entries copied into row order, so
     that consecutive rows read consecutive entries (the streamed plan's
     windows lay them out so; the fused plan reads each row where its
     vertex sits in the CSR). Each row's entry sequence is unchanged, so
-    the sketches must be equal; only the time may move."""
+    the sketches must be equal; only the time may move. ``csr_ms`` is K1's
+    time on the CSR layout: the difference is what the CSR order costs."""
     import torch
     from repro_torch.kernels.mg_sketch import fused
 
@@ -331,8 +333,10 @@ def _row_contiguous_k1(rnd, el, ew, k: int, chunk: int, tag: str) -> dict:
                                                  chunk=chunk),
                   warmup=3, reps=20)
     print(f"{tag} phase 2: diagnostic: K1 round 0 on a row-contiguous copy "
-          f"of its entries: {ms:.4f} ms, sketches equal", flush=True)
-    return {"ms": ms}
+          f"of its entries: {ms:.4f} ms, sketches equal; the CSR order "
+          f"costs {csr_ms - ms:.4f} ms ({csr_ms:.4f} ms, {csr_ms / ms:.2f}x "
+          f"the row-contiguous time)", flush=True)
+    return {"ms": ms, "csr_ms": csr_ms, "csr_order_cost_ms": csr_ms - ms}
 
 
 def _wall_ms(fn, *, reps: int) -> float:

@@ -20,17 +20,38 @@
 //    entries and sums, per candidate of its vertex, the weights of the
 //    entries carrying that label.
 //
-// Design. One thread per fold row. The k (label, weight) slots live in
-// registers (K is a template parameter, every slot loop is unrolled), and
-// the thread walks its row's entries in entry order, so each row sees the
-// reference's exact sequence of float32 adds, subtracts and maxes: the
-// results are bit-identical to the reference. The per-row bodies live in
-// sketch_rows.cuh, shared with the streamed kernels (mg_stream.cu), so
-// both engines run one fold body. The thread reads exactly row_count
-// entries: the TPU kernel's chunk-wide slices, pad lanes, per-step loop
-// bound (step_dmax) and chunk slack entries are tiling devices that a
-// per-thread loop does not need. Pad rows (row_count == 0) write empty
-// sketches (-1, 0.0f), which the next round reads as exact no-ops.
+// Design of K1. A row is folded by a group of K lanes, lane j owning
+// sketch slot j (one int label, one float weight, in registers): 8 rows a
+// warp at k = 4, 4 at k = 8, 1 at k = 32 (sketch_rows.cuh:mg_fold_group).
+// A block of 128 threads folds 128 / K consecutive rows. The group reads
+// its row in chunks of K entries, lane j entry chunk*K + j, so a warp's
+// load covers 32 / K short contiguous runs (one or two 32 B sectors each)
+// instead of 32 scattered 4 B words, and the next chunk's load is in
+// flight while the current one is folded. Each entry is broadcast to the
+// group; two ballots over the slots' state pick its branch (add to the
+// matching slot, claim the first free slot, or decrement every slot,
+// clamped at 0), and each lane applies it to its own slot with selects,
+// so groups that take different branches do not diverge. Lane j thus
+// performs on slot j exactly the float32 operations of the reference's
+// slot j, in entry order: no arithmetic crosses lanes, so the sketches
+// are bit-identical to the reference. Lane j stores out[r*K + j]: a
+// warp's two store instructions write 32 consecutive slots of labels and
+// of weights (128 contiguous bytes each), where one thread per row made
+// 2*K stores 8*K bytes apart. The loop runs to the longest row of the
+// warp; rows sorted by ascending count (the fused plan's order) keep
+// that close to every row's own length, and a lane past its row's end
+// folds pad no-ops and reads nothing. Staging entries through shared
+// memory is not needed: every real entry is read once, in sectors.
+//
+// K2-K4 keep one thread per fold row, the k slots in registers
+// (sketch_rows.cuh:mg_fold_row, bm_fold_row, rescan_row), walking the
+// row's entries in entry order: the reference's float32 sequence, so
+// their results are bit-identical to it too. Every kernel reads exactly
+// row_count entries: the TPU kernel's chunk-wide slices, pad lanes,
+// per-step loop bound (step_dmax) and chunk slack entries are tiling
+// devices that the CUDA kernels do not need. Pad rows (row_count == 0)
+// write empty sketches (-1, 0.0f), which the next round reads as exact
+// no-ops.
 //
 // Bound on the H100. All four kernels are bound by bytes, not operations:
 // round 0 of K1 reads 8 B per entry (int32 label + float32 weight) plus
@@ -38,12 +59,18 @@
 // K2 reads the same plus a 4 B incumbent per row and writes 4 B per row;
 // K3 reads 8 B per entry and 12 B per row (start, count, init) and writes
 // 8 B per row; K4 reads 8 B per entry and 8 + 4*k B per row and writes
-// 4*k B per row.
-// One thread per row makes a warp's 32 loads of one step hit 32 different
-// rows, i.e. up to 32 different cache lines, so the kernels are expected
-// far from the 3.35 TB/s bound; rows sorted by ascending count keep a
-// warp's loop trip counts close. A warp per row, or staging a block's
-// entries through shared memory with coalesced loads, is later work.
+// 4*k B per row. At 2^22 vertices (90.3 M round-0 entries, 4.2 M rows a
+// round) K1's four rounds must move 2.74 GB, 0.818 ms at 3.35 TB/s.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W), 2^22
+// vertices: K1 takes 2.354 ms per iteration, 34.7% of that bound (round 0
+// 1.011 ms at 30.3%, rounds 1-3 0.44-0.45 ms at 38%), against 6.729 ms
+// for the thread-per-row version it replaced; reading round 0 from a
+// row-contiguous copy no longer changes its time. Rounds 1-3 are not held
+// by bytes (rounds 2 and 3 read wholly contiguous rows) but by the group
+// step's instructions and latency: a warp advances 4 rows per step where a
+// thread-per-row warp advances 32.
+// K2-K4 remain one thread per row: a warp's loads of one step hit 32
+// rows, i.e. up to 32 different cache lines, far from the bound.
 //
 // Offsets are int32, as in the reference plan: a round's flat entry array
 // must stay below 2^31 entries (90 M at 4 M vertices of the smoke graph).
@@ -56,12 +83,16 @@
 namespace {
 
 using sketch_rows::bm_fold_row;
+using sketch_rows::mg_fold_group;
 using sketch_rows::mg_fold_row;
 using sketch_rows::rescan_row;
 using sketch_rows::select_row;
 
 constexpr int kThreadsPerBlock = 128;
 
+// K1: a group of K lanes per row (sketch_rows.cuh:mg_fold_group). Rows at
+// or past n_rows fold count 0 and store nothing; they must not return
+// before the group fold, whose shuffles and ballots take the full warp.
 template <int K>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 mg_fused_fold_kernel(const int* __restrict__ row_start,
@@ -70,17 +101,18 @@ mg_fused_fold_kernel(const int* __restrict__ row_start,
                      const float* __restrict__ ewgt,
                      int* __restrict__ out_k, float* __restrict__ out_v,
                      int n_rows) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  int lab[K];
-  float val[K];
-  const int start = row_start[r];
-  mg_fold_row<K>(elab + start, ewgt + start, row_count[r], lab, val);
-  const int64_t o = static_cast<int64_t>(r) * K;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    out_k[o + j] = lab[j];
-    out_v[o + j] = val[j];
+  constexpr int kRowsPerBlock = kThreadsPerBlock / K;
+  const int r = blockIdx.x * kRowsPerBlock + static_cast<int>(threadIdx.x) / K;
+  const bool real = r < n_rows;
+  const int start = real ? row_start[r] : 0;
+  int lab;
+  float val;
+  mg_fold_group<K>(elab + start, ewgt + start, real ? row_count[r] : 0, lab,
+                   val);
+  if (real) {
+    const int64_t o = static_cast<int64_t>(r) * K + (threadIdx.x & (K - 1));
+    out_k[o] = lab;
+    out_v[o] = val;
   }
 }
 
@@ -134,9 +166,9 @@ mg_fused_rescan_kernel(const int* __restrict__ row_start,
   rescan_row<K>(elab + start, ewgt + start, row_count[r], cand + o, out + o);
 }
 
-inline dim3 grid_for(int n_rows) {
-  return dim3(static_cast<unsigned>((n_rows + kThreadsPerBlock - 1) /
-                                    kThreadsPerBlock));
+inline dim3 grid_for(int n_rows, int rows_per_block = kThreadsPerBlock) {
+  return dim3(static_cast<unsigned>((n_rows + rows_per_block - 1) /
+                                    rows_per_block));
 }
 
 }  // namespace
@@ -161,10 +193,11 @@ extern "C" int mg_fused_fold(const void* row_start, const void* row_count,
   int* ok = static_cast<int*>(out_k);
   float* ov = static_cast<float*>(out_v);
   switch (k) {
-#define MG_FOLD_CASE(KK)                                              \
-  case KK:                                                            \
-    mg_fused_fold_kernel<KK><<<grid_for(n_rows), kThreadsPerBlock, 0, \
-                               s>>>(rs, rc, el, ew, ok, ov, n_rows);  \
+#define MG_FOLD_CASE(KK)                                                 \
+  case KK:                                                               \
+    mg_fused_fold_kernel<KK><<<grid_for(n_rows, kThreadsPerBlock / KK),  \
+                               kThreadsPerBlock, 0, s>>>(rs, rc, el, ew, \
+                                                         ok, ov, n_rows); \
     break;
     SKETCH_ROWS_FOR_EACH_K(MG_FOLD_CASE)
 #undef MG_FOLD_CASE

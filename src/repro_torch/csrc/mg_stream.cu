@@ -24,22 +24,39 @@
 // 2^22-vertex smoke graph, past 2^31 at 2^25). Outputs are in row-slot
 // order.
 //
-// Design. One block per window; its threads stride over the window's row
-// slots (blockDim = min(tile_r, 128); every plan the package builds has
-// tile_r = 128, so one thread per row slot). The per-row fold bodies are
-// the fused kernels' (sketch_rows.cuh), so each row sees the reference's
-// exact float32 sequence and the results are bit-identical to the
-// reference and to the fused engine. The TPU kernel's window blocks, pad
-// lanes and per-window loop bound (step_dmax) are tiling devices: a thread
-// never reads a pad slot. Pad row slots (row_count == 0) fold nothing: K5
-// writes (-1, 0.0f), K6 the incumbent, K7 (init, 0.0f), K8 zeros.
+// Design. One block per window. K5 folds a row slot with a group of K
+// lanes, lane j owning sketch slot j (sketch_rows.cuh:mg_fold_group, as
+// K1 in mg_fused.cu): the block's groups stride over the window's tile_r
+// row slots, 128 / K slots per pass (blockDim = tile_r * K rounded up to
+// a whole warp, at most 128). A group reads its row in chunks of K
+// contiguous entries with the next chunk's load in flight, broadcasts each
+// entry to its lanes, and two ballots over the slots' state pick the
+// branch each lane applies to its own slot: lane j performs slot j's
+// float32 operations of the reference, in entry order, so the sketches
+// are bit-identical to the reference and to the fused engine. Lane j
+// stores out[slot*K + j]: a warp writes 128 contiguous bytes of labels
+// and of weights per store instruction. Staging the window's occupied
+// prefix through shared memory is not needed: a group reads each real
+// entry of its row once, in whole sectors, and never a pad slot past the
+// window's last row. K6-K8 keep one thread per row slot (blockDim =
+// min(tile_r, 128); every plan the package builds has tile_r = 128) on
+// the fused kernels' per-row bodies, the reference's float32 sequence
+// too. The TPU kernel's window blocks, pad lanes and per-window loop
+// bound (step_dmax) are tiling devices: no thread reads a pad slot. Pad
+// row slots (row_count == 0) fold nothing: K5 writes (-1, 0.0f), K6 the
+// incumbent, K7 (init, 0.0f), K8 zeros.
 //
 // Bound on the H100. Bytes, as for K1-K4: the kernels read only real
-// entries (8 B each), so their bytes bounds equal the fused kernels'.
+// entries (8 B each), so their bytes bounds equal the fused kernels'
+// (K5: 2.74 GB over its four rounds at 2^22, 0.819 ms at 3.35 TB/s).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W), 2^22
+// vertices: K5 takes 2.458 ms per iteration, 33.3% of that bound (round 0
+// 1.050 ms, rounds 1-3 0.45-0.48 ms), against 3.281 ms for the
+// thread-per-row version it replaced. Within a window round 0's rows stay
+// in vertex order, so a warp's loop runs to the longest of its rows.
 // What the windowed layout adds is outside the kernels: the re-layout
 // gather of every unaligned round (windowed_entries, plain torch), which
-// writes n_windows*W padded slots per round. Staging a window's occupied
-// prefix through shared memory with coalesced loads is later work.
+// writes n_windows*W padded slots per round.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,12 +66,16 @@
 namespace {
 
 using sketch_rows::bm_fold_row;
+using sketch_rows::mg_fold_group;
 using sketch_rows::mg_fold_row;
 using sketch_rows::rescan_row;
 using sketch_rows::select_row;
 
 constexpr int kMaxThreadsPerBlock = 128;
 
+// K5: the block's groups of K lanes stride over the window's row slots.
+// The pass loop is block-uniform; a group past tile_r folds count 0 and
+// stores nothing (it must still run the group fold: full-warp shuffles).
 template <int K>
 __global__ void __launch_bounds__(kMaxThreadsPerBlock)
 mg_stream_fold_kernel(const int* __restrict__ row_start,
@@ -65,17 +86,21 @@ mg_stream_fold_kernel(const int* __restrict__ row_start,
                       int tile_r, int64_t window_entries) {
   const int64_t w = blockIdx.x;
   const int64_t base = w * window_entries;
-  for (int s = threadIdx.x; s < tile_r; s += blockDim.x) {
+  const int group = static_cast<int>(threadIdx.x) / K;
+  const int per_pass = static_cast<int>(blockDim.x) / K;
+  for (int s0 = 0; s0 < tile_r; s0 += per_pass) {
+    const int s = s0 + group;
+    const bool real = s < tile_r;
     const int64_t slot = w * tile_r + s;
-    const int64_t e = base + row_start[slot];
-    int lab[K];
-    float val[K];
-    mg_fold_row<K>(wlab + e, wwgt + e, row_count[slot], lab, val);
-    const int64_t o = slot * K;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      out_k[o + j] = lab[j];
-      out_v[o + j] = val[j];
+    const int64_t e = real ? base + row_start[slot] : 0;
+    int lab;
+    float val;
+    mg_fold_group<K>(wlab + e, wwgt + e, real ? row_count[slot] : 0, lab,
+                     val);
+    if (real) {
+      const int64_t o = slot * K + (threadIdx.x & (K - 1));
+      out_k[o] = lab;
+      out_v[o] = val;
     }
   }
 }
@@ -155,6 +180,15 @@ inline unsigned block_for(int tile_r) {
                                    : kMaxThreadsPerBlock);
 }
 
+// K5's block: K lanes per row slot, whole warps (the group fold's
+// shuffles take the full warp), at most 128 threads.
+inline unsigned group_block_for(int tile_r, int k) {
+  const long long lanes = (static_cast<long long>(tile_r) * k + 31) / 32 * 32;
+  return static_cast<unsigned>(lanes < kMaxThreadsPerBlock
+                                   ? lanes
+                                   : kMaxThreadsPerBlock);
+}
+
 }  // namespace
 
 // Launchers: plain C interface for ctypes. Each returns cudaGetLastError()
@@ -179,8 +213,9 @@ extern "C" int mg_stream_fold(const void* row_start, const void* row_count,
   switch (k) {
 #define STREAM_FOLD_CASE(KK)                                              \
   case KK:                                                                \
-    mg_stream_fold_kernel<KK><<<grid, block_for(tile_r), 0, s>>>(         \
-        rs, rc, el, ew, ok, ov, tile_r, window_entries);                  \
+    mg_stream_fold_kernel<KK><<<grid, group_block_for(tile_r, KK), 0,     \
+                                s>>>(rs, rc, el, ew, ok, ov, tile_r,      \
+                                     window_entries);                     \
     break;
     SKETCH_ROWS_FOR_EACH_K(STREAM_FOLD_CASE)
 #undef STREAM_FOLD_CASE

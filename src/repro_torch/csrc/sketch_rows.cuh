@@ -5,6 +5,13 @@
 // already offset to the row's first entry, in entry order; the kernels
 // differ only in how they find that offset.
 //
+// Two MG bodies. mg_fold_group folds a row with a group of K lanes, one
+// sketch slot per lane (K1 and K5, whose sketch store is then coalesced);
+// mg_fold_row folds it with one thread holding all K slots (K2, K6 and
+// K9, which keep it until their own redesign). Both compute the same
+// float32 bits: mg_fold_group's lane j does to its slot exactly what
+// mg_fold_row does to slot j.
+//
 // Bit-exactness. Every body is a fixed sequence of float32 adds, subtracts
 // and maxes per row, the reference's sequence. The folds have no multiply,
 // so contraction could not change a bit; the build still passes
@@ -62,6 +69,81 @@ __device__ __forceinline__ void mg_fold_row(const int* __restrict__ elab,
       const float d = val[j] - w;
       val[j] = d < 0.0f ? 0.0f : d;  // the reference's maximum(d, 0.0)
     }
+  }
+}
+
+// mg_fold_row with a group of K lanes per row, lane j holding slot j
+// (lab, val). Lanes 0..31 of a warp form 32/K groups of K consecutive
+// lanes, one row each; every lane of the warp must call this with the
+// same control flow (full-mask shuffles and ballots), a lane without a
+// row passing count 0, which reads nothing and returns the empty slot
+// (-1, 0.0f).
+//
+// The group walks its row in chunks of K entries: lane j loads entry
+// chunk*K + j (K contiguous labels and K contiguous weights per group),
+// and the next chunk's load is started before the current chunk is folded.
+// Each entry (c, w) of the chunk is then broadcast to the group and folded
+// as in mg_fold_row: two ballots over the slots' state before the entry,
+// masked to the group's lanes in place, choose the branch (some occupied
+// slot holds c: it adds w; else some slot is free: the lowest free lane
+// claims (c, w); else every slot subtracts w, clamped at 0), and each lane
+// applies it to its own slot with selects, without branching. No
+// arithmetic crosses lanes, so the bits are mg_fold_row's. The loop runs
+// to the longest row of the warp, so a lane past its row's end folds pads
+// (-1, 0.0f), which are no-ops.
+template <int K>
+__device__ __forceinline__ void mg_fold_group(const int* __restrict__ elab,
+                                              const float* __restrict__ ewgt,
+                                              int count, int& lab,
+                                              float& val) {
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0,
+                "a group is a power-of-two share of a warp");
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const unsigned lane = threadIdx.x & 31u;
+  const int slot = static_cast<int>(lane) & (K - 1);
+  const unsigned lane_bit = 1u << lane;
+  // the group's K lanes as warp bits (K = 32: all; never 1u << 32)
+  const unsigned group = (kFull >> (32 - K)) << (lane - slot);
+  lab = -1;
+  val = 0.0f;
+  const int longest = __reduce_max_sync(kFull, count);
+  int c = -1;
+  float w = 0.0f;
+  if (slot < count) {
+    c = __ldg(elab + slot);
+    w = __ldg(ewgt + slot);
+  }
+  for (int chunk = 0; chunk < longest; chunk += K) {
+    int next_c = -1;
+    float next_w = 0.0f;
+    if (chunk + K + slot < count) {
+      next_c = __ldg(elab + chunk + K + slot);
+      next_w = __ldg(ewgt + chunk + K + slot);
+    }
+    const int steps = longest - chunk;  // warp-uniform
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (i == steps) break;
+      const int ci = __shfl_sync(kFull, c, i, K);
+      const float wi = __shfl_sync(kFull, w, i, K);
+      const bool occupied = val > 0.0f;
+      const bool mine = occupied && lab == ci;
+      const unsigned match = __ballot_sync(kFull, mine) & group;
+      const unsigned free = __ballot_sync(kFull, !occupied) & group;
+      const bool valid = wi > 0.0f && ci >= 0;
+      // free & -free: the group's lowest free lane (0 when none is free)
+      const bool claim =
+          valid && match == 0u && (free & (0u - free)) == lane_bit;
+      const bool decrement = valid && (match | free) == 0u;
+      const float added = val + wi;
+      const float d = val - wi;
+      val = valid && mine ? added : val;
+      val = decrement ? (d < 0.0f ? 0.0f : d) : val;  // maximum(d, 0.0)
+      val = claim ? wi : val;
+      lab = claim ? ci : lab;
+    }
+    c = next_c;
+    w = next_w;
   }
 }
 

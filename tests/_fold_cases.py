@@ -1,0 +1,194 @@
+"""Seeded fold rounds that stress the group-per-row MG fold of K1 and K5
+(``csrc/sketch_rows.cuh:mg_fold_group``: a group of k lanes per row, one
+sketch slot per lane). numpy only, so the tests on the card (no JAX there)
+and the CPU parity tests share them.
+
+A case is a fused round (flat entries, ``row_start``/``row_count`` in
+``[n_steps, tile_r]``) or a streamed round (``n_windows`` windows of W
+entry slots, window-relative starts, aligned: the entries are already
+windowed). Their rows hold:
+
+  * counts 0, 1, k-1, k, k+1, chunk-1 and chunk;
+  * starts at every offset mod 8, with junk entries (valid labels, weight
+    > 0) in the gaps, so a read past a row's end changes its sketch;
+  * rows in shuffled order, so a warp's groups have very different counts;
+  * a slot decremented to 0 mid-row and then claimed while a later slot
+    stays occupied, and a first free slot in the middle of the sketch;
+  * weights <= 0 and label -1 entries mid-row;
+  * equal weights (decrements that free several slots at once);
+  * a row count that is no multiple of the rows a block folds, and
+    streamed windows whose row slots differ in count (one holds no row).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+#: the largest count a row may have: the plans' chunk, the plain gather's
+#: width
+CHUNK = 128
+#: label of the junk entries in the gaps between rows: no row's label
+JUNK_LABEL = 10_000
+
+
+def freed_then_claimed(k: int) -> list[tuple[int, float]]:
+    """Slot 0 decremented to 0 by a new label while every later slot stays
+    occupied, invalid entries, then a claim of slot 0, a decrement and a
+    match there."""
+    row = [(0, 1.0)] + [(j, 5.0) for j in range(1, k)]
+    row += [(k, 1.0)]                         # no free slot: all - 1.0
+    row += [(-1, 2.0), (k + 1, 0.0), (k + 2, -1.0)]  # no-ops mid-row
+    row += [(k + 3, 2.0)]                     # claims slot 0
+    row += [(0, 1.5)]                         # slot 0 holds k+3: all - 1.5
+    row += [(k + 3, 0.5)]                     # matches slot 0
+    return row
+
+
+def middle_slot_freed(k: int) -> list[tuple[int, float]]:
+    """Slots k/2 and k-1 freed together (equal weights), the first of them
+    claimed, the other claimed next, and the row then full again."""
+    mid = k // 2
+    row = [(j, 1.0 if j in (mid, k - 1) else 3.0) for j in range(k)]
+    row += [(k, 1.0)]           # frees mid and k-1 (exactly 0.0)
+    row += [(k + 1, 0.75)]      # claims mid
+    row += [(k + 2, 0.25)]      # claims k-1
+    row += [(mid, 0.5)]         # mid holds k+1 now: no match, decrement
+    return row
+
+
+def _equal_weights(k: int, n: int, rng) -> list[tuple[int, float]]:
+    """Unit weights over 2k labels: decrements to exactly 0 free whole
+    groups of slots at once."""
+    return [(int(c), 1.0) for c in rng.integers(0, 2 * k, n)]
+
+
+def _random_row(k: int, n: int, rng) -> list[tuple[int, float]]:
+    """Labels in [-1, 3k), weights on a 0.375 grid from -0.375 (0 and a
+    negative included)."""
+    labels = rng.integers(-1, 3 * k, n)
+    weights = rng.integers(-1, 8, n) * 0.375
+    return [(int(c), float(w)) for c, w in zip(labels, weights)]
+
+
+def case_rows(k: int, rng, n_random: int = 0) -> list[list]:
+    """The rows of one case at sketch width k, shuffled: every count of
+    the list above, the hand-made rows, and ``n_random`` more rows of
+    random counts in [0, chunk]."""
+    counts = [0, 1, k - 1, k, k + 1, CHUNK - 1, CHUNK]
+    rows = [_random_row(k, n, rng) for n in counts]
+    rows += [_equal_weights(k, n, rng) for n in (k + 1, 3 * k, CHUNK)]
+    for hand in (freed_then_claimed(k), middle_slot_freed(k)):
+        rows.append(hand)
+        rows.append(hand + _random_row(k, CHUNK - len(hand), rng))
+    rows += [_random_row(k, int(n), rng)
+             for n in rng.integers(0, CHUNK + 1, n_random)]
+    assert all(len(r) <= CHUNK for r in rows)
+    order = rng.permutation(len(rows))
+    return [rows[i] for i in order]
+
+
+def _lay_out(rows, first_start: int, rng):
+    """Place rows one after another, row i starting at an offset that is i
+    mod 8 past a multiple of 8; returns (starts, counts, end)."""
+    starts, counts, pos = [], [], first_start
+    for i, row in enumerate(rows):
+        pos = -(-pos // 8) * 8 + i % 8
+        starts.append(pos)
+        counts.append(len(row))
+        pos += len(row) + int(rng.integers(0, 3))
+    return starts, counts, pos
+
+
+def _fill(length: int, rows, starts, rng):
+    """Flat (labels, weights) of ``length`` entries: junk everywhere, each
+    row's entries at its start."""
+    labels = np.full(length, JUNK_LABEL, np.int32)
+    labels += rng.integers(0, 4, length).astype(np.int32)
+    weights = np.full(length, 2.5, np.float32)
+    for start, row in zip(starts, rows):
+        if row:
+            c, w = zip(*row)
+            labels[start:start + len(row)] = c
+            weights[start:start + len(row)] = w
+    return labels, weights
+
+
+def fused_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
+    """A fused round: dict of numpy ``row_start``/``row_count``
+    [n_steps, tile_r], ``step_dmax`` [n_steps, 1], flat ``labels``/
+    ``weights`` and ``n_entries_in``. Pad rows (count 0, start 0) fill the
+    last step, so the row count is ``n_steps * tile_r``."""
+    rng = np.random.default_rng(seed)
+    rows = case_rows(k, rng, n_random)
+    starts, counts, end = _lay_out(rows, 3, rng)
+    n_steps = -(-len(rows) // tile_r)
+    pad = n_steps * tile_r - len(rows)
+    labels, weights = _fill(end + 5, rows, starts, rng)
+    row_start = np.asarray(starts + [0] * pad, np.int32).reshape(n_steps,
+                                                                 tile_r)
+    row_count = np.asarray(counts + [0] * pad, np.int32).reshape(n_steps,
+                                                                 tile_r)
+    return {"row_start": row_start, "row_count": row_count,
+            "step_dmax": row_count.max(axis=1, keepdims=True).astype(np.int32),
+            "labels": labels, "weights": weights,
+            "n_entries_in": labels.shape[0]}
+
+
+def stream_case(k: int, seed: int, *, tile_r: int = 6,
+                fill=(6, 2, 0, 5, 1), n_random: int = 0):
+    """An aligned streamed round of every row of :func:`case_rows` (so
+    ``sum(fill)`` is 14 + ``n_random``): window w holds ``fill[w]`` row
+    slots (its first slots; the rest are pads) laid out from a window-relative
+    offset 1. Every row ends at least ``chunk`` slots before its window's
+    end (the reference kernel slices ``chunk`` lanes from a start).
+    Returns a dict of numpy ``row_start``/``row_count``/``step_dmax``,
+    the windowed ``labels``/``weights`` [n_windows * W],
+    ``entry_gather`` (identity over every slot), ``window_entries`` and
+    ``n_entries_in``."""
+    rng = np.random.default_rng(seed)
+    rows = case_rows(k, rng, n_random)
+    assert sum(fill) == len(rows) and all(f <= tile_r for f in fill)
+    n_windows = len(fill)
+    per_window, taken, ends = [], 0, []
+    for f in fill:
+        win_rows = rows[taken:taken + f]
+        taken += f
+        starts, counts, end = _lay_out(win_rows, 1, rng)
+        per_window.append((win_rows, starts, counts))
+        ends.append(end)
+    w = -(-(max(ends) + CHUNK) // 8) * 8
+    labels = np.empty(n_windows * w, np.int32)
+    weights = np.empty(n_windows * w, np.float32)
+    row_start = np.zeros((n_windows, tile_r), np.int32)
+    row_count = np.zeros((n_windows, tile_r), np.int32)
+    for i, (win_rows, starts, counts) in enumerate(per_window):
+        lab, wgt = _fill(w, win_rows, starts, rng)
+        labels[i * w:(i + 1) * w] = lab
+        weights[i * w:(i + 1) * w] = wgt
+        row_start[i, :len(starts)] = starts
+        row_count[i, :len(counts)] = counts
+    return {"row_start": row_start, "row_count": row_count,
+            "step_dmax": row_count.max(axis=1, keepdims=True).astype(np.int32),
+            "labels": labels, "weights": weights,
+            "entry_gather": np.arange(n_windows * w, dtype=np.int32),
+            "window_entries": w, "n_entries_in": n_windows * w}
+
+
+def gather_tile(row_start, row_count, labels, weights, chunk: int = CHUNK):
+    """[rows, chunk] (label, weight) tile of flat rows at int64 starts,
+    masked to (-1, 0.0) past each count: the reference fold's input."""
+    starts = np.asarray(row_start, np.int64).reshape(-1)
+    counts = np.asarray(row_count).reshape(-1)
+    lane = np.arange(chunk)
+    valid = lane[None, :] < counts[:, None]
+    idx = np.where(valid, starts[:, None] + lane[None, :], 0)
+    return (np.where(valid, labels[idx], -1).astype(np.int32),
+            np.where(valid, weights[idx], 0.0).astype(np.float32))
+
+
+def stream_tile(case, chunk: int = CHUNK):
+    """The streamed case's tile in row-slot order."""
+    n_windows, _ = case["row_start"].shape
+    base = np.arange(n_windows, dtype=np.int64)[:, None] * case[
+        "window_entries"]
+    return gather_tile(base + case["row_start"], case["row_count"],
+                       case["labels"], case["weights"], chunk)

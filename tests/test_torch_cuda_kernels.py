@@ -4,8 +4,10 @@ windowed plan and the per-bucket tile folds K9 (MG) and K10 (BM), against
 their plain-torch versions on the card, bit for bit; the whole fused,
 streamed and per-bucket paths (νMG, νBM, rescan; aligned and not) on the
 card against the plain-torch reference engine; the sparse frontier runs
-on the card against their dense gated runs; and ``exact_choose``'s group
-sums on the card against the CPU's.
+on the card against their dense gated runs; ``exact_choose``'s group
+sums on the card against the CPU's; and K1 and K5, whose group fold
+takes a warp's lanes k to a row, on the adversarial rows of
+``tests/_fold_cases.py``.
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
 is taken inside the ``cuda`` fixture, never at import). On a machine with
@@ -21,11 +23,13 @@ from repro_torch.core import exact, sketch
 from repro_torch.core.lpa import LPAConfig, lpa
 from repro_torch.graphs import generators as tgen
 from repro_torch.core.lpa import build_workspace
-from repro_torch.graphs.csr import (build_csr, build_fused_fold_plan,
+from repro_torch.graphs.csr import (FusedRound, StreamedRound, build_csr,
+                                    build_fused_fold_plan,
                                     build_streamed_fold_plan,
                                     plan_dispatches, plan_round0_dispatches)
 from repro_torch.kernels import launches
 from repro_torch.kernels.mg_sketch import fused, ops, streaming
+from _fold_cases import fused_case, stream_case
 
 pytestmark = pytest.mark.gpu
 
@@ -63,6 +67,59 @@ def test_fold_kernel_matches_plain(cuda, k, chunk, tile_r):
                                                     chunk=chunk)
         assert torch.equal(got_k, ref_k)
         assert torch.equal(got_v, ref_v)
+
+
+def _case_round(case, dev, kind):
+    """A ``tests/_fold_cases.py`` case as the port's round on ``dev``, with
+    its (labels, weights) there."""
+    t = {f: torch.from_numpy(case[f]).to(dev)
+         for f in ("row_start", "row_count", "step_dmax")}
+    if kind == "fused":
+        rnd = FusedRound(**t, n_entries_in=case["n_entries_in"])
+    else:
+        rnd = StreamedRound(
+            entry_gather=torch.from_numpy(case["entry_gather"]).to(dev), **t,
+            n_entries_in=case["n_entries_in"],
+            window_entries=case["window_entries"], aligned=True)
+    return (rnd, torch.from_numpy(case["labels"]).to(dev),
+            torch.from_numpy(case["weights"]).to(dev))
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("tile_r,n_random", [(13, 91), (128, 3000)])
+def test_fold_kernel_on_group_cases(cuda, k, tile_r, n_random):
+    """K1 (a group of k lanes per row) against plain, bit for bit, on the
+    rows that stress the group fold (tests/_fold_cases.py): counts around
+    k and the chunk, every start mod 8, shuffled rows, slots freed and
+    reclaimed mid-row, no-op entries, equal weights, a ragged last block;
+    the larger case spans a few hundred blocks."""
+    rnd, el, ew = _case_round(
+        fused_case(k, seed=k, tile_r=tile_r, n_random=n_random), cuda,
+        "fused")
+    fused.reset_launch_counts()
+    got = fused.fused_fold_round(rnd, el, ew, k=k, chunk=128)
+    torch.cuda.synchronize()
+    assert fused.LAUNCH_COUNTS["fused_fold"] == 1
+    ref = fused.fused_fold_round_plain(rnd, el, ew, k=k, chunk=128)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("tile_r,fill", [(6, (6, 2, 0, 5, 1)),
+                                         (128, (128, 3, 0, 77, 128, 1))])
+def test_stream_fold_kernel_on_group_cases(cuda, k, tile_r, fill):
+    """K5 against plain, bit for bit, on the same rows laid out in windows
+    whose row slots differ in count (one window holds no row); at
+    tile_r = 128 and k = 32 a block takes 32 passes over its row slots."""
+    case = stream_case(k, seed=100 + k, tile_r=tile_r, fill=fill,
+                       n_random=sum(fill) - 14)
+    rnd, el, ew = _case_round(case, cuda, "stream")
+    streaming.reset_launch_counts()
+    got = streaming.stream_fold_round(rnd, el, ew, k=k, chunk=128)
+    torch.cuda.synchronize()
+    assert streaming.LAUNCH_COUNTS["stream_fold"] == 1
+    ref = streaming.stream_fold_round_plain(rnd, el, ew, k=k, chunk=128)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("seed", [1, 2, 5, 11])
