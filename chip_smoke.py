@@ -29,12 +29,15 @@ Phases:
   0. the device (nvidia-smi name and power limit, torch's view of it);
   1. build the kernel libraries from ``src/repro_torch/csrc/`` (one nvcc
      per source, all started together; sm_90a) and print the build times
-     and ptxas's registers and spills per kernel;
+     and ptxas's registers, static shared memory and spills per kernel
+     instantiation;
   2. each kernel against its plain-torch version on the card, with exact
-     equality, and its time (CUDA events) beside the bytes it must move:
+     equality (float32 outputs as int32 bits), and its time (CUDA
+     events) beside the bytes it must move:
      K1–K4 at the round shapes of the main graph's fused plan, K5–K8 at
      those of its streamed plan, K9/K10 at every bucket shape of its
-     bucketed plan; the rescan merge's time, the streamed engine's
+     bucketed plan (K9 also per bucket and per bucket width, with its
+     dynamic shared memory); the rescan merge's time, the streamed engine's
      windowed re-layout per iteration, unaligned and aligned, and the
      per-bucket engine's padded-tile gather per round, on the main graph;
   3. whole-path parity: on a 2^16-vertex graph the kernels
@@ -51,7 +54,9 @@ Phases:
      histories equal to phase 3's plain runs (the streamed runs: equal to
      the fused runs of the same method; the sparse runs: equal to the
      fused dense gated run), quality (modularity, NMI against the
-     planted truth), seconds per iteration and peak device memory;
+     planted truth; one modularity call timed, and the bm run's computed
+     twice, to equal bits, and once in float64), seconds per iteration
+     and peak device memory;
      exact LPA's group sums held to the CPU's on non-integer weights;
      the peak memories side by side;
   5. one JSON line describing every kernel.
@@ -116,15 +121,19 @@ _KERNEL_OF_SYMBOL = (("tile_bm_fold", "K10 tile_bm_fold"),
 
 
 def _ptxas_summary(report: str) -> list[str]:
-    """One line per kernel instantiation: registers and spill bytes."""
+    """One line per kernel instantiation: its template arguments,
+    registers, static shared memory and spill bytes (K9's stage is
+    dynamic shared memory, sized per launch: phase 2 prints it)."""
     lines, current = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
             kind = next(k for frag, k in _KERNEL_OF_SYMBOL if frag in name)
-            k = re.search(r"ILi(\d+)E", name)
-            current = f"{kind} k={k.group(1)}" if k else kind
+            args = re.findall(r"L([ib])(\d+)E", name)
+            labels = ("k", "C", "aligned") if "tile_fold" in name else ("k",)
+            current = " ".join([kind] + [f"{n}={v}" for n, (_, v)
+                                         in zip(labels, args)])
             continue
         if current is None:
             continue
@@ -135,7 +144,10 @@ def _ptxas_summary(report: str) -> list[str]:
             lines.append((current, spill))
         m = re.search(r"Used (\d+) registers", line)
         if m and lines and lines[-1][0] == current:
-            lines[-1] = (current, f"{m.group(1)} registers, {lines[-1][1]}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines[-1] = (current, f"{m.group(1)} registers, "
+                         f"{smem.group(1) if smem else 0} B static shared "
+                         f"memory, {lines[-1][1]}")
     return [f"{name}: {info}" for name, info in lines]
 
 
@@ -173,6 +185,15 @@ def _max_abs_err(a, b) -> float:
     if a.numel() == 0:
         return 0.0
     return float(torch.max(torch.abs(a.double() - b.double())))
+
+
+def _same_bits(a, b) -> bool:
+    """``torch.equal``, on the int32 bits of float32 tensors (so -0.0 is
+    not +0.0 there)."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 def _check_same_run(ref, got, where: str) -> None:
@@ -258,7 +279,7 @@ def kernels_vs_plain(graph, plan, tag: str) -> dict:
                 ref = plain(el, ew, seed)
                 got, ref = ((got,), (ref,)) if key == "K2" else (got, ref)
                 for a, b in zip(got, ref):
-                    if not torch.equal(a, b):
+                    if not _same_bits(a, b):
                         raise AssertionError(
                             f"{key} differs from its plain version on round "
                             f"{r}, {name} inputs, seed {seed}")
@@ -428,7 +449,7 @@ def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
             ref = plain(*args)
             got, ref = (got, ref) if key == "K3" else ((got,), (ref,))
             for a, b in zip(got, ref):
-                if not torch.equal(a, b):
+                if not _same_bits(a, b):
                     raise AssertionError(f"{key} differs from its plain "
                                          f"version on {name} inputs")
                 err = max(err, _max_abs_err(a, b))
@@ -605,7 +626,7 @@ def stream_kernels_vs_plain(graph, plan, aligned_plan, tag: str) -> dict:
                 got, ref = ((got, ref) if isinstance(got, tuple)
                             else ((got,), (ref,)))
                 for a, b in zip(got, ref):
-                    if not torch.equal(a, b):
+                    if not _same_bits(a, b):
                         raise AssertionError(
                             f"{key} differs from its plain version on "
                             f"streamed round {r}, {name} inputs")
@@ -683,12 +704,14 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
     main path's first iteration (labels = vertex ids, each round fed the
     previous round's kernel output; K10 from the incumbents) and on a
     random tile of the same shape. Kernel and plain times per round are
-    sums over the round's buckets; the padded-tile gather
+    sums over the round's buckets; K9's time is also kept per bucket and
+    summed per bucket width over the rounds, each beside its bound and
+    its launch's dynamic shared memory; the padded-tile gather
     (``sketch._gather_entries``, plain torch outside the kernels) is timed
     on its own, per round."""
     import torch
     from repro_torch.core import sketch
-    from repro_torch.kernels.mg_sketch import ops
+    from repro_torch.kernels.mg_sketch import mg_sketch, ops
 
     dev = graph.device
     k = plan.k
@@ -699,6 +722,7 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
                    "bound_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0.0,
                    "bound_by": "bytes", "rounds": []}
              for key in ("K9", "K10")}
+    stats["K9"]["buckets"] = []
     stats["gather"] = {"ms": 0.0, "rounds": []}
     for r, rnd in enumerate(plan.rounds):
         out_k = torch.zeros((rnd.n_rows_total, k), dtype=torch.int32,
@@ -741,7 +765,7 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
                     torch.cuda.synchronize()
                     ref = plain(*args)
                     for a, c in zip(got, ref):
-                        if not torch.equal(a, c):
+                        if not _same_bits(a, c):
                             raise AssertionError(
                                 f"{key} differs from its plain version on "
                                 f"round {r}, bucket {width} x {rows}, "
@@ -764,6 +788,12 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
                 pr["ops"] += n_ops
                 stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"],
                                                 err)
+                if key == "K9":
+                    stats[key]["buckets"].append({
+                        "round": r, "width": width, "rows": rows, "ms": ms,
+                        "bound_ms": bound, "plain_ms": plain_ms,
+                        "smem_bytes": mg_sketch.tile_fold_smem_bytes(
+                            width, k, gl.data_ptr() % 16 == 0)})
             s_k, s_v = ops.mg_fold_tile_pallas(gl, gw, k)
             pos = bucket.out_pos.long()
             out_k[pos] = s_k
@@ -781,6 +811,13 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
                 st[field] += pr[field]
             st["rounds"].append(dict(round=r, buckets=len(rnd.buckets),
                                      shapes=shapes, **pr))
+            if key == "K9":
+                print(f"{tag} phase 2: K9 round {r} per bucket (width x rows:"
+                      f" ms, share of bound): "
+                      + ", ".join(f"{b['width']}x{b['rows']}: {b['ms']:.4f}, "
+                                  f"{b['bound_ms'] / b['ms']:.1%}"
+                                  for b in st["buckets"] if b["round"] == r),
+                      flush=True)
             print(f"{tag} phase 2: {key} round {r}: {len(rnd.buckets)} "
                   f"buckets (width x rows: {', '.join(shapes)}), exact "
                   f"match to plain on random and main-path tiles; kernel "
@@ -793,6 +830,24 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
               f"{r}: {gather_ms:.4f} ms over {len(rnd.buckets)} buckets",
               flush=True)
         torch.cuda.empty_cache()
+    widths = {}
+    for b in stats["K9"]["buckets"]:
+        w = widths.setdefault(b["width"], {"width": b["width"], "rows": 0,
+                                           "launches": 0, "ms": 0.0,
+                                           "bound_ms": 0.0,
+                                           "smem_bytes": b["smem_bytes"]})
+        w["rows"] += b["rows"]
+        w["launches"] += 1
+        w["ms"] += b["ms"]
+        w["bound_ms"] += b["bound_ms"]
+    stats["K9"]["widths"] = [widths[w] for w in sorted(widths)]
+    print(f"{tag} phase 2: K9 per bucket width over the rounds (launches, "
+          f"rows, kernel ms, bound ms, share of bound, dynamic shared memory "
+          f"per block): "
+          + "; ".join(f"D={w['width']}: {w['launches']}, {w['rows']}, "
+                      f"{w['ms']:.4f}, {w['bound_ms']:.4f}, "
+                      f"{w['bound_ms'] / w['ms']:.1%}, {w['smem_bytes']} B"
+                      for w in stats["K9"]["widths"]), flush=True)
     print(f"{tag} phase 2: per pallas iteration: K9 {stats['K9']['ms']:.4f} "
           f"ms ({sum(len(r.buckets) for r in plan.rounds)} launches), "
           f"padded-tile gather {stats['gather']['ms']:.4f} ms; per bm "
@@ -888,7 +943,7 @@ def _phase_took(tag: str, phase: int, t0: float, report: dict) -> None:
 
 
 def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
-              fused) -> dict:
+              fused, quality_of=None) -> dict:
     """One path's whole ``lpa()`` run on the main graph with its launch
     counts (set to 0 just before, read just after), peak device memory,
     quality, and the seconds per iteration of a replay of the run's
@@ -899,7 +954,10 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
     ``lpa()`` does, and a sparse one its per-iteration fit check
     (``PlanBundle.sparse_fit``, which synchronises: its host wall time is
     kept apart, and the event interval holds ``lpa_move`` alone). The
-    replay must reproduce the run's labels."""
+    replay must reproduce the run's labels. ``quality_of``: an earlier
+    run's ``(labels, report)``; when this run's labels equal those, its
+    modularity and NMI are that run's (the same functions of the same
+    labels) and are not computed again."""
     import numpy as np
     import torch
     from repro_torch.core.lpa import mark_frontier
@@ -918,8 +976,19 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
     if (labels.shape != (graph.n_nodes,) or labels.dtype != torch.int32
             or int(labels.min()) < 0 or int(labels.max()) >= graph.n_nodes):
         raise AssertionError(f"{cfg.method}: labels out of shape or range")
-    q = float(modularity(graph, labels, ws.edge_src))
-    quality = nmi(labels, truth)
+    if quality_of is not None and torch.equal(labels, quality_of[0]):
+        prev = quality_of[1]
+        q, q_bits, quality = (prev["modularity"], prev["modularity_bits"],
+                              prev["nmi"])
+        modularity_ms = None
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_t = modularity(graph, labels, ws.edge_src)
+        torch.cuda.synchronize()
+        modularity_ms = (time.perf_counter() - t0) * 1e3
+        q, q_bits = float(q_t), q_t.reshape(1).view(torch.int32).item()
+        quality = nmi(labels, truth)
     # modularity lies in [-1/2, 1] and NMI in [0, 1]
     if not (np.isfinite(q) and -0.5 <= q <= 1.0 and 0.0 <= quality <= 1.0):
         raise AssertionError(f"{cfg.method}: modularity {q} or NMI "
@@ -961,7 +1030,8 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
             "work_rows_history": res.work_rows_history, "fit_ms": fit_ms,
             "converged": res.converged,
             "changed_history": res.changed_history, "modularity": q,
-            "nmi": quality, "lpa_s": lpa_s,
+            "modularity_bits": q_bits,
+            "modularity_ms": modularity_ms, "nmi": quality, "lpa_s": lpa_s,
             "iter_ms": [s.elapsed_time(e) for s, e in events],
             "peak_bytes": peak, "resident_bytes": resident,
             "working_bytes": peak - resident, "launches": launches}
@@ -1290,10 +1360,30 @@ def main(argv=None) -> int:
         if path == "rescan":
             out["merge_share"] = (kstats["merge"]["ms"]
                                   / statistics.median(out["iter_ms"]))
+        if path == "bm":
+            # modularity adds every segment in a fixed order: a second
+            # call on the same labels must give the same bits
+            q2 = modularity(graph, res.labels, ws.edge_src)
+            bits2 = q2.reshape(1).view(torch.int32).item()
+            if bits2 != out["modularity_bits"]:
+                raise AssertionError(f"phase 4, bm: modularity {float(q2)!r} "
+                                     f"on a second call, "
+                                     f"{out['modularity']!r} on the first")
+            # the same sums in float64: how far float32's are off
+            q64 = float(modularity(dataclasses.replace(
+                graph, weights=graph.weights.double()), res.labels,
+                ws.edge_src))
+            out["modularity_f64"] = q64
+            print(f"{tag} phase 4: 2^{SCALE} vertices, bm: modularity "
+                  f"{out['modularity']!r} (bits {out['modularity_bits']:#010x})"
+                  f" on two calls, equal bits; one call "
+                  f"{out['modularity_ms']:.2f} ms (host wall, synchronised); "
+                  f"in float64 {q64!r}", flush=True)
         print(f"{tag} phase 4: 2^{SCALE} vertices, {graph.n_edges} slots, "
               f"{path}: {it} iterations (converged {res.converged}), "
               f"changed_history {res.changed_history}; modularity "
-              f"{out['modularity']:.6f}, NMI vs planted {out['nmi']:.6f}; "
+              f"{out['modularity']:.6f} ({out['modularity_ms']:.2f} ms), NMI "
+              f"vs planted {out['nmi']:.6f}; "
               f"labels and histories equal to the plain-torch engine's run; "
               f"lpa_move median {statistics.median(out['iter_ms']) / 1e3:.6f}"
               f" s/iteration (mean {statistics.mean(out['iter_ms']) / 1e3:.6f}"
@@ -1323,7 +1413,8 @@ def main(argv=None) -> int:
         sws = stream_ws[wkey]
         s_rounds = sws.stream_plan.n_rounds
         out = _run_path(graph, truth, sws, scfg, lpa, lpa_move, modularity,
-                        nmi, fused)
+                        nmi, fused, quality_of=(fused_res[fpath].labels,
+                                                report["main"][fpath]))
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
         want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
@@ -1360,7 +1451,9 @@ def main(argv=None) -> int:
         path = f"pallas_{fpath}"
         pcfg = dataclasses.replace(paths[fpath], fold_backend="pallas")
         out = _run_path(graph, truth, ws_pallas, pcfg, lpa, lpa_move,
-                        modularity, nmi, fused)
+                        modularity, nmi, fused,
+                        quality_of=(fused_res[fpath].labels,
+                                    report["main"][fpath]))
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
         want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
@@ -1404,7 +1497,9 @@ def main(argv=None) -> int:
     gated_dense = None
     for path, (gws, gcfg) in gated_paths.items():
         out = _run_path(graph, truth, gws, gcfg, lpa, lpa_move, modularity,
-                        nmi, fused)
+                        nmi, fused, quality_of=None if gated_dense is None
+                        else (gated_dense.labels,
+                              report["main"]["gated_fused_dense"]))
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
         want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
@@ -1565,7 +1660,8 @@ def main(argv=None) -> int:
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
             "launches_by_path": launches_by_path,
-            "parity": "exact (torch.equal) vs plain torch on the card",
+            "parity": "exact (torch.equal; float32 as int32 bits) vs "
+                      "plain torch on the card",
             "ms_is": "one main-path iteration (sum over its launches)"})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -1,23 +1,31 @@
 """Community quality metrics: modularity (paper Eq. 1) and NMI.
 
-A copy of ``repro.core.modularity``. The segment sums are ``index_add_``
-in float32, whose order of addition differs from the reference's (and,
-on CUDA, from run to run), so modularity agrees with the reference within
-a tolerance, not bit for bit. NMI is numpy on the host, as in the
-reference.
+A copy of ``repro.core.modularity``. Every per-segment sum adds its
+segment's values in index order, from 0: the values are put in segment
+order with a stable sort (the weighted degrees' segments, the CSR rows,
+are in order already) and summed by ``core.exact._group_sums``, whose
+order is fixed on every device. So two calls on the same labels give the
+same bits on the card, and the segment sums are the reference's
+``jax.ops.segment_sum`` left folds; the final sums over the segments are
+``torch.sum``'s, whose order differs from XLA's, so modularity agrees with
+the reference within a tolerance, not bit for bit. NMI is numpy on the
+host, as in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.exact import _group_sums
 from repro_torch.graphs.csr import CSRGraph
 
 
 def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
                  n: int) -> torch.Tensor:
-    out = torch.zeros(n, dtype=values.dtype, device=values.device)
-    return out.index_add_(0, segments.long(), values)
+    """[n] sums of ``values`` per segment id in [0, n), each segment in
+    index order (a stable sort keeps equal ids in index order)."""
+    order = torch.argsort(segments, stable=True)
+    return _group_sums(values[order], segments[order].long(), n)
 
 
 def modularity(graph: CSRGraph, labels: torch.Tensor,
@@ -36,7 +44,8 @@ def modularity(graph: CSRGraph, labels: torch.Tensor,
     same = src_labels == labels[graph.indices]
     # per-community internal weight (counted with both directions = 2*sigma_c)
     intra2 = _segment_sum(torch.where(same, graph.weights, 0.0), src_labels, n)
-    k_i = _segment_sum(graph.weights, edge_src, n)  # weighted degree
+    # weighted degree; edge_src is ascending (CSR rows): no sort
+    k_i = _group_sums(graph.weights, edge_src.long(), n)
     sigma_tot = _segment_sum(k_i, labels, n)        # Sigma_c
     return torch.sum(intra2 / two_m) - torch.sum((sigma_tot / two_m) ** 2)
 

@@ -43,10 +43,23 @@
 // folds pad no-ops and reads nothing. Staging entries through shared
 // memory is not needed: every real entry is read once, in sectors.
 //
-// K2-K4 keep one thread per fold row, the k slots in registers
-// (sketch_rows.cuh:mg_fold_row, bm_fold_row, rescan_row), walking the
-// row's entries in entry order: the reference's float32 sequence, so
-// their results are bit-identical to it too. Every kernel reads exactly
+// Design of K4. K1's layout with a lighter step: a group of K lanes per
+// row, lane j owning candidate j and its accumulator
+// (sketch_rows.cuh:rescan_group). Lane j loads cand[r*K + j] and stores
+// out[r*K + j], so a warp's candidate load and partial store each cover
+// 32 consecutive words; the group reads its row in chunks of K entries,
+// lane j entry chunk*K + j, the next chunk's load in flight while the
+// current one is scanned. Each entry is broadcast with two shuffles and
+// lane j adds its weight iff its candidate is the entry's label: no
+// ballot, since a rescan slot neither claims nor decrements. Each slot's
+// adds are the reference's, in entry order from +0.0f, so the partials
+// are bit-identical to it. Control is warp-uniform as in K1: the loop
+// runs to the longest row of the warp, rows past n_rows scan count 0.
+//
+// K2 and K3 keep one thread per fold row, the k slots in registers
+// (sketch_rows.cuh:mg_fold_row, bm_fold_row), walking the row's entries
+// in entry order: the reference's float32 sequence, so their results are
+// bit-identical to it too. Every kernel reads exactly
 // row_count entries: the TPU kernel's chunk-wide slices, pad lanes,
 // per-step loop bound (step_dmax) and chunk slack entries are tiling
 // devices that the CUDA kernels do not need. Pad rows (row_count == 0)
@@ -69,7 +82,9 @@
 // by bytes (rounds 2 and 3 read wholly contiguous rows) but by the group
 // step's instructions and latency: a warp advances 4 rows per step where a
 // thread-per-row warp advances 32.
-// K2-K4 remain one thread per row: a warp's loads of one step hit 32
+// K4 on round 0 takes 0.594 ms, 51.6% of its 0.306 ms bound (1.027 GB),
+// against 1.887 ms for the thread-per-row version it replaced.
+// K2 and K3 remain one thread per row: a warp's loads of one step hit 32
 // rows, i.e. up to 32 different cache lines, far from the bound.
 //
 // Offsets are int32, as in the reference plan: a round's flat entry array
@@ -85,7 +100,7 @@ namespace {
 using sketch_rows::bm_fold_row;
 using sketch_rows::mg_fold_group;
 using sketch_rows::mg_fold_row;
-using sketch_rows::rescan_row;
+using sketch_rows::rescan_group;
 using sketch_rows::select_row;
 
 constexpr int kThreadsPerBlock = 128;
@@ -150,7 +165,10 @@ mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
               out_w + r);
 }
 
-// K4: per-candidate sums of one row's round-0 entries.
+// K4: per-candidate sums of one row's round-0 entries, a group of K lanes
+// per row (sketch_rows.cuh:rescan_group). Rows at or past n_rows scan
+// count 0 and store nothing; they must not return before the group scan,
+// whose shuffles take the full warp.
 template <int K>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 mg_fused_rescan_kernel(const int* __restrict__ row_start,
@@ -159,11 +177,15 @@ mg_fused_rescan_kernel(const int* __restrict__ row_start,
                        const int* __restrict__ elab,
                        const float* __restrict__ ewgt,
                        float* __restrict__ out, int n_rows) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  const int64_t o = static_cast<int64_t>(r) * K;
-  const int start = row_start[r];
-  rescan_row<K>(elab + start, ewgt + start, row_count[r], cand + o, out + o);
+  constexpr int kRowsPerBlock = kThreadsPerBlock / K;
+  const int r = blockIdx.x * kRowsPerBlock + static_cast<int>(threadIdx.x) / K;
+  const bool real = r < n_rows;
+  const int64_t o = static_cast<int64_t>(r) * K + (threadIdx.x & (K - 1));
+  const int start = real ? row_start[r] : 0;
+  const float acc = rescan_group<K>(elab + start, ewgt + start,
+                                    real ? row_count[r] : 0,
+                                    real ? cand[o] : -1);
+  if (real) out[o] = acc;
 }
 
 inline dim3 grid_for(int n_rows, int rows_per_block = kThreadsPerBlock) {
@@ -273,8 +295,9 @@ extern "C" int mg_fused_rescan(const void* row_start, const void* row_count,
   switch (k) {
 #define MG_RESCAN_CASE(KK)                                                \
   case KK:                                                                \
-    mg_fused_rescan_kernel<KK><<<grid_for(n_rows), kThreadsPerBlock, 0,   \
-                                 s>>>(rs, rc, cd, el, ew, o, n_rows);     \
+    mg_fused_rescan_kernel<KK><<<grid_for(n_rows, kThreadsPerBlock / KK), \
+                                 kThreadsPerBlock, 0, s>>>(rs, rc, cd, el, \
+                                                           ew, o, n_rows); \
     break;
     SKETCH_ROWS_FOR_EACH_K(MG_RESCAN_CASE)
 #undef MG_RESCAN_CASE

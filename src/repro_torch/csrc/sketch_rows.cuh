@@ -7,10 +7,15 @@
 //
 // Two MG bodies. mg_fold_group folds a row with a group of K lanes, one
 // sketch slot per lane (K1 and K5, whose sketch store is then coalesced);
-// mg_fold_row folds it with one thread holding all K slots (K2, K6 and
-// K9, which keep it until their own redesign). Both compute the same
+// one thread holding all K slots folds it entry by entry with
+// mg_fold_entry, which mg_fold_row drives from device memory (K2, K6) and
+// the tile kernel K9 from its shared-memory stage. Both compute the same
 // float32 bits: mg_fold_group's lane j does to its slot exactly what
-// mg_fold_row does to slot j.
+// mg_fold_entry does to slot j.
+//
+// Two rescan bodies, likewise: rescan_group (K4: a group of K lanes, lane
+// j owning candidate j) and rescan_row (K8: one thread, all K candidates),
+// with the same per-slot adds in the same order.
 //
 // Bit-exactness. Every body is a fixed sequence of float32 adds, subtracts
 // and maxes per row, the reference's sequence. The folds have no multiply,
@@ -27,48 +32,61 @@ namespace sketch_rows {
 constexpr int kIntMax = 0x7FFFFFFF;
 constexpr uint32_t kUintMax = 0xFFFFFFFFu;
 
-// Weighted MG accumulate of one row (reference: fused.py:_mg_fold and
-// repro.core.sketch.mg_fold_tile). An entry is valid iff w > 0 and c >= 0.
-// A valid entry adds w to the occupied slot holding c; else it claims the
-// first free slot as (c, w); else every slot loses w, clamped at 0.
+// The empty sketch: every slot (-1, 0.0f).
 template <int K>
-__device__ __forceinline__ void mg_fold_row(const int* __restrict__ elab,
-                                            const float* __restrict__ ewgt,
-                                            int count, int (&lab)[K],
-                                            float (&val)[K]) {
+__device__ __forceinline__ void mg_empty(int (&lab)[K], float (&val)[K]) {
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     lab[j] = -1;
     val[j] = 0.0f;
   }
+}
+
+// Weighted MG accumulate of one entry (c, w) into a thread's K slots
+// (reference: fused.py:_mg_fold and repro.core.sketch.mg_fold_tile). An
+// entry is valid iff w > 0 and c >= 0. A valid entry adds w to the
+// occupied slot holding c; else it claims the first free slot as (c, w);
+// else every slot loses w, clamped at 0.
+template <int K>
+__device__ __forceinline__ void mg_fold_entry(int c, float w,
+                                              int (&lab)[K],
+                                              float (&val)[K]) {
+  if (!(w > 0.0f && c >= 0)) return;
+  bool matched = false;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (val[j] > 0.0f && lab[j] == c) {
+      val[j] += w;
+      matched = true;
+    }
+  }
+  if (matched) return;
+  bool claimed = false;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (!claimed && !(val[j] > 0.0f)) {
+      lab[j] = c;
+      val[j] = w;
+      claimed = true;
+    }
+  }
+  if (claimed) return;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float d = val[j] - w;
+    val[j] = d < 0.0f ? 0.0f : d;  // the reference's maximum(d, 0.0)
+  }
+}
+
+// The MG fold of one row read from device memory, in entry order.
+template <int K>
+__device__ __forceinline__ void mg_fold_row(const int* __restrict__ elab,
+                                            const float* __restrict__ ewgt,
+                                            int count, int (&lab)[K],
+                                            float (&val)[K]) {
+  mg_empty<K>(lab, val);
   for (int i = 0; i < count; ++i) {
-    const int c = __ldg(elab + i);
-    const float w = __ldg(ewgt + i);
-    if (!(w > 0.0f && c >= 0)) continue;
-    bool matched = false;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (val[j] > 0.0f && lab[j] == c) {
-        val[j] += w;
-        matched = true;
-      }
-    }
-    if (matched) continue;
-    bool claimed = false;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (!claimed && !(val[j] > 0.0f)) {
-        lab[j] = c;
-        val[j] = w;
-        claimed = true;
-      }
-    }
-    if (claimed) continue;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const float d = val[j] - w;
-      val[j] = d < 0.0f ? 0.0f : d;  // the reference's maximum(d, 0.0)
-    }
+    mg_fold_entry<K>(__ldg(elab + i), __ldg(ewgt + i), lab, val);
   }
 }
 
@@ -231,8 +249,9 @@ __device__ __forceinline__ void bm_fold_row(const int* __restrict__ elab,
 // counts, w <= 0 included: acc[j] += w for each candidate j >= 0 equal to
 // the entry's label, in entry order from +0.0f. The reference adds 0.0f to
 // the other slots, which changes no bit (an accumulator that starts at
-// +0.0f is never -0.0f), so those adds are skipped. `cand` and `out` point
-// at the row's k candidates and k outputs.
+// +0.0f is never -0.0f: x + (-x) and +0.0f + -0.0f are +0.0f), so those
+// adds are skipped. `cand` and `out` point at the row's k candidates and
+// k outputs.
 template <int K>
 __device__ __forceinline__ void rescan_row(const int* __restrict__ elab,
                                            const float* __restrict__ ewgt,
@@ -256,6 +275,60 @@ __device__ __forceinline__ void rescan_row(const int* __restrict__ elab,
   }
 #pragma unroll
   for (int j = 0; j < K; ++j) out[j] = acc[j];
+}
+
+// rescan_row with a group of K lanes per row, lane j holding candidate j
+// (`cand`, -1 for an empty slot) and returning its accumulator. Lanes
+// 0..31 of a warp form 32/K groups of K consecutive lanes, one row each;
+// every lane of the warp must call this with the same control flow
+// (full-mask shuffles), a lane without a row passing count 0 and cand -1.
+//
+// The group walks its row in chunks of K entries: lane j loads entry
+// chunk*K + j, and the next chunk's load is started before the current
+// chunk is scanned. Each entry (c, w) of the chunk is broadcast to the
+// group, and lane j adds w to its accumulator iff cand >= 0 and cand ==
+// c, so each slot's adds are rescan_row's, in entry order from +0.0f;
+// duplicate candidates each accumulate. No ballot is needed: a rescan
+// slot neither claims nor decrements. The loop runs to the longest row
+// of the warp; a lane past its row's end broadcasts (-1, 0.0f), which
+// matches no candidate.
+template <int K>
+__device__ __forceinline__ float rescan_group(const int* __restrict__ elab,
+                                              const float* __restrict__ ewgt,
+                                              int count, int cand) {
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0,
+                "a group is a power-of-two share of a warp");
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const int slot = static_cast<int>(threadIdx.x) & (K - 1);
+  const int longest = __reduce_max_sync(kFull, count);
+  const bool live = cand >= 0;
+  float acc = 0.0f;
+  int c = -1;
+  float w = 0.0f;
+  if (slot < count) {
+    c = __ldg(elab + slot);
+    w = __ldg(ewgt + slot);
+  }
+  for (int chunk = 0; chunk < longest; chunk += K) {
+    int next_c = -1;
+    float next_w = 0.0f;
+    if (chunk + K + slot < count) {
+      next_c = __ldg(elab + chunk + K + slot);
+      next_w = __ldg(ewgt + chunk + K + slot);
+    }
+    const int steps = longest - chunk;  // warp-uniform
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (i == steps) break;
+      const int ci = __shfl_sync(kFull, c, i, K);
+      const float wi = __shfl_sync(kFull, w, i, K);
+      const float added = acc + wi;
+      acc = live && cand == ci ? added : acc;
+    }
+    c = next_c;
+    w = next_w;
+  }
+  return acc;
 }
 
 }  // namespace sketch_rows

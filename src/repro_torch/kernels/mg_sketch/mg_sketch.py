@@ -2,14 +2,17 @@
 their launchers.
 
 Kernels (``src/repro_torch/csrc/mg_tile.cu``, built by
-``repro_torch.kernels.build``; one thread per row, the per-row fold
+``repro_torch.kernels.build``; one thread per row, the per-entry fold
 bodies of the fused and streamed kernels, ``csrc/sketch_rows.cuh``):
 
   * **K9** ``mg_tile_fold`` — a dense padded [R, D] (label, weight) tile
-    into [R, k] weighted MG sketches (pads: label -1, weight 0.0).
+    into [R, k] weighted MG sketches (pads: label -1, weight 0.0), each
+    block of 128 rows staged through shared memory with coalesced
+    ``cp.async`` copies and its sketch stored as 16-byte vectors.
     Replaces the TPU kernel ``repro/kernels/mg_sketch/mg_sketch.py:_mg_kernel``.
   * **K10** ``mg_tile_bm_fold`` — the same tile into [R] weighted
-    Boyer-Moore states from per-row incumbents. Replaces
+    Boyer-Moore states from per-row incumbents, each thread reading its
+    row from device memory. Replaces
     ``repro/kernels/mg_sketch/mg_sketch.py:_bm_kernel``.
 
 The launchers here take CUDA tensors only and count each launch in
@@ -31,7 +34,7 @@ import torch
 from repro_torch.kernels.launches import LAUNCH_COUNTS
 
 __all__ = ["SUPPORTED_K", "check_tile", "mg_fold_tile_cuda",
-           "bm_fold_tile_cuda"]
+           "bm_fold_tile_cuda", "tile_fold_smem_bytes"]
 
 #: sketch widths k the CUDA kernel K9 is instantiated for (K10 keeps one
 #: carry and has no k)
@@ -47,8 +50,11 @@ def _library() -> ctypes.CDLL:
         lib.mg_tile_fold.argtypes = [ptr] * 4 + [i32, i32, i32, i32, ptr]
         # labels, weights, init, out_c, out_w, n_rows, width, device, stream
         lib.mg_tile_bm_fold.argtypes = [ptr] * 5 + [i32, i32, i32, ptr]
+        # width, k, aligned
+        lib.mg_tile_fold_smem_bytes.argtypes = [i32, i32, i32]
         lib.mg_tile_fold.restype = i32
         lib.mg_tile_bm_fold.restype = i32
+        lib.mg_tile_fold_smem_bytes.restype = i32
         lib._repro_typed = True
     return lib
 
@@ -136,3 +142,13 @@ def bm_fold_tile_cuda(labels: torch.Tensor, weights: torch.Tensor,
     _raise_on(rc, "mg_tile_bm_fold")
     LAUNCH_COUNTS["tile_bm_fold"] += 1
     return out_c, out_w
+
+
+def tile_fold_smem_bytes(width: int, k: int, aligned: bool = True) -> int:
+    """K9's dynamic shared memory per launch, in bytes, for a tile of width
+    ``width`` at sketch width ``k`` whose arrays are 16-byte aligned (as
+    fresh allocations are) or not: the size the launcher asks for."""
+    n = _library().mg_tile_fold_smem_bytes(width, k, int(aligned))
+    if n < 0:
+        raise ValueError(f"K9 has no instantiation for width {width}, k {k}")
+    return n

@@ -1,7 +1,8 @@
 """Seeded fold rounds that stress the group-per-row MG fold of K1 and K5
 (``csrc/sketch_rows.cuh:mg_fold_group``: a group of k lanes per row, one
-sketch slot per lane). numpy only, so the tests on the card (no JAX there)
-and the CPU parity tests share them.
+sketch slot per lane), the shared-memory stage of the tile fold K9 and
+the group-per-row rescan of K4 (``rescan_group``). numpy only, so the
+tests on the card (no JAX there) and the CPU parity tests share them.
 
 A case is a fused round (flat entries, ``row_start``/``row_count`` in
 ``[n_steps, tile_r]``) or a streamed round (``n_windows`` windows of W
@@ -18,6 +19,15 @@ windowed). Their rows hold:
   * equal weights (decrements that free several slots at once);
   * a row count that is no multiple of the rows a block folds, and
     streamed windows whose row slots differ in count (one holds no row).
+
+A tile case (K9) is a padded [R, D] tile of the same kinds of rows at
+the widths and row counts of :data:`TILE_SHAPES`, all-pad rows among
+them; :func:`embed_at` lays it out at an offset in a longer array, so a
+tile can be a contiguous slice that is not 16-byte aligned. A rescan case
+(K4) is a fused round with per-row candidates (duplicates, -1 empties, a
+row of -1 only), entries of weight < 0, +0.0 and -0.0 mid-row, and gap
+entries whose labels are the neighbouring rows' candidates, so a read
+past a row's end changes a partial.
 """
 from __future__ import annotations
 
@@ -192,3 +202,118 @@ def stream_tile(case, chunk: int = CHUNK):
         "window_entries"]
     return gather_tile(base + case["row_start"], case["row_count"],
                        case["labels"], case["weights"], chunk)
+
+
+#: K9 tile shapes (width D, rows R): D = 1, multiples of 4 at and below
+#: the kernel's narrow chunk (8), odd widths, its wide chunk (32) and one
+#: past it, and the widest bucket (128, four chunks); R = 1, odd, no
+#: multiple of a block's 128 rows, and more than one block
+TILE_SHAPES = ((1, 1), (4, 129), (7, 130), (8, 257), (32, 77), (33, 133),
+               (128, 131))
+#: entries of junk before a tile laid out by :func:`embed_at` at an offset
+#: that is no multiple of 4 (16 bytes)
+UNALIGNED_OFFSET = 1
+
+
+def tile_case(k: int, width: int, n_rows: int, seed: int):
+    """A padded [n_rows, width] (labels int32, weights float32) tile: rows
+    of every kind of :func:`case_rows` that fit the width (the hand-made
+    rows where they fit whole), equal-weight and random rows of the full
+    width, and all-pad rows, in shuffled order; each row padded with
+    (-1, 0.0) past its entries, as the plan's gather pads it."""
+    rng = np.random.default_rng(seed)
+    kinds = [_random_row(k, width, rng), [], _equal_weights(k, width, rng)]
+    for hand in (freed_then_claimed(k), middle_slot_freed(k)):
+        if len(hand) <= width:
+            kinds.append(hand)
+            kinds.append(hand + _random_row(k, width - len(hand), rng))
+    kinds += [r for r in case_rows(k, rng) if len(r) <= width]
+    rows = kinds[:n_rows] + [
+        _random_row(k, int(n), rng)
+        for n in rng.integers(0, width + 1, max(n_rows - len(kinds), 0))]
+    labels = np.full((n_rows, width), -1, np.int32)
+    weights = np.zeros((n_rows, width), np.float32)
+    for pos, i in enumerate(rng.permutation(n_rows)):
+        row = rows[i]
+        if row:
+            c, w = zip(*row)
+            labels[pos, :len(row)] = c
+            weights[pos, :len(row)] = w
+    return labels, weights
+
+
+def embed_at(x, offset: int = UNALIGNED_OFFSET):
+    """``x`` flattened after ``offset`` junk entries (labels 10_000 or
+    weights 2.5): ``embed_at(x)[offset:]`` reshaped is ``x`` again, a
+    contiguous slice whose first entry lies ``4 * offset`` bytes past the
+    array's start."""
+    fill = JUNK_LABEL if x.dtype == np.int32 else 2.5
+    return np.concatenate([np.full(offset, fill, x.dtype), x.reshape(-1)])
+
+
+def rescan_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
+    """A fused round 0 for the rescan: the round's fields as in
+    :func:`fused_case`, plus ``cand`` [n_steps * tile_r, k] int32.
+
+    Rows of counts 0, 1, k-1, k, k+1, chunk-1 and chunk and ``n_random``
+    random ones, shuffled. Each row's candidates come from a small
+    alphabet, some duplicated, some -1, one row's all -1; its entries'
+    labels are mostly its candidates, with weights on a 0.375 grid from
+    -0.75, and +0.0 and -0.0 on candidate labels mid-row. Every entry
+    between two rows (and after the last) carries a candidate label of
+    one of its two neighbours and weight 2.5."""
+    rng = np.random.default_rng(seed)
+    counts = [0, 1, k - 1, k, k + 1, CHUNK - 1, CHUNK]
+    counts += [int(n) for n in rng.integers(0, CHUNK + 1, n_random)]
+    counts = [counts[i] for i in rng.permutation(len(counts))]
+    cands, rows = [], []
+    for i, n in enumerate(counts):
+        cand = rng.integers(0, 2 * k, k).astype(np.int32)
+        if i % 3 == 0:
+            cand[k // 2] = cand[0]        # a duplicate candidate
+        if i % 2 == 0:
+            cand[k - 1] = -1              # an empty slot
+        if i == 5:
+            cand[:] = -1                  # no candidate at all
+        live = cand[cand >= 0]
+        labels = rng.integers(-1, 3 * k, n)
+        if live.size:
+            pick = rng.random(n) < 0.6
+            labels[pick] = rng.choice(live, int(pick.sum()))
+        weights = rng.integers(-2, 8, n) * 0.375
+        if n >= 4 and live.size:
+            labels[n // 2], weights[n // 2] = live[0], 0.0
+            labels[n // 2 + 1], weights[n // 2 + 1] = live[-1], -0.0
+        cands.append(cand)
+        rows.append([(int(c), float(w)) for c, w in zip(labels, weights)])
+    starts, counts, end = _lay_out(rows, 3, rng)
+    length = end + 5
+    labels = np.empty(length, np.int32)
+    weights = np.full(length, 2.5, np.float32)
+    prev_end, prev_live = 0, np.zeros(0, np.int32)
+    bounds = list(zip(starts, counts, cands)) + [(length, 0, None)]
+    for start, count, cand in bounds:
+        live = prev_live if cand is None else np.concatenate(
+            [prev_live, cand[cand >= 0]])
+        if not live.size:
+            live = np.asarray([0], np.int32)
+        labels[prev_end:start] = rng.choice(live, start - prev_end)
+        if cand is not None:
+            prev_end, prev_live = start + count, cand[cand >= 0]
+    for start, row in zip(starts, rows):
+        if row:
+            c, w = zip(*row)
+            labels[start:start + len(row)] = c
+            weights[start:start + len(row)] = w
+    n_steps = -(-len(rows) // tile_r)
+    pad = n_steps * tile_r - len(rows)
+    row_start = np.asarray(starts + [0] * pad, np.int32).reshape(n_steps,
+                                                                 tile_r)
+    row_count = np.asarray(counts + [0] * pad, np.int32).reshape(n_steps,
+                                                                 tile_r)
+    cand = np.concatenate([np.stack(cands),
+                           np.full((pad, k), -1, np.int32)])
+    return {"row_start": row_start, "row_count": row_count,
+            "step_dmax": row_count.max(axis=1, keepdims=True).astype(np.int32),
+            "labels": labels, "weights": weights, "cand": cand,
+            "n_entries_in": length, "n_rows": len(rows)}

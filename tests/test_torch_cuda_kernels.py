@@ -5,9 +5,11 @@ their plain-torch versions on the card, bit for bit; the whole fused,
 streamed and per-bucket paths (νMG, νBM, rescan; aligned and not) on the
 card against the plain-torch reference engine; the sparse frontier runs
 on the card against their dense gated runs; ``exact_choose``'s group
-sums on the card against the CPU's; and K1 and K5, whose group fold
-takes a warp's lanes k to a row, on the adversarial rows of
-``tests/_fold_cases.py``.
+sums on the card against the CPU's; K1 and K5, whose group fold takes a
+warp's lanes k to a row, K4, whose rescan does too, and K9, which stages
+its tile through shared memory, on the adversarial cases of
+``tests/_fold_cases.py``; and modularity, whose repeated calls give the
+same bits on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
 is taken inside the ``cuda`` fixture, never at import). On a machine with
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core import exact, sketch
 from repro_torch.core.lpa import LPAConfig, lpa
+from repro_torch.core.modularity import modularity
 from repro_torch.graphs import generators as tgen
 from repro_torch.core.lpa import build_workspace
 from repro_torch.graphs.csr import (FusedRound, StreamedRound, build_csr,
@@ -29,7 +32,8 @@ from repro_torch.graphs.csr import (FusedRound, StreamedRound, build_csr,
                                     plan_dispatches, plan_round0_dispatches)
 from repro_torch.kernels import launches
 from repro_torch.kernels.mg_sketch import fused, ops, streaming
-from _fold_cases import fused_case, stream_case
+from _fold_cases import (TILE_SHAPES, UNALIGNED_OFFSET, embed_at,
+                         fused_case, rescan_case, stream_case, tile_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -120,6 +124,67 @@ def test_stream_fold_kernel_on_group_cases(cuda, k, tile_r, fill):
     assert streaming.LAUNCH_COUNTS["stream_fold"] == 1
     ref = streaming.stream_fold_round_plain(rnd, el, ew, k=k, chunk=128)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _same_bits(a, b):
+    """Equal values and, for float32, equal bits (-0.0 is not +0.0)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("tile_r,n_random", [(13, 91), (128, 3000)])
+def test_rescan_kernel_on_rescan_cases(cuda, k, tile_r, n_random):
+    """K4 (a group of k lanes per row) against plain, bit for bit, on
+    the rescan cases: counts around k and the chunk, shuffled rows,
+    duplicate and -1 candidates, signed zeros mid-row, and gap entries
+    that carry the neighbouring rows' candidates."""
+    case = rescan_case(k, seed=200 + k, tile_r=tile_r, n_random=n_random)
+    rnd, el, ew = _case_round(case, cuda, "fused")
+    cand = torch.from_numpy(case["cand"]).to(cuda)
+    fused.reset_launch_counts()
+    got = fused.rescan_round_fused(rnd, el, ew, cand, k=k, chunk=128)
+    torch.cuda.synchronize()
+    assert fused.LAUNCH_COUNTS["rescan"] == 1
+    ref = fused.rescan_round_plain(rnd, el, ew, cand, chunk=128)
+    assert _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("offset", [0, UNALIGNED_OFFSET])
+def test_tile_kernel_on_tile_cases(cuda, k, offset):
+    """K9 against plain, bit for bit, on the tile cases: every width
+    class of its stage (16-byte copies where D % 4 == 0, 4-byte ones
+    where D is odd; one chunk, or four at D = 128), R = 1, odd, past one
+    block and past many; at offset 1 the same tiles as contiguous slices
+    4 bytes past a 16-byte boundary, which take the 4-byte copies at
+    every width."""
+    for width, n_rows in TILE_SHAPES + ((8, 5000), (32, 3001)):
+        labels, weights = tile_case(k, width, n_rows, seed=width + k)
+        flat_l = torch.from_numpy(embed_at(labels, offset)).to(cuda)
+        flat_w = torch.from_numpy(embed_at(weights, offset)).to(cuda)
+        gl = flat_l[offset:].view(n_rows, width)
+        gw = flat_w[offset:].view(n_rows, width)
+        assert (gl.data_ptr() % 16 == 0) == (offset == 0)
+        launches.reset_launch_counts()
+        got = ops.mg_fold_tile_pallas(gl, gw, k)
+        torch.cuda.synchronize()
+        assert launches.LAUNCH_COUNTS["tile_mg_fold"] == 1
+        ref = sketch.mg_fold_tile(gl, gw, k)
+        assert _same_bits(got[0], ref[0]) and _same_bits(got[1], ref[1]), \
+            (width, n_rows)
+
+
+def test_modularity_is_reproducible_on_the_card(cuda):
+    """Three calls on the same νBM labels of a 2^16-vertex graph give
+    the same bits: every segment sum adds in a fixed order."""
+    g, _ = tgen.powerlaw_communities(1 << 16, p_in=0.5, mix=0.02, seed=1,
+                                     device=cuda)
+    labels = lpa(g, LPAConfig(method="bm")).labels
+    bits = {modularity(g, labels).reshape(1).view(torch.int32).item()
+            for _ in range(3)}
+    assert len(bits) == 1
 
 
 @pytest.mark.parametrize("seed", [1, 2, 5, 11])

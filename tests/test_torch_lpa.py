@@ -1,7 +1,7 @@
 """repro_torch's lpa() against repro's, end to end on the CPU: equal labels,
 iterations, convergence and histories for νMG8-LPA on both ported
-backends; modularity within 1e-5 (its segment sums add in another
-order). The JAX side runs the Pallas fused engine in interpret mode."""
+backends; modularity within 1e-5 (its final sums over the segments
+add in another order). The JAX side runs the Pallas fused engine in interpret mode."""
 import numpy as np
 import pytest
 

@@ -2,7 +2,7 @@
 (``method="bm"``), the rescan ablation (``method="mg", rescan=True``) on
 both ported backends, and exact LPA (``method="exact"``, which folds
 nothing). Labels, iterations, convergence and every history are equal;
-modularity agrees within 1e-5 (its segment sums add in another order).
+modularity agrees within 1e-5 (its final sums add in another order).
 The JAX side runs the Pallas fused engine in interpret mode."""
 import pytest
 
