@@ -35,9 +35,10 @@ Phases:
      equality (float32 outputs as int32 bits), and its time (CUDA
      events) beside the bytes it must move:
      K1–K4 at the round shapes of the main graph's fused plan, K5–K8 at
-     those of its streamed plan, K9/K10 at every bucket shape of its
-     bucketed plan (K9 also per bucket and per bucket width, with its
-     dynamic shared memory); the rescan merge's time, the streamed engine's
+     those of its streamed plan,
+     K9/K10 at every bucket shape of its bucketed plan (also per bucket
+     and per bucket width, with their dynamic shared memory); the rescan
+     merge's time, the streamed engine's
      windowed re-layout per iteration, unaligned and aligned, and the
      per-bucket engine's padded-tile gather per round, on the main graph;
   3. whole-path parity: on a 2^16-vertex graph the kernels
@@ -120,10 +121,17 @@ _KERNEL_OF_SYMBOL = (("tile_bm_fold", "K10 tile_bm_fold"),
                      ("select", "K2 select"), ("fold", "K1 fold"))
 
 
+#: mangled-name fragment -> names of the kernel's template arguments,
+#: most specific first
+_TEMPLATE_ARGS = (("tile_bm_fold", ("C", "aligned")),
+                  ("tile_fold", ("k", "C", "aligned")))
+
+
 def _ptxas_summary(report: str) -> list[str]:
     """One line per kernel instantiation: its template arguments,
-    registers, static shared memory and spill bytes (K9's stage is
-    dynamic shared memory, sized per launch: phase 2 prints it)."""
+    registers, static shared memory and spill bytes (the stage of K3, K9
+    and K10 is dynamic shared memory, sized per launch: phase 2 prints
+    it)."""
     lines, current = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -131,7 +139,8 @@ def _ptxas_summary(report: str) -> list[str]:
             name = m.group(1)
             kind = next(k for frag, k in _KERNEL_OF_SYMBOL if frag in name)
             args = re.findall(r"L([ib])(\d+)E", name)
-            labels = ("k", "C", "aligned") if "tile_fold" in name else ("k",)
+            labels = next((a for frag, a in _TEMPLATE_ARGS if frag in name),
+                          ("k",))
             current = " ".join([kind] + [f"{n}={v}" for n, (_, v)
                                          in zip(labels, args)])
             continue
@@ -312,8 +321,10 @@ def kernels_vs_plain(graph, plan, tag: str) -> dict:
               f"ms, {n_bytes} B, bound {bound:.4f} ms ({by} at 3.35 TB/s), "
               f"{bound / ms:.1%} of bound", flush=True)
         if r == 0:
-            s["row_contiguous_round0"] = _row_contiguous_k1(
-                rnd, main_el, main_ew, k, chunk, ms, tag)
+            s["row_contiguous_round0"] = _row_contiguous(
+                "K1", rnd, main_el, main_ew,
+                lambda rnd, el, ew: fused.fused_fold_round(
+                    rnd, el, ew, k=k, chunk=chunk), ms, tag)
         if key == "K1":
             out_k, out_v = kernel(main_el, main_ew, None)
             main_el, main_ew = out_k.reshape(-1), out_v.reshape(-1)
@@ -322,16 +333,16 @@ def kernels_vs_plain(graph, plan, tag: str) -> dict:
     return stats
 
 
-def _row_contiguous_k1(rnd, el, ew, k: int, chunk: int, csr_ms: float,
-                       tag: str) -> dict:
-    """Diagnostic: K1 on round 0 with its entries copied into row order, so
-    that consecutive rows read consecutive entries (the streamed plan's
-    windows lay them out so; the fused plan reads each row where its
-    vertex sits in the CSR). Each row's entry sequence is unchanged, so
-    the sketches must be equal; only the time may move. ``csr_ms`` is K1's
-    time on the CSR layout: the difference is what the CSR order costs."""
+def _row_contiguous(key: str, rnd, el, ew, run, csr_ms: float,
+                    tag: str) -> dict:
+    """Diagnostic: a round-0 kernel (``run(rnd, el, ew)``, K1 or K3) with
+    its entries copied into row order, so that consecutive rows read
+    consecutive entries (the streamed plan's windows lay them out so; the
+    fused plan reads each row where its vertex sits in the CSR). Each
+    row's entry sequence is unchanged, so the outputs must be equal; only
+    the time may move. ``csr_ms`` is the kernel's time on the CSR layout:
+    the difference is what the CSR order costs."""
     import torch
-    from repro_torch.kernels.mg_sketch import fused
 
     counts = rnd.row_count.reshape(-1).long()
     firsts = torch.cumsum(counts, 0) - counts
@@ -344,17 +355,15 @@ def _row_contiguous_k1(rnd, el, ew, k: int, chunk: int, csr_ms: float,
         rnd, row_start=firsts.to(torch.int32).reshape(rnd.row_start.shape),
         n_entries_in=total)
     c_el, c_ew = el[perm].contiguous(), ew[perm].contiguous()
-    got = fused.fused_fold_round(packed, c_el, c_ew, k=k, chunk=chunk)
-    ref = fused.fused_fold_round(rnd, el, ew, k=k, chunk=chunk)
+    got = run(packed, c_el, c_ew)
+    ref = run(rnd, el, ew)
     torch.cuda.synchronize()
-    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-        raise AssertionError("K1 on row-contiguous entries changed the "
-                             "sketches")
-    ms = _time_ms(lambda: fused.fused_fold_round(packed, c_el, c_ew, k=k,
-                                                 chunk=chunk),
-                  warmup=3, reps=20)
-    print(f"{tag} phase 2: diagnostic: K1 round 0 on a row-contiguous copy "
-          f"of its entries: {ms:.4f} ms, sketches equal; the CSR order "
+    if not all(_same_bits(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"{key} on row-contiguous entries changed its "
+                             f"output")
+    ms = _time_ms(lambda: run(packed, c_el, c_ew), warmup=3, reps=20)
+    print(f"{tag} phase 2: diagnostic: {key} round 0 on a row-contiguous "
+          f"copy of its entries: {ms:.4f} ms, outputs equal; the CSR order "
           f"costs {csr_ms - ms:.4f} ms ({csr_ms:.4f} ms, {csr_ms / ms:.2f}x "
           f"the row-contiguous time)", flush=True)
     return {"ms": ms, "csr_ms": csr_ms, "csr_order_cost_ms": csr_ms - ms}
@@ -468,6 +477,11 @@ def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
               f"({random_ms:.4f} ms on random ones), plain {plain_ms:.3f} "
               f"ms, {n_bytes} B, bound {bound:.4f} ms ({by} at 3.35 TB/s), "
               f"{bound / ms:.1%} of bound", flush=True)
+        if key == "K3":
+            stats[key]["row_contiguous"] = _row_contiguous(
+                "K3", rnd, main_el, main_ew,
+                lambda rnd, el, ew: fused.bm_fold_round_fused(
+                    rnd, el, ew, main_init, chunk=chunk), ms, tag)
         if key == "K4":
             parts = kernel(*main_in)
         torch.cuda.empty_cache()
@@ -704,9 +718,9 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
     main path's first iteration (labels = vertex ids, each round fed the
     previous round's kernel output; K10 from the incumbents) and on a
     random tile of the same shape. Kernel and plain times per round are
-    sums over the round's buckets; K9's time is also kept per bucket and
-    summed per bucket width over the rounds, each beside its bound and
-    its launch's dynamic shared memory; the padded-tile gather
+    sums over the round's buckets; each kernel's time is also kept per
+    bucket and summed per bucket width over the rounds, each beside its
+    bound and its launch's dynamic shared memory; the padded-tile gather
     (``sketch._gather_entries``, plain torch outside the kernels) is timed
     on its own, per round."""
     import torch
@@ -722,7 +736,8 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
                    "bound_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0.0,
                    "bound_by": "bytes", "rounds": []}
              for key in ("K9", "K10")}
-    stats["K9"]["buckets"] = []
+    for key in ("K9", "K10"):
+        stats[key]["buckets"] = []
     stats["gather"] = {"ms": 0.0, "rounds": []}
     for r, rnd in enumerate(plan.rounds):
         out_k = torch.zeros((rnd.n_rows_total, k), dtype=torch.int32,
@@ -788,12 +803,12 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
                 pr["ops"] += n_ops
                 stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"],
                                                 err)
-                if key == "K9":
-                    stats[key]["buckets"].append({
-                        "round": r, "width": width, "rows": rows, "ms": ms,
-                        "bound_ms": bound, "plain_ms": plain_ms,
-                        "smem_bytes": mg_sketch.tile_fold_smem_bytes(
-                            width, k, gl.data_ptr() % 16 == 0)})
+                stats[key]["buckets"].append({
+                    "round": r, "width": width, "rows": rows, "ms": ms,
+                    "bound_ms": bound, "plain_ms": plain_ms,
+                    "smem_bytes": mg_sketch.tile_fold_smem_bytes(
+                        width, k if key == "K9" else None,
+                        gl.data_ptr() % 16 == 0)})
             s_k, s_v = ops.mg_fold_tile_pallas(gl, gw, k)
             pos = bucket.out_pos.long()
             out_k[pos] = s_k
@@ -811,13 +826,12 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
                 st[field] += pr[field]
             st["rounds"].append(dict(round=r, buckets=len(rnd.buckets),
                                      shapes=shapes, **pr))
-            if key == "K9":
-                print(f"{tag} phase 2: K9 round {r} per bucket (width x rows:"
-                      f" ms, share of bound): "
-                      + ", ".join(f"{b['width']}x{b['rows']}: {b['ms']:.4f}, "
-                                  f"{b['bound_ms'] / b['ms']:.1%}"
-                                  for b in st["buckets"] if b["round"] == r),
-                      flush=True)
+            print(f"{tag} phase 2: {key} round {r} per bucket (width x "
+                  f"rows: ms, share of bound): "
+                  + ", ".join(f"{b['width']}x{b['rows']}: {b['ms']:.4f}, "
+                              f"{b['bound_ms'] / b['ms']:.1%}"
+                              for b in st["buckets"] if b["round"] == r),
+                  flush=True)
             print(f"{tag} phase 2: {key} round {r}: {len(rnd.buckets)} "
                   f"buckets (width x rows: {', '.join(shapes)}), exact "
                   f"match to plain on random and main-path tiles; kernel "
@@ -830,24 +844,25 @@ def tile_kernels_vs_plain(graph, plan, tag: str) -> dict:
               f"{r}: {gather_ms:.4f} ms over {len(rnd.buckets)} buckets",
               flush=True)
         torch.cuda.empty_cache()
-    widths = {}
-    for b in stats["K9"]["buckets"]:
-        w = widths.setdefault(b["width"], {"width": b["width"], "rows": 0,
-                                           "launches": 0, "ms": 0.0,
-                                           "bound_ms": 0.0,
-                                           "smem_bytes": b["smem_bytes"]})
-        w["rows"] += b["rows"]
-        w["launches"] += 1
-        w["ms"] += b["ms"]
-        w["bound_ms"] += b["bound_ms"]
-    stats["K9"]["widths"] = [widths[w] for w in sorted(widths)]
-    print(f"{tag} phase 2: K9 per bucket width over the rounds (launches, "
-          f"rows, kernel ms, bound ms, share of bound, dynamic shared memory "
-          f"per block): "
-          + "; ".join(f"D={w['width']}: {w['launches']}, {w['rows']}, "
-                      f"{w['ms']:.4f}, {w['bound_ms']:.4f}, "
-                      f"{w['bound_ms'] / w['ms']:.1%}, {w['smem_bytes']} B"
-                      for w in stats["K9"]["widths"]), flush=True)
+    for key in ("K9", "K10"):
+        widths = {}
+        for b in stats[key]["buckets"]:
+            w = widths.setdefault(b["width"], {
+                "width": b["width"], "rows": 0, "launches": 0, "ms": 0.0,
+                "bound_ms": 0.0, "smem_bytes": b["smem_bytes"]})
+            w["rows"] += b["rows"]
+            w["launches"] += 1
+            w["ms"] += b["ms"]
+            w["bound_ms"] += b["bound_ms"]
+        stats[key]["widths"] = [widths[w] for w in sorted(widths)]
+        print(f"{tag} phase 2: {key} per bucket width over the rounds "
+              f"(launches, rows, kernel ms, bound ms, share of bound, dynamic"
+              f" shared memory per block): "
+              + "; ".join(f"D={w['width']}: {w['launches']}, {w['rows']}, "
+                          f"{w['ms']:.4f}, {w['bound_ms']:.4f}, "
+                          f"{w['bound_ms'] / w['ms']:.1%}, "
+                          f"{w['smem_bytes']} B"
+                          for w in stats[key]["widths"]), flush=True)
     print(f"{tag} phase 2: per pallas iteration: K9 {stats['K9']['ms']:.4f} "
           f"ms ({sum(len(r.buckets) for r in plan.rounds)} launches), "
           f"padded-tile gather {stats['gather']['ms']:.4f} ms; per bm "

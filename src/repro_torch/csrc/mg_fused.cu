@@ -56,10 +56,34 @@
 // are bit-identical to it. Control is warp-uniform as in K1: the loop
 // runs to the longest row of the warp, rows past n_rows scan count 0.
 //
-// K2 and K3 keep one thread per fold row, the k slots in registers
-// (sketch_rows.cuh:mg_fold_row, bm_fold_row), walking the row's entries
-// in entry order: the reference's float32 sequence, so their results are
-// bit-identical to it too. Every kernel reads exactly
+// Design of K3. A block of 128 consecutive fused rows, thread t owning
+// row r0 + t, folds from a shared-memory stage of its rows
+// (row_stage.cuh:fold_staged over SegmentRows), the tile kernels' stage
+// with a per-row locator: column chunk c of row r is the entries
+// [row_start[r] + c*C, row_start[r] + min((c+1)*C, row_count[r])). The
+// starts are arbitrary, so the copies are 4-byte cp.async words,
+// consecutive threads on consecutive entries of one row's chunk (at C = 32
+// a warp's copy moves one row's 128 contiguous bytes), where one thread
+// per row reading from device memory made a warp's load touch 32
+// unrelated places. The chunk loop runs to the block's longest row; rows
+// come sorted by ascending count, so that is close to every row's own
+// length, and a row past its count copies and folds nothing. Thread t
+// then folds its row from the stage with bm_fold_entry (BmCarry), in
+// entry order from (init[r], 0.0f), and stores out_c[r], out_w[r].
+// Nothing depends on the row order (the sparse path hands K3 compacted
+// rows). The stage holds C = 32 entries a row in one buffer: 33,792 B a
+// block, six blocks a multiprocessor, and most rows fit one chunk, so one
+// copy and one pair of barriers; a longer row's next chunk is copied once
+// the block has folded the current one. It measured faster than C = 32 in
+// two buffers (67,584 B, three blocks), C = 16 in two (34,816 B, six
+// blocks) and a group of 8 lanes per row each holding the carry, K4's
+// layout (times below), which scripts/k3_layouts.cu keeps and
+// scripts/k3_layouts.py times beside this kernel.
+//
+// K2 keeps one thread per fold row, the k slots in registers
+// (sketch_rows.cuh:mg_fold_row), walking the row's entries in entry
+// order. Every kernel thus computes the reference's float32 sequence, so
+// their results are bit-identical to it. Every kernel reads exactly
 // row_count entries: the TPU kernel's chunk-wide slices, pad lanes,
 // per-step loop bound (step_dmax) and chunk slack entries are tiling
 // devices that the CUDA kernels do not need. Pad rows (row_count == 0)
@@ -84,8 +108,14 @@
 // thread-per-row warp advances 32.
 // K4 on round 0 takes 0.594 ms, 51.6% of its 0.306 ms bound (1.027 GB),
 // against 1.887 ms for the thread-per-row version it replaced.
-// K2 and K3 remain one thread per row: a warp's loads of one step hit 32
-// rows, i.e. up to 32 different cache lines, far from the bound.
+// K2 remains one thread per row: a warp's loads of one step hit 32 rows,
+// i.e. up to 32 different cache lines.
+// K3 on round 0 takes 0.497 ms, 48.5% of its 0.241 ms bound (C = 32 in
+// two buffers 0.562, C = 16 0.585, the group layout 0.597), against
+// 0.774 ms for the thread-per-row version it replaced. The rest is the
+// CSR order of its rows: each row's entries sit where its vertex's
+// adjacency does, so a block's 128 rows read 128 unrelated segments; on
+// a row-contiguous copy of the same entries K3 takes 0.335 ms.
 //
 // Offsets are int32, as in the reference plan: a round's flat entry array
 // must stay below 2^31 entries (90 M at 4 M vertices of the smoke graph).
@@ -93,17 +123,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_stage.cuh"
 #include "sketch_rows.cuh"
 
 namespace {
 
-using sketch_rows::bm_fold_row;
+using row_stage::fold_staged;
+using row_stage::grid_for;
+using row_stage::kRows;
+using row_stage::SegmentRows;
+using sketch_rows::BmCarry;
 using sketch_rows::mg_fold_group;
 using sketch_rows::mg_fold_row;
 using sketch_rows::rescan_group;
 using sketch_rows::select_row;
 
-constexpr int kThreadsPerBlock = 128;
+constexpr int kThreadsPerBlock = 128;  // K1, K2 and K4's block
+// K3's stage: chunks of kBmChunk entries a row, in one buffer
+constexpr int kBmChunk = 32;
+constexpr int kBmBuffers = 1;
 
 // K1: a group of K lanes per row (sketch_rows.cuh:mg_fold_group). Rows at
 // or past n_rows fold count 0 and store nothing; they must not return
@@ -148,9 +186,12 @@ mg_fused_select_kernel(const int* __restrict__ row_start,
   out_c[r] = select_row<K>(lab, val, incumbents[r], seed);
 }
 
-// K3: one BM scan per row from its incumbent (pad rows: count 0, init -1,
-// write (-1, 0.0f)).
-__global__ void __launch_bounds__(kThreadsPerBlock)
+// K3: one BM scan per row from its incumbent, a block of kRows
+// consecutive rows staged through shared memory in chunks of kBmChunk
+// entries (row_stage.cuh:fold_staged over SegmentRows, 4-byte copies: the
+// rows' starts are arbitrary). Pad rows (count 0, init -1) write
+// (-1, 0.0f).
+__global__ void __launch_bounds__(kRows)
 mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
                         const int* __restrict__ row_count,
                         const int* __restrict__ init,
@@ -158,11 +199,33 @@ mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
                         const float* __restrict__ ewgt,
                         int* __restrict__ out_c, float* __restrict__ out_w,
                         int n_rows) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  const int start = row_start[r];
-  bm_fold_row(elab + start, ewgt + start, row_count[r], init[r], out_c + r,
-              out_w + r);
+  extern __shared__ __align__(16) int smem[];
+  __shared__ int s_start[kRows];
+  __shared__ int s_count[kRows];
+  __shared__ int s_longest;
+  const int t = threadIdx.x;
+  const int r = blockIdx.x * kRows + t;
+  const int nr = min(kRows, n_rows - static_cast<int>(blockIdx.x) * kRows);
+  int count = 0;
+  BmCarry bm{-1, 0.0f};
+  if (t < nr) {
+    s_start[t] = row_start[r];
+    count = row_count[r];
+    bm.ck = init[r];
+  }
+  s_count[t] = count;
+  if (t == 0) s_longest = 0;
+  __syncthreads();
+  const int warp_longest = __reduce_max_sync(0xFFFFFFFFu, count);
+  if ((t & 31) == 0) atomicMax(&s_longest, warp_longest);
+  __syncthreads();
+  fold_staged<kBmChunk, false, kBmBuffers>(
+      elab, ewgt, SegmentRows{s_start, s_count}, nr,
+      (s_longest + kBmChunk - 1) / kBmChunk, smem, bm);
+  if (t < nr) {
+    out_c[r] = bm.ck;
+    out_w[r] = bm.wk;
+  }
 }
 
 // K4: per-candidate sums of one row's round-0 entries, a group of K lanes
@@ -188,17 +251,14 @@ mg_fused_rescan_kernel(const int* __restrict__ row_start,
   if (real) out[o] = acc;
 }
 
-inline dim3 grid_for(int n_rows, int rows_per_block = kThreadsPerBlock) {
-  return dim3(static_cast<unsigned>((n_rows + rows_per_block - 1) /
-                                    rows_per_block));
-}
-
 }  // namespace
 
 // Launchers: plain C interface for ctypes. Each returns cudaGetLastError()
 // after the launch (0 = launched), or cudaErrorInvalidValue for a k that
-// has no instantiation or a negative row count. The caller owns all
-// buffers; nothing is allocated or synchronised here.
+// has no instantiation or a negative row count;
+// an error of the shared-memory opt-in above 48 KB is returned as it is.
+// With n_rows == 0 nothing is launched. The caller owns all buffers;
+// nothing is allocated or synchronised here.
 extern "C" int mg_fused_fold(const void* row_start, const void* row_count,
                              const void* elab, const void* ewgt, void* out_k,
                              void* out_v, int n_rows, int k, int device,
@@ -248,9 +308,10 @@ extern "C" int mg_fused_select(const void* row_start, const void* row_count,
   switch (k) {
 #define MG_SELECT_CASE(KK)                                                \
   case KK:                                                                \
-    mg_fused_select_kernel<KK><<<grid_for(n_rows), kThreadsPerBlock, 0,   \
-                                 s>>>(rs, rc, inc, seed, el, ew, oc,      \
-                                      n_rows);                            \
+    mg_fused_select_kernel<KK><<<grid_for(n_rows, kThreadsPerBlock),      \
+                                 kThreadsPerBlock, 0, s>>>(rs, rc, inc,   \
+                                                           seed, el, ew,  \
+                                                           oc, n_rows);   \
     break;
     SKETCH_ROWS_FOR_EACH_K(MG_SELECT_CASE)
 #undef MG_SELECT_CASE
@@ -268,13 +329,18 @@ extern "C" int mg_fused_bm_fold(const void* row_start, const void* row_count,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_rows == 0) return 0;
-  mg_fused_bm_fold_kernel<<<grid_for(n_rows), kThreadsPerBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(row_start), static_cast<const int*>(row_count),
-      static_cast<const int*>(init), static_cast<const int*>(elab),
-      static_cast<const float*>(ewgt), static_cast<int*>(out_c),
-      static_cast<float*>(out_w), n_rows);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* rs = static_cast<const int*>(row_start);
+  const int* rc = static_cast<const int*>(row_count);
+  const int* in = static_cast<const int*>(init);
+  const int* el = static_cast<const int*>(elab);
+  const float* ew = static_cast<const float*>(ewgt);
+  int* oc = static_cast<int*>(out_c);
+  float* ow = static_cast<float*>(out_w);
+  return static_cast<int>(row_stage::launch(
+      mg_fused_bm_fold_kernel, grid_for(n_rows),
+      row_stage::stage_bytes(kBmChunk, false, kBmBuffers), s, rs, rc, in, el,
+      ew, oc, ow, n_rows));
 }
 
 extern "C" int mg_fused_rescan(const void* row_start, const void* row_count,

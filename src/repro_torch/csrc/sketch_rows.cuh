@@ -9,9 +9,12 @@
 // sketch slot per lane (K1 and K5, whose sketch store is then coalesced);
 // one thread holding all K slots folds it entry by entry with
 // mg_fold_entry, which mg_fold_row drives from device memory (K2, K6) and
-// the tile kernel K9 from its shared-memory stage. Both compute the same
-// float32 bits: mg_fold_group's lane j does to its slot exactly what
-// mg_fold_entry does to slot j.
+// the tile kernel K9 from its shared-memory stage (MgSketch). Both compute
+// the same float32 bits: mg_fold_group's lane j does to its slot exactly
+// what mg_fold_entry does to slot j.
+//
+// One BM body, bm_fold_entry, for one carry: bm_fold_row drives it from
+// device memory (K7) and BmCarry from a shared-memory stage (K3, K10).
 //
 // Two rescan bodies, likewise: rescan_group (K4: a group of K lanes, lane
 // j owning candidate j) and rescan_row (K8: one thread, all K candidates),
@@ -89,6 +92,18 @@ __device__ __forceinline__ void mg_fold_row(const int* __restrict__ elab,
     mg_fold_entry<K>(__ldg(elab + i), __ldg(ewgt + i), lab, val);
   }
 }
+
+// A thread's K-slot MG sketch as a function object: fold(c, w) is
+// mg_fold_entry on its slots. K9 drives it from its shared-memory stage
+// (row_stage.cuh:fold_staged).
+template <int K>
+struct MgSketch {
+  int lab[K];
+  float val[K];
+  __device__ __forceinline__ void operator()(int c, float w) {
+    mg_fold_entry<K>(c, w, lab, val);
+  }
+};
 
 // mg_fold_row with a group of K lanes per row, lane j holding slot j
 // (lab, val). Lanes 0..31 of a warp form 32/K groups of K consecutive
@@ -216,34 +231,57 @@ __device__ __forceinline__ int select_row(const int (&lab)[K],
   return c_best == kIntMax ? inc : c_best;
 }
 
-// fused.py:_bm_fold for one row, from the carry (init, 0.0f). The
-// reference writes the update as wk + where(same, w, 0) - where(bigger, w,
-// 0); adding or subtracting +0.0f leaves the carry's bits unchanged because
-// the carry is never -0.0f (it starts at +0.0f, grows by w > 0, shrinks
-// only while wk > w), so the branches below are bit-identical to it. A row
-// of count 0 keeps (init, 0.0f).
+// Weighted Boyer-Moore accumulate of one entry (c, w) into the carry
+// (ck, wk) (reference: fused.py:_bm_fold and mg_sketch.py:_bm_kernel). An
+// entry is valid iff w > 0 and c >= 0. A valid entry adds w if it carries
+// ck; else it subtracts w if wk > w; else it replaces the carry by (c, w):
+// a tie wk == w replaces, it is not a decrement. The reference writes the
+// update as wk + where(same, w, 0) - where(bigger, w, 0); adding or
+// subtracting +0.0f leaves the carry's bits unchanged because the carry is
+// never -0.0f (it starts at +0.0f, grows by w > 0, shrinks only while
+// wk > w), so the selects below are bit-identical to it. Every value is
+// computed and then selected, with no branch: written with if/else and
+// inlined into a loop, the body compiled to divergent branches, the
+// threads of a warp, one per row, taking different ones (K7 ran 7x
+// slower that way at 2^22 on an H100).
+__device__ __forceinline__ void bm_fold_entry(int c, float w, int& ck,
+                                              float& wk) {
+  const bool valid = w > 0.0f && c >= 0;
+  const float added = wk + w;
+  const float less = wk - w;
+  const bool same = c == ck;
+  const bool bigger = wk > w;
+  const float kept = bigger ? less : w;
+  const float next_w = same ? added : kept;
+  const bool keep_c = same || bigger;
+  const int next_c = keep_c ? ck : c;
+  wk = valid ? next_w : wk;
+  ck = valid ? next_c : ck;
+}
+
+// The BM fold of one row read from device memory, in entry order, from
+// the carry (init, 0.0f) (K7). A row of count 0 keeps (init, 0.0f).
 __device__ __forceinline__ void bm_fold_row(const int* __restrict__ elab,
                                             const float* __restrict__ ewgt,
                                             int count, int init, int* ck_out,
                                             float* wk_out) {
   int ck = init;
   float wk = 0.0f;
-  for (int i = 0; i < count; ++i) {
-    const int c = __ldg(elab + i);
-    const float w = __ldg(ewgt + i);
-    if (!(w > 0.0f && c >= 0)) continue;
-    if (c == ck) {
-      wk = wk + w;
-    } else if (wk > w) {
-      wk = wk - w;
-    } else {
-      ck = c;
-      wk = w;
-    }
-  }
+  for (int i = 0; i < count; ++i) bm_fold_entry(elab[i], ewgt[i], ck, wk);
   *ck_out = ck;
   *wk_out = wk;
 }
+
+// The carry of a BM fold as a function object: fold(c, w) is
+// bm_fold_entry on (ck, wk). The staged folds (row_stage.cuh:fold_staged)
+// drive it: K10 from a tile, K3 from its rows' segments.
+struct BmCarry {
+  int ck;
+  float wk;
+  __device__ __forceinline__ void operator()(int c, float w) {
+    bm_fold_entry(c, w, ck, wk);
+  }
+};
 
 // fused.py:_rescan_acc for one row. Unlike the other folds every entry
 // counts, w <= 0 included: acc[j] += w for each candidate j >= 0 equal to

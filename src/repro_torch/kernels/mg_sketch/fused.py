@@ -14,7 +14,8 @@ Kernels (``src/repro_torch/csrc/mg_fused.cu``, built by
     ``repro/kernels/mg_sketch/fused.py:_fused_select_kernel``.
   * **K3** ``mg_fused_bm_fold`` — the whole νBM fold in one launch: every
     round-0 row runs a weighted Boyer-Moore scan from its vertex's
-    incumbent. Replaces ``repro/kernels/mg_sketch/fused.py:_bm_fold_kernel``.
+    incumbent, a block of 128 rows staged through shared memory. Replaces
+    ``repro/kernels/mg_sketch/fused.py:_bm_fold_kernel``.
   * **K4** ``mg_fused_rescan`` — the rescan second pass in one launch:
     every round-0 row sums, per candidate of its vertex, the weights of
     its entries with that label. Replaces

@@ -2,17 +2,17 @@
 their launchers.
 
 Kernels (``src/repro_torch/csrc/mg_tile.cu``, built by
-``repro_torch.kernels.build``; one thread per row, the per-entry fold
-bodies of the fused and streamed kernels, ``csrc/sketch_rows.cuh``):
+``repro_torch.kernels.build``; one thread per row on the per-entry fold
+bodies of the fused and streamed kernels, ``csrc/sketch_rows.cuh``, each
+block of 128 rows staged through shared memory with coalesced
+``cp.async`` copies, ``csrc/row_stage.cuh``):
 
   * **K9** ``mg_tile_fold`` — a dense padded [R, D] (label, weight) tile
-    into [R, k] weighted MG sketches (pads: label -1, weight 0.0), each
-    block of 128 rows staged through shared memory with coalesced
-    ``cp.async`` copies and its sketch stored as 16-byte vectors.
+    into [R, k] weighted MG sketches (pads: label -1, weight 0.0), its
+    sketch stored as 16-byte vectors.
     Replaces the TPU kernel ``repro/kernels/mg_sketch/mg_sketch.py:_mg_kernel``.
   * **K10** ``mg_tile_bm_fold`` — the same tile into [R] weighted
-    Boyer-Moore states from per-row incumbents, each thread reading its
-    row from device memory. Replaces
+    Boyer-Moore states from per-row incumbents. Replaces
     ``repro/kernels/mg_sketch/mg_sketch.py:_bm_kernel``.
 
 The launchers here take CUDA tensors only and count each launch in
@@ -144,11 +144,14 @@ def bm_fold_tile_cuda(labels: torch.Tensor, weights: torch.Tensor,
     return out_c, out_w
 
 
-def tile_fold_smem_bytes(width: int, k: int, aligned: bool = True) -> int:
-    """K9's dynamic shared memory per launch, in bytes, for a tile of width
-    ``width`` at sketch width ``k`` whose arrays are 16-byte aligned (as
-    fresh allocations are) or not: the size the launcher asks for."""
-    n = _library().mg_tile_fold_smem_bytes(width, k, int(aligned))
+def tile_fold_smem_bytes(width: int, k: Optional[int],
+                         aligned: bool = True) -> int:
+    """Dynamic shared memory per launch, in bytes, of K9 at sketch width
+    ``k`` (``k=None``: of K10) for a tile of width ``width`` whose arrays
+    are 16-byte aligned (as fresh allocations are) or not: the size the
+    launcher asks for."""
+    n = _library().mg_tile_fold_smem_bytes(width, k or 0, int(aligned))
     if n < 0:
-        raise ValueError(f"K9 has no instantiation for width {width}, k {k}")
+        raise ValueError(f"no tile kernel instantiation for width {width}, "
+                         f"k {k}")
     return n

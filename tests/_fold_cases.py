@@ -28,6 +28,16 @@ tile can be a contiguous slice that is not 16-byte aligned. A rescan case
 row of -1 only), entries of weight < 0, +0.0 and -0.0 mid-row, and gap
 entries whose labels are the neighbouring rows' candidates, so a read
 past a row's end changes a partial.
+
+A BM case (K3: :func:`bm_case`, a fused round 0; K10:
+:func:`bm_tile_case`, a padded tile) carries per-row incumbents ``init``
+(-1, the row's first label, or another) and rows of the Boyer-Moore
+hazards (:func:`bm_case_rows`): ties ``wk == w`` (a replace, not a
+decrement), runs of the carry's label, a decrement that leaves the carry
+just above the next entry's weight, and entries of weight 0.0, -0.0, < 0
+or label -1 mid-row; counts 0, 1, C-1, C and C+1 for the stage's chunk
+widths C of :data:`BM_CHUNKS`, 127 and 128; shuffled rows, and junk gap
+entries (valid labels, weight 2.5) that would take the carry if read.
 """
 from __future__ import annotations
 
@@ -317,3 +327,125 @@ def rescan_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
             "step_dmax": row_count.max(axis=1, keepdims=True).astype(np.int32),
             "labels": labels, "weights": weights, "cand": cand,
             "n_entries_in": length, "n_rows": len(rows)}
+
+
+#: the chunk widths C of the staged BM folds (K10 at 8 and 32, K3 at 16
+#: and 32): a BM case has rows of counts C-1, C and C+1 for each
+BM_CHUNKS = (8, 16, 32)
+#: labels of the BM cases' rows: a small alphabet, so that candidates
+#: match, lose and replace
+BM_LABELS = 6
+
+
+def bm_ties() -> list[tuple[int, float]]:
+    """Ties wk == w: each replaces the candidate (a decrement would leave
+    the old one at 0.0); a match in between."""
+    return [(2, 1.5), (3, 1.5), (3, 0.75), (2, 2.25), (5, 2.25)]
+
+
+def bm_runs() -> list[tuple[int, float]]:
+    """A run of the carry's label, a smaller rival, the run again."""
+    return [(4, 0.375)] * 5 + [(1, 0.75)] + [(4, 0.375)] * 3 + [(0, 0.375)]
+
+
+def bm_just_above() -> list[tuple[int, float]]:
+    """Decrements that leave the carry one ulp above the entry that comes
+    next: 1 + 2^-23 less 1.0 is 2^-23, which then beats 2^-24 (a
+    decrement to 2^-24) and ties 2^-24 (a replace)."""
+    eps = float(np.float32(2.0 ** -23))
+    return [(1, 1.0), (1, eps), (2, 1.0), (3, eps / 2), (4, eps / 2),
+            (4, 0.375)]
+
+
+def bm_noops() -> list[tuple[int, float]]:
+    """Entries that fold nothing mid-row: label -1 of weight > 0, weights
+    0.0, -0.0 and < 0 on live labels (the carry's included)."""
+    return [(1, 1.0), (-1, 2.0), (1, 0.0), (2, -0.0), (1, -0.0),
+            (3, -0.375), (2, 0.375)]
+
+
+BM_HAND_ROWS = (bm_ties, bm_runs, bm_just_above, bm_noops)
+
+
+def _bm_random_row(n: int, rng) -> list[tuple[int, float]]:
+    """Labels in [-1, BM_LABELS), weights on a 0.375 grid from -0.375,
+    and one in eight of the zero weights -0.0."""
+    labels = rng.integers(-1, BM_LABELS, n)
+    weights = (rng.integers(-1, 8, n) * 0.375).astype(np.float32)
+    weights[(weights == 0) & (rng.random(n) < 0.125)] = -0.0
+    return [(int(c), float(w)) for c, w in zip(labels, weights)]
+
+
+def bm_case_rows(rng, n_random: int = 0) -> list[list]:
+    """The rows of a BM case, shuffled: random rows of every count of
+    the module docstring, each hand-made row alone and followed by random
+    entries up to the chunk, and ``n_random`` rows of random counts in
+    [0, chunk]."""
+    counts = {0, 1, CHUNK - 1, CHUNK}
+    for c in BM_CHUNKS:
+        counts |= {c - 1, c, c + 1}
+    rows = [_bm_random_row(n, rng) for n in sorted(counts)]
+    for hand in BM_HAND_ROWS:
+        rows.append(hand())
+        rows.append(hand() + _bm_random_row(CHUNK - len(hand()), rng))
+    rows += [_bm_random_row(int(n), rng)
+             for n in rng.integers(0, CHUNK + 1, n_random)]
+    order = rng.permutation(len(rows))
+    return [rows[i] for i in order]
+
+
+def bm_init(rows, rng) -> np.ndarray:
+    """Per-row incumbents: -1, the row's first label (-1 for an empty
+    row) or a random label, in turn."""
+    init = rng.integers(0, BM_LABELS, len(rows)).astype(np.int32)
+    for i, row in enumerate(rows):
+        if i % 3 == 0:
+            init[i] = -1
+        elif i % 3 == 1:
+            init[i] = row[0][0] if row else -1
+    return init
+
+
+def bm_case(seed: int, *, tile_r: int = 13, n_random: int = 91):
+    """A fused round 0 for the BM fold: the round's fields as in
+    :func:`fused_case`, plus ``init`` [n_steps * tile_r] int32 (-1 on the
+    pad rows) and ``n_rows`` (the real rows, in layout order)."""
+    rng = np.random.default_rng(seed)
+    rows = bm_case_rows(rng, n_random)
+    starts, counts, end = _lay_out(rows, 3, rng)
+    n_steps = -(-len(rows) // tile_r)
+    pad = n_steps * tile_r - len(rows)
+    labels, weights = _fill(end + 5, rows, starts, rng)
+    row_start = np.asarray(starts + [0] * pad, np.int32).reshape(n_steps,
+                                                                 tile_r)
+    row_count = np.asarray(counts + [0] * pad, np.int32).reshape(n_steps,
+                                                                 tile_r)
+    init = np.concatenate([bm_init(rows, rng), np.full(pad, -1, np.int32)])
+    return {"row_start": row_start, "row_count": row_count,
+            "step_dmax": row_count.max(axis=1, keepdims=True).astype(np.int32),
+            "labels": labels, "weights": weights, "init": init,
+            "n_entries_in": labels.shape[0], "n_rows": len(rows)}
+
+
+def bm_tile_case(width: int, n_rows: int, seed: int):
+    """A padded [n_rows, width] BM tile and its incumbents: (labels int32,
+    weights float32, init [n_rows] int32). Rows: the hand-made rows where
+    they fit whole, a full-width random row, an all-pad row, the rows of
+    :func:`bm_case_rows` that fit, then random rows of random counts, in
+    shuffled order; each padded with (-1, 0.0) past its entries."""
+    rng = np.random.default_rng(seed)
+    kinds = [_bm_random_row(width, rng), []]
+    kinds += [hand() for hand in BM_HAND_ROWS if len(hand()) <= width]
+    kinds += [r for r in bm_case_rows(rng) if len(r) <= width]
+    rows = kinds[:n_rows] + [
+        _bm_random_row(int(n), rng)
+        for n in rng.integers(0, width + 1, max(n_rows - len(kinds), 0))]
+    rows = [rows[i] for i in rng.permutation(n_rows)]
+    labels = np.full((n_rows, width), -1, np.int32)
+    weights = np.zeros((n_rows, width), np.float32)
+    for pos, row in enumerate(rows):
+        if row:
+            c, w = zip(*row)
+            labels[pos, :len(row)] = c
+            weights[pos, :len(row)] = w
+    return labels, weights, bm_init(rows, rng)

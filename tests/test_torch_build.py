@@ -48,14 +48,31 @@ def test_both_kernel_sources_share_the_row_header():
 
 
 def test_tile_kernel_digest_covers_its_source_and_the_row_header(tmp_path):
-    """The per-bucket library is rebuilt when mg_tile.cu or the shared
-    row header changes: its key reads both."""
-    for name in ("mg_tile.cu", "sketch_rows.cuh"):
+    """The per-bucket library is rebuilt when mg_tile.cu or either header
+    it includes (the fold bodies, the shared-memory stage) changes: its
+    key reads all three."""
+    headers = ("sketch_rows.cuh", "row_stage.cuh")
+    for name in ("mg_tile.cu",) + headers:
         (tmp_path / name).write_bytes((build._CSRC / name).read_bytes())
     source = tmp_path / "mg_tile.cu"
     assert build.source_digest(source) == build.source_digest(
         build._CSRC / "mg_tile.cu")
-    before = build.source_digest(source)
-    header = tmp_path / "sketch_rows.cuh"
-    header.write_text(header.read_text() + "// edited\n")
-    assert build.source_digest(source) != before
+    for name in headers:
+        before = build.source_digest(source)
+        header = tmp_path / name
+        header.write_text(header.read_text() + "// edited\n")
+        assert build.source_digest(source) != before
+
+
+def test_tile_and_fused_kernels_share_the_stage_header():
+    """K9/K10 (mg_tile.cu) and K3 (mg_fused.cu) fold from one
+    shared-memory stage, row_stage.cuh; the streamed kernels do not use
+    it."""
+    csrc = build._CSRC
+    stage = (csrc / "row_stage.cuh").read_text()
+    assert "fold_staged" in stage and "stage_chunk" in stage
+    for name, uses in (("mg_tile", True), ("mg_fused", True),
+                       ("mg_stream", False)):
+        source = (csrc / f"{name}.cu").read_text()
+        assert ('#include "row_stage.cuh"' in source) == uses, name
+        assert ("fold_staged<" in source) == uses, name

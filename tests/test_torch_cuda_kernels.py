@@ -6,10 +6,10 @@ streamed and per-bucket paths (νMG, νBM, rescan; aligned and not) on the
 card against the plain-torch reference engine; the sparse frontier runs
 on the card against their dense gated runs; ``exact_choose``'s group
 sums on the card against the CPU's; K1 and K5, whose group fold takes a
-warp's lanes k to a row, K4, whose rescan does too, and K9, which stages
-its tile through shared memory, on the adversarial cases of
-``tests/_fold_cases.py``; and modularity, whose repeated calls give the
-same bits on the card.
+warp's lanes k to a row, K4, whose rescan does too, K9 and K10, which
+stage their tiles through shared memory, and K3, which stages its rows'
+segments, on the adversarial cases of ``tests/_fold_cases.py``; and
+modularity, whose repeated calls give the same bits on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
 is taken inside the ``cuda`` fixture, never at import). On a machine with
@@ -32,8 +32,9 @@ from repro_torch.graphs.csr import (FusedRound, StreamedRound, build_csr,
                                     plan_dispatches, plan_round0_dispatches)
 from repro_torch.kernels import launches
 from repro_torch.kernels.mg_sketch import fused, ops, streaming
-from _fold_cases import (TILE_SHAPES, UNALIGNED_OFFSET, embed_at,
-                         fused_case, rescan_case, stream_case, tile_case)
+from _fold_cases import (TILE_SHAPES, UNALIGNED_OFFSET, bm_case,
+                         bm_tile_case, embed_at, fused_case, rescan_case,
+                         stream_case, tile_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -174,6 +175,70 @@ def test_tile_kernel_on_tile_cases(cuda, k, offset):
         ref = sketch.mg_fold_tile(gl, gw, k)
         assert _same_bits(got[0], ref[0]) and _same_bits(got[1], ref[1]), \
             (width, n_rows)
+
+
+@pytest.mark.parametrize("offset", [0, UNALIGNED_OFFSET])
+@pytest.mark.parametrize("tile_r,n_random", [(13, 91), (128, 3000)])
+def test_bm_fold_kernel_on_bm_cases(cuda, offset, tile_r, n_random):
+    """K3 against plain, bit for bit, on the BM cases:
+    ties, runs, a decrement to just above the next weight, no-ops
+    mid-row, incumbents -1 and equal to the first label, counts around
+    every stage chunk width, shuffled rows at every start mod 8 with junk
+    in the gaps; the larger case spans a few dozen blocks; at offset 1 the
+    entry arrays are slices 4 bytes past a 16-byte boundary."""
+    case = bm_case(400 + tile_r, tile_r=tile_r, n_random=n_random)
+    rnd, _, _ = _case_round(case, cuda, "fused")
+    el = torch.from_numpy(embed_at(case["labels"], offset)).to(cuda)[offset:]
+    ew = torch.from_numpy(embed_at(case["weights"], offset)).to(cuda)[offset:]
+    init = torch.from_numpy(case["init"]).to(cuda)
+    fused.reset_launch_counts()
+    got = fused.bm_fold_round_fused(rnd, el, ew, init, chunk=128)
+    torch.cuda.synchronize()
+    assert fused.LAUNCH_COUNTS["bm_fold"] == 1
+    ref = fused.bm_fold_round_plain(rnd, el, ew, init, chunk=128)
+    assert _same_bits(got[0], ref[0]) and _same_bits(got[1], ref[1])
+
+
+@pytest.mark.parametrize("offset", [0, UNALIGNED_OFFSET])
+def test_tile_bm_kernel_on_bm_tile_cases(cuda, offset):
+    """K10 against plain, bit for bit, on the BM tile cases at every
+    width class of the stage it shares with K9 (16-byte copies where
+    D % 4 == 0, 4-byte ones where D is odd or, at offset 1, everywhere;
+    one chunk, two, or four at D = 128), R = 1, odd, past one block and
+    past many; one launch each."""
+    for width, n_rows in TILE_SHAPES + ((8, 5000), (64, 300), (32, 3001)):
+        labels, weights, init = bm_tile_case(width, n_rows, seed=300 + width)
+        flat_l = torch.from_numpy(embed_at(labels, offset)).to(cuda)
+        flat_w = torch.from_numpy(embed_at(weights, offset)).to(cuda)
+        gl = flat_l[offset:].view(n_rows, width)
+        gw = flat_w[offset:].view(n_rows, width)
+        gi = torch.from_numpy(init).to(cuda)
+        assert (gl.data_ptr() % 16 == 0) == (offset == 0)
+        launches.reset_launch_counts()
+        got = ops.bm_fold_tile_pallas(gl, gw, gi)
+        torch.cuda.synchronize()
+        assert launches.LAUNCH_COUNTS["tile_bm_fold"] == 1
+        ref = sketch.bm_fold_tile(gl, gw, gi)
+        assert _same_bits(got[0], ref[0]) and _same_bits(got[1], ref[1]), \
+            (width, n_rows)
+
+
+def test_tile_kernels_share_one_stage_size(cuda):
+    """K9 and K10 size their launches with one function: the stage (two
+    buffers at most) for both, K9's sketch store where it is larger."""
+    from repro_torch.kernels.mg_sketch import mg_sketch
+    # width, aligned -> stage bytes (C = 8 or 32, 16-byte or 4-byte rows)
+    stages = {(4, True): 12_288, (7, True): 9_216, (32, True): 36_864,
+              (33, True): 67_584, (128, True): 73_728,
+              (128, False): 67_584, (0, True): 0}
+    for (width, aligned), stage in stages.items():
+        assert mg_sketch.tile_fold_smem_bytes(width, None, aligned) == stage
+        for k in (4, 8, 32):
+            sketch_bytes = 2 * 128 * (k + 1) * 4
+            assert mg_sketch.tile_fold_smem_bytes(width, k, aligned) == max(
+                stage, sketch_bytes)
+    with pytest.raises(ValueError):
+        mg_sketch.tile_fold_smem_bytes(8, 3)
 
 
 def test_modularity_is_reproducible_on_the_card(cuda):
