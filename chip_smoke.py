@@ -23,6 +23,8 @@ the kernel launch counts set to 0 just before it:
     compacted rows), and sparse on ``pallas_stream`` with the aligned
     layout (K5, K6 over the compacted windows); each sparse run at the
     default capacity and at one every iteration fits.
+  * the partitioner — ``lpa_partition(graph, 4, config)`` with the
+    νMG8 config above (K1, K2), then the numpy packing.
 
 Phases:
 
@@ -60,7 +62,14 @@ Phases:
      and peak device memory;
      exact LPA's group sums held to the CPU's on non-integer weights;
      the peak memories side by side;
-  5. one JSON line describing every kernel.
+  5. the runtime contracts and the partitioner: on the 2^16 graph, mg
+     and bm on every engine replayed through ``get_engine(...,
+     checked=True)`` beside the bare engine (equal wanted labels and
+     launch counts each iteration, ``lpa()``'s labels at the end, a NaN
+     weight raising ``ContractError``); then ``lpa_partition(graph, 4)``
+     on the main graph with the main path's config, its edge cut beside
+     ``contiguous_parts``'s and its seconds;
+  6. one JSON line describing every kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a
@@ -528,11 +537,11 @@ def stream_kernels_vs_plain(graph, plan, aligned_plan, tag: str) -> dict:
     each held to exact equality with its plain version on random windowed
     entries and on the main path's first iteration (labels = vertex ids,
     each round fed the previous round's kernel output through its
-    re-layout). Each round is handed to the kernel and the plain version
-    as an aligned view (its entries already windowed), so their times
-    hold the fold alone; the re-layout (``windowed_entries``) is timed on
-    its own, per round, and the aligned plan's one label gather beside
-    ``labels[indices]``."""
+    re-layout); K8 also on the aligned plan's round 0. Each round is
+    handed to the kernel and the plain version as an aligned view (its
+    entries already windowed), so their times hold the fold alone; the
+    re-layout (``windowed_entries``) is timed on its own, per round, and
+    the aligned plan's one label gather beside ``labels[indices]``."""
     import numpy as np
     import torch
     from repro_torch.core import sketch
@@ -675,6 +684,35 @@ def stream_kernels_vs_plain(graph, plan, aligned_plan, tag: str) -> dict:
                   f"{plain_ms:.3f} ms, {n_bytes} B, bound {bound:.4f} ms "
                   f"({by} at 3.35 TB/s), {bound / ms:.1%} of bound",
                   flush=True)
+        if r == 0:
+            # K8 on the aligned plan's round 0 (the same row slots): its
+            # windowed arrays are the label gather into window slots and
+            # the plan's weights, as lpa_move hands them over
+            arnd = aligned_plan.rounds[0]
+            if not (torch.equal(arnd.row_start, rnd.row_start)
+                    and torch.equal(arnd.row_count, rnd.row_count)):
+                raise AssertionError("the aligned plan's round 0 has other "
+                                     "row slots")
+            a_wl = aligned_gather()
+            a_ww = aligned_plan.aligned_entry_weights
+
+            def k8_aligned():
+                return streaming.rescan_round_stream(arnd, a_wl, a_ww,
+                                                     main_cand, k=k,
+                                                     chunk=chunk)
+            got = k8_aligned()
+            torch.cuda.synchronize()
+            ref = streaming.rescan_round_stream_plain(arnd, a_wl, a_ww,
+                                                      main_cand, chunk=chunk)
+            if not _same_bits(got, ref):
+                raise AssertionError("K8 differs from its plain version on "
+                                     "the aligned plan's round 0")
+            ms = _time_ms(k8_aligned, warmup=3, reps=20)
+            stats["K8"]["aligned_ms"] = ms
+            print(f"{tag} phase 2: K8 on the aligned plan's round 0 "
+                  f"(labels_ext[aligned_entry_vertex], aligned weights): "
+                  f"exact match to plain; kernel {ms:.4f} ms", flush=True)
+            del a_wl, got, ref
         if r < last:
             out_k, out_v = streaming.stream_fold_round(view, main_wl, main_ww,
                                                        k=k, chunk=chunk)
@@ -1091,6 +1129,155 @@ def _exact_vs_cpu(graph, truth, tag: str) -> dict:
           f"{gpu_s:.3f} s, CPU {cpu_s:.3f} s (wall, first call)", flush=True)
     return {"n_edges": graph.n_edges, "max_degree": longest,
             "gpu_s": gpu_s, "cpu_s": cpu_s}
+
+
+def _checked_runs(g16, tag: str) -> dict:
+    """Phase 5 (a): checked mode on the 2^16 graph. For mg and bm on each
+    engine (jnp, pallas, pallas_fused, and auto, which resolves to
+    pallas_stream there), ``lpa()``'s iterations are replayed with the
+    engine from ``get_engine(..., checked=True)`` beside the bare one:
+    each iteration's wanted labels and launch counts must be equal, and
+    the replayed labels must be ``lpa()``'s. A NaN entry weight must then
+    raise ``ContractError`` on the card. Times one checked and one bare
+    fold per iteration (host wall, synchronised: a check syncs)."""
+    import torch
+    from repro_torch.core.checked import CheckedEngine, ContractError
+    from repro_torch.core.fold_engine import get_engine
+    from repro_torch.core.fold_program import FoldRequest
+    from repro_torch.core.lpa import LPAConfig, build_workspace, lpa
+    from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
+
+    def counted(fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(LAUNCH_COUNTS)
+
+    report = {}
+    for method in ("mg", "bm"):
+        for backend in ("jnp", "pallas", "pallas_fused", "auto"):
+            cfg = LPAConfig(method=method, k=8, chunk=128,
+                            fold_backend=backend)
+            ws = build_workspace(g16, cfg)
+            ref = lpa(g16, cfg, ws=ws)
+            name = ws.bundle.spec.backend
+            bare = get_engine(name, checked=False)
+            checked = get_engine(name, checked=True)
+            if not isinstance(checked, CheckedEngine) or \
+                    isinstance(bare, CheckedEngine):
+                raise AssertionError(f"phase 5, {name}: checked={{True, "
+                                     f"False}} gave {checked!r}, {bare!r}")
+            labels = torch.arange(g16.n_nodes, dtype=torch.int32,
+                                  device=g16.device)
+            checked_ms, bare_ms = [], []
+            for it in range(ref.iterations):
+                nbr = torch.index_select(labels, 0, g16.indices)
+                req = FoldRequest(family=method, seed=it + 1)
+                t0 = time.perf_counter()
+                got, got_counts = counted(lambda: checked.run(
+                    ws.bundle, req, nbr, g16.weights, labels))
+                t1 = time.perf_counter()
+                want, want_counts = counted(lambda: bare.run(
+                    ws.bundle, req, nbr, g16.weights, labels))
+                t2 = time.perf_counter()
+                checked_ms.append((t1 - t0) * 1e3)
+                bare_ms.append((t2 - t1) * 1e3)
+                if not torch.equal(got.want, want.want) or \
+                        got_counts != want_counts:
+                    raise AssertionError(
+                        f"phase 5, {method} on {name}, iteration {it}: the "
+                        f"checked fold differs (launches {got_counts} vs "
+                        f"{want_counts})")
+                pl = it % cfg.rho == 0
+                allowed = (want.want < labels) if pl else \
+                    (want.want != labels)
+                labels = torch.where(allowed, want.want, labels)
+            if not torch.equal(labels, ref.labels):
+                raise AssertionError(f"phase 5, {method} on {name}: the "
+                                     f"replayed labels are not lpa()'s")
+            launched = {key: n for key, n in want_counts.items() if n}
+            if (name == "jnp") == bool(launched):
+                raise AssertionError(f"phase 5, {method} on {name}: "
+                                     f"launches {want_counts}")
+            bad = g16.weights.clone()
+            bad[0] = float("nan")
+            nbr = torch.index_select(labels, 0, g16.indices)
+            try:
+                checked.run(ws.bundle, FoldRequest(family=method, seed=1),
+                            nbr, bad, labels)
+            except ContractError as err:
+                message = str(err)
+            else:
+                raise AssertionError(f"phase 5, {method} on {name}: a NaN "
+                                     f"weight raised nothing")
+            if "NaN/inf entry weight" not in message:
+                raise AssertionError(f"phase 5: unexpected message "
+                                     f"{message!r}")
+            key = f"{method}_{backend}"
+            report[key] = {"engine": name, "iterations": ref.iterations,
+                           "launches": launched,
+                           "checked_ms": statistics.median(checked_ms),
+                           "bare_ms": statistics.median(bare_ms)}
+            print(f"{tag} phase 5: 2^{PARITY_SCALE} vertices, checked "
+                  f"{method} on {backend} ({name}): {ref.iterations} "
+                  f"iterations replayed, wanted labels and launches "
+                  f"({launched} in the last) equal to the bare engine's each "
+                  f"iteration, final labels lpa()'s; a NaN weight raised "
+                  f"ContractError({message!r}); fold median "
+                  f"{report[key]['checked_ms']:.3f} ms checked, "
+                  f"{report[key]['bare_ms']:.3f} ms bare (host wall)",
+                  flush=True)
+    return report
+
+
+def _partition(graph, cfg, mg_labels, mg_launches, tag: str) -> dict:
+    """Phase 5 (b): ``lpa_partition(graph, 4, cfg)`` on the main graph, its
+    communities and launches those of phase 4's mg run; its edge cut
+    beside the contiguous split's, and its seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.graphs.partition import (contiguous_parts,
+                                              edge_cut_fraction,
+                                              lpa_partition)
+    from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
+
+    n_parts = 4
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    part = lpa_partition(graph, n_parts, cfg)
+    seconds = time.perf_counter() - t0
+    launches = {key: n for key, n in LAUNCH_COUNTS.items() if n}
+    if launches != {key: n for key, n in mg_launches.items() if n}:
+        raise AssertionError(f"phase 5, lpa_partition: launches {launches},"
+                             f" phase 4's mg run {mg_launches}")
+    t0 = time.perf_counter()
+    base_cut = edge_cut_fraction(graph, contiguous_parts(graph, n_parts))
+    base_s = time.perf_counter() - t0
+    n = graph.n_nodes
+    n_comm = int(torch.unique(mg_labels).numel())
+    if (part.n_communities != n_comm or part.bounds[0] != 0
+            or part.bounds[-1] != n
+            or not np.array_equal(np.sort(part.order), np.arange(n))
+            or not np.array_equal(np.bincount(part.parts, minlength=n_parts),
+                                  np.diff(part.bounds))):
+        raise AssertionError(f"phase 5, lpa_partition: {part.n_communities}"
+                             f" communities (phase 4's mg run: {n_comm}), "
+                             f"bounds {part.bounds}")
+    print(f"{tag} phase 5: 2^{SCALE} vertices, lpa_partition(graph, "
+          f"{n_parts}) on {cfg.fold_backend}: {part.n_communities} "
+          f"communities and launches {launches} (phase 4's mg run's), "
+          f"edge cut {part.edge_cut!r} "
+          f"against contiguous_parts's {base_cut!r}; bounds "
+          f"{part.bounds.tolist()}; {seconds:.2f} s (plans, lpa(), packing "
+          f"and cut; the contiguous split and its cut {base_s:.2f} s)",
+          flush=True)
+    return {"n_parts": n_parts, "edge_cut": part.edge_cut,
+            "launches": launches,
+            "contiguous_edge_cut": base_cut,
+            "n_communities": part.n_communities,
+            "bounds": part.bounds.tolist(), "seconds": seconds,
+            "contiguous_seconds": base_s}
 
 
 def main(argv=None) -> int:
@@ -1558,7 +1745,6 @@ def main(argv=None) -> int:
     # exact LPA: plain torch (no kernel); its group sums first, on the
     # 2^16 graph with non-integer weights, against the CPU's bits
     report["exact_check"] = _exact_vs_cpu(g16, truth16, tag)
-    del g16
     out = _run_path(graph, truth, ws_plain,
                     dataclasses.replace(cfg, method="exact",
                                         fold_backend="jnp"),
@@ -1617,7 +1803,16 @@ def main(argv=None) -> int:
                       for p, m in mem.items() if p != "exact"), flush=True)
     _phase_took(tag, 4, t_phase, report)
 
-    # -- phase 5: the kernels line --------------------------------------------
+    # -- phase 5: the runtime contracts and the partitioner ------------------
+    t_phase = time.perf_counter()
+    report["checked"] = _checked_runs(g16, tag)
+    del g16
+    torch.cuda.empty_cache()
+    report["partition"] = _partition(graph, cfg, final_labels["mg"],
+                                     report["main"]["mg"]["launches"], tag)
+    _phase_took(tag, 5, t_phase, report)
+
+    # -- phase 6: the kernels line --------------------------------------------
     main = report["main"]
 
     def by_path(key, paths):

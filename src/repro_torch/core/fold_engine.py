@@ -48,9 +48,14 @@ thing in both packages:
 whose budget constant is the reference's TPU VMEM figure, kept so that
 the resolved name agrees: past 8 MiB of round-0 entries it picks
 ``pallas_stream``). No request falls back to another engine.
+
+``get_engine(..., checked=True)``, or the ``REPRO_CHECKED`` environment
+variable, wraps the engine in the contract proxy of
+``repro_torch.core.checked``.
 """
 from __future__ import annotations
 
+import os
 from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
@@ -393,15 +398,38 @@ def resolve_auto(n_entries: int,
             else "pallas_stream")
 
 
+def _maybe_checked(engine: FoldEngine, checked: Optional[bool]):
+    """Wrap an engine in the contract proxy when asked.
+
+    ``checked=None`` defers to the ``REPRO_CHECKED`` environment variable
+    (how the parity suites opt every ``get_engine`` call in at once): on
+    unless it is unset, empty, ``0`` or ``false``. Unchecked, the bare
+    engine is returned.
+    """
+    if checked is None:
+        checked = os.environ.get("REPRO_CHECKED", "0").lower() \
+            not in ("", "0", "false")
+    if not checked:
+        return engine
+    from repro_torch.core.checked import CheckedEngine
+    return CheckedEngine(engine)
+
+
 def get_engine(name: str, mg_variant: str = "paper", *,
                n_entries: Optional[int] = None,
-               vmem_budget_bytes: Optional[int] = None) -> FoldEngine:
+               vmem_budget_bytes: Optional[int] = None,
+               checked: Optional[bool] = None) -> FoldEngine:
     """Resolve a fold backend by config name.
 
     ``mg_variant='exact_weighted'`` is honoured on the jnp engine only;
     the kernel engines always compute the paper's Alg. 2 rule, as the
     reference's do. ``name="auto"`` picks from the round-0 entry volume
     ``n_entries`` (:func:`resolve_auto`).
+
+    ``checked=True`` (or ``REPRO_CHECKED=1`` with ``checked=None``) wraps
+    the engine in :class:`repro_torch.core.checked.CheckedEngine`, which
+    checks the OOB/NaN/label contracts around every fold (one host sync
+    per check on the card); ``lpa_move`` passes ``checked=False``.
     """
     if name == "auto":
         if n_entries is None:
@@ -409,12 +437,12 @@ def get_engine(name: str, mg_variant: str = "paper", *,
                              "round-0 entry volume) to resolve the policy")
         name = resolve_auto(n_entries, vmem_budget_bytes)
     if name == "jnp":
-        return JnpEngine(mg_variant=mg_variant)
+        return _maybe_checked(JnpEngine(mg_variant=mg_variant), checked)
     if name == "pallas":
-        return PallasEngine()
+        return _maybe_checked(PallasEngine(), checked)
     if name == "pallas_fused":
-        return PallasFusedEngine()
+        return _maybe_checked(PallasFusedEngine(), checked)
     if name == "pallas_stream":
-        return PallasStreamEngine()
+        return _maybe_checked(PallasStreamEngine(), checked)
     raise ValueError(f"unknown fold backend {name!r}; expected one of "
                      f"{ENGINES + ('auto',)}")

@@ -36,7 +36,7 @@ across and means the same thing in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import Callable, Literal, Optional
 
 import numpy as np
 import torch
@@ -133,8 +133,10 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
         raise ValueError("sparse=True needs a frontier (the compacted fold "
                          "is defined by the active vertex set)")
     # the bundle's spec carries the RESOLVED backend ("auto" was decided
-    # at plan-build time), so the engine always finds its plan
-    engine = get_engine(bundle.spec.backend, mg_variant=config.mg_variant)
+    # at plan-build time), so the engine always finds its plan; the
+    # contract proxy (REPRO_CHECKED) never reaches the LPA loop
+    engine = get_engine(bundle.spec.backend, mg_variant=config.mg_variant,
+                        checked=False)
     aux = bundle.aux_for(engine)
     aligned = bool(engine.uses_stream_plan and aux is not None
                    and aux.aligned)
@@ -271,3 +273,19 @@ def lpa(graph: CSRGraph, config: Optional[LPAConfig] = None,
                      changed_history=history, converged=converged,
                      frontier_history=frontier_history,
                      work_rows_history=work_rows_history)
+
+
+def lpa_step_fn(config: LPAConfig) -> Callable:
+    """A ``(ws, labels, iteration) -> (labels, delta_n)`` single-step
+    function: iteration ``i`` (an int or a 0-d integer tensor) runs
+    ``lpa_move`` with Pick-Less on when ``i % rho == 0`` and seed ``i +
+    1``, as ``lpa()``'s loop does; ``delta_n`` is the 0-d int32 count of
+    vertices that moved."""
+
+    def step(ws: LPAWorkspace, labels: torch.Tensor, iteration):
+        it = int(iteration)
+        new_labels, changed = lpa_move(ws, labels, it % config.rho == 0,
+                                       it + 1, config)
+        return new_labels, torch.sum(changed, dtype=torch.int32)
+
+    return step

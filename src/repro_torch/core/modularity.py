@@ -78,3 +78,12 @@ def nmi(labels_a, labels_b) -> float:
     hb = -np.sum(pb * np.log(pb))
     denom = np.sqrt(ha * hb)
     return float(mi / denom) if denom > 0 else 1.0
+
+
+def community_sizes(labels) -> np.ndarray:
+    """Sorted community sizes (descending) of a label tensor or array, as
+    a numpy int64 array."""
+    if isinstance(labels, torch.Tensor):
+        labels = labels.cpu().numpy()
+    _, counts = np.unique(np.asarray(labels), return_counts=True)
+    return np.sort(counts)[::-1]

@@ -24,39 +24,49 @@
 // 2^22-vertex smoke graph, past 2^31 at 2^25). Outputs are in row-slot
 // order.
 //
-// Design. One block per window. K5 folds a row slot with a group of K
-// lanes, lane j owning sketch slot j (sketch_rows.cuh:mg_fold_group, as
-// K1 in mg_fused.cu): the block's groups stride over the window's tile_r
-// row slots, 128 / K slots per pass (blockDim = tile_r * K rounded up to
-// a whole warp, at most 128). A group reads its row in chunks of K
-// contiguous entries with the next chunk's load in flight, broadcasts each
-// entry to its lanes, and two ballots over the slots' state pick the
-// branch each lane applies to its own slot: lane j performs slot j's
-// float32 operations of the reference, in entry order, so the sketches
-// are bit-identical to the reference and to the fused engine. Lane j
-// stores out[slot*K + j]: a warp writes 128 contiguous bytes of labels
-// and of weights per store instruction. Staging the window's occupied
-// prefix through shared memory is not needed: a group reads each real
-// entry of its row once, in whole sectors, and never a pad slot past the
-// window's last row. K6-K8 keep one thread per row slot (blockDim =
-// min(tile_r, 128); every plan the package builds has tile_r = 128) on
-// the fused kernels' per-row bodies, the reference's float32 sequence
-// too. The TPU kernel's window blocks, pad lanes and per-window loop
-// bound (step_dmax) are tiling devices: no thread reads a pad slot. Pad
-// row slots (row_count == 0) fold nothing: K5 writes (-1, 0.0f), K6 the
-// incumbent, K7 (init, 0.0f), K8 zeros.
+// Design. One block per window. K5 and K8 take a row slot with a group of
+// K lanes (for_each_row_slot): the block's groups stride over the
+// window's tile_r row slots, blockDim / K slots per pass (blockDim =
+// tile_r * K rounded up to a whole warp, at most 128 for K5 and 256 for
+// K8). K5's lane j owns sketch slot
+// j (sketch_rows.cuh:mg_fold_group, as K1 in mg_fused.cu): a group reads
+// its row in chunks of K contiguous entries with the next chunk's load in
+// flight, broadcasts each entry to its lanes, and two ballots over the
+// slots' state pick the branch each lane applies to its own slot: lane j
+// performs slot j's float32 operations of the reference, in entry order,
+// so the sketches are bit-identical to the reference and to the fused
+// engine. K8's lane j owns candidate j (sketch_rows.cuh:rescan_group, as
+// K4): the same chunked reads and broadcasts, and lane j adds each entry's
+// weight iff its candidate is the entry's label, in entry order from
+// +0.0f. Lane j loads cand[slot*K + j] and stores out[slot*K + j]: a warp
+// reads and writes 128 contiguous bytes per instruction. K6 and K7 keep
+// one thread per row slot (blockDim = min(tile_r, 128); every plan the
+// package builds has tile_r = 128) on the fused kernels' per-row bodies,
+// the reference's float32 sequence too. The TPU kernel's window blocks,
+// pad lanes and per-window loop bound (step_dmax) are tiling devices: no
+// thread reads a pad slot. Pad row slots (row_count == 0) fold nothing:
+// K5 writes (-1, 0.0f), K6 the incumbent, K7 (init, 0.0f), K8 zeros.
 //
 // Bound on the H100. Bytes, as for K1-K4: the kernels read only real
 // entries (8 B each), so their bytes bounds equal the fused kernels'
-// (K5: 2.74 GB over its four rounds at 2^22, 0.819 ms at 3.35 TB/s).
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W), 2^22
-// vertices: K5 takes 2.458 ms per iteration, 33.3% of that bound (round 0
+// (K5: 2.74 GB over its four rounds at 2^22, 0.819 ms at 3.35 TB/s; K8:
+// 1.029 GB, 0.307 ms). A plan sorts each round's rows by ascending count
+// before packing them into windows, so a window's rows lie one after
+// another and a warp's groups read rows of about one length: a warp's
+// loop runs to the longest of its rows, and its groups' reads fall in
+// neighbouring sectors. Measured by chip_smoke.py and
+// scripts/k8_layouts.py on an NVIDIA H100 80GB HBM3 (700 W), 2^22
+// vertices: K5 takes 2.458 ms per iteration, 33.3% of its bound (round 0
 // 1.050 ms, rounds 1-3 0.45-0.48 ms), against 3.281 ms for the
-// thread-per-row version it replaced. Within a window round 0's rows stay
-// in vertex order, so a warp's loop runs to the longest of its rows.
-// What the windowed layout adds is outside the kernels: the re-layout
-// gather of every unaligned round (windowed_entries, plain torch), which
-// writes n_windows*W padded slots per round.
+// thread-per-row version it replaced; K8 0.40 ms, 77% of its bound,
+// against 0.80 ms for one thread per row slot. Blocks of 128 (3% slower)
+// and 1,024 threads (one pass over a window's row slots; 9% slower) and a
+// stage of the window's occupied prefix in shared memory (16- or 4-byte
+// cp.async; 30-60% slower) lost to 256 threads (scripts/k8_layouts.cu
+// keeps them). What the windowed
+// layout adds is outside the kernels: the re-layout gather of every
+// unaligned round (windowed_entries, plain torch), which writes
+// n_windows*W padded slots per round.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,14 +78,31 @@ namespace {
 using sketch_rows::bm_fold_row;
 using sketch_rows::mg_fold_group;
 using sketch_rows::mg_fold_row;
-using sketch_rows::rescan_row;
+using sketch_rows::rescan_group;
 using sketch_rows::select_row;
 
 constexpr int kMaxThreadsPerBlock = 128;
+// K8's block: 256 / K row slots a pass
+constexpr int kRescanThreads = 256;
 
-// K5: the block's groups of K lanes stride over the window's row slots.
-// The pass loop is block-uniform; a group past tile_r folds count 0 and
-// stores nothing (it must still run the group fold: full-warp shuffles).
+// The window loop of K5 and K8: the block's groups of K lanes stride over
+// window blockIdx.x's tile_r row slots, blockDim.x / K slots a pass, and
+// call row(slot, real) for each, slot the global row slot and real false
+// for a group past tile_r. The pass loop is block-uniform; a group past
+// tile_r must still run its group scan (full-warp shuffles) and store
+// nothing.
+template <int K, class Row>
+__device__ __forceinline__ void for_each_row_slot(int tile_r, Row&& row) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * tile_r;
+  const int group = static_cast<int>(threadIdx.x) / K;
+  const int per_pass = static_cast<int>(blockDim.x) / K;
+  for (int s0 = 0; s0 < tile_r; s0 += per_pass) {
+    const int s = s0 + group;
+    row(first + s, s < tile_r);
+  }
+}
+
+// K5: a group of K lanes folds each row slot (mg_fold_group).
 template <int K>
 __global__ void __launch_bounds__(kMaxThreadsPerBlock)
 mg_stream_fold_kernel(const int* __restrict__ row_start,
@@ -84,25 +111,19 @@ mg_stream_fold_kernel(const int* __restrict__ row_start,
                       const float* __restrict__ wwgt,
                       int* __restrict__ out_k, float* __restrict__ out_v,
                       int tile_r, int64_t window_entries) {
-  const int64_t w = blockIdx.x;
-  const int64_t base = w * window_entries;
-  const int group = static_cast<int>(threadIdx.x) / K;
-  const int per_pass = static_cast<int>(blockDim.x) / K;
-  for (int s0 = 0; s0 < tile_r; s0 += per_pass) {
-    const int s = s0 + group;
-    const bool real = s < tile_r;
-    const int64_t slot = w * tile_r + s;
+  const int64_t base = blockIdx.x * window_entries;
+  const int lane = static_cast<int>(threadIdx.x) & (K - 1);
+  for_each_row_slot<K>(tile_r, [&](int64_t slot, bool real) {
     const int64_t e = real ? base + row_start[slot] : 0;
     int lab;
     float val;
     mg_fold_group<K>(wlab + e, wwgt + e, real ? row_count[slot] : 0, lab,
                      val);
     if (real) {
-      const int64_t o = slot * K + (threadIdx.x & (K - 1));
-      out_k[o] = lab;
-      out_v[o] = val;
+      out_k[slot * K + lane] = lab;
+      out_v[slot * K + lane] = val;
     }
-  }
+  });
 }
 
 template <int K>
@@ -144,8 +165,11 @@ mg_stream_bm_kernel(const int* __restrict__ row_start,
   }
 }
 
+// K8: a group of K lanes scores each row slot's candidates (rescan_group),
+// lane j candidate j: it loads cand[slot*K + j] and stores
+// out[slot*K + j]. Pad row slots (count 0) store zeros.
 template <int K>
-__global__ void __launch_bounds__(kMaxThreadsPerBlock)
+__global__ void __launch_bounds__(kRescanThreads)
 mg_stream_rescan_kernel(const int* __restrict__ row_start,
                         const int* __restrict__ row_count,
                         const int* __restrict__ cand,
@@ -153,14 +177,16 @@ mg_stream_rescan_kernel(const int* __restrict__ row_start,
                         const float* __restrict__ wwgt,
                         float* __restrict__ out, int tile_r,
                         int64_t window_entries) {
-  const int64_t w = blockIdx.x;
-  const int64_t base = w * window_entries;
-  for (int s = threadIdx.x; s < tile_r; s += blockDim.x) {
-    const int64_t slot = w * tile_r + s;
-    const int64_t e = base + row_start[slot];
-    const int64_t o = slot * K;
-    rescan_row<K>(wlab + e, wwgt + e, row_count[slot], cand + o, out + o);
-  }
+  const int64_t base = blockIdx.x * window_entries;
+  const int lane = static_cast<int>(threadIdx.x) & (K - 1);
+  for_each_row_slot<K>(tile_r, [&](int64_t slot, bool real) {
+    const int64_t o = slot * K + lane;
+    const int64_t e = real ? base + row_start[slot] : 0;
+    const float acc = rescan_group<K>(wlab + e, wwgt + e,
+                                      real ? row_count[slot] : 0,
+                                      real ? cand[o] : -1);
+    if (real) out[o] = acc;
+  });
 }
 
 // Shared launcher checks: 0 when the launch may go ahead, -1 when there is
@@ -180,13 +206,11 @@ inline unsigned block_for(int tile_r) {
                                    : kMaxThreadsPerBlock);
 }
 
-// K5's block: K lanes per row slot, whole warps (the group fold's
-// shuffles take the full warp), at most 128 threads.
-inline unsigned group_block_for(int tile_r, int k) {
+// K5's and K8's block: K lanes per row slot, whole warps (the group
+// scans' shuffles take the full warp), at most max_threads threads.
+inline unsigned group_block_for(int tile_r, int k, int max_threads) {
   const long long lanes = (static_cast<long long>(tile_r) * k + 31) / 32 * 32;
-  return static_cast<unsigned>(lanes < kMaxThreadsPerBlock
-                                   ? lanes
-                                   : kMaxThreadsPerBlock);
+  return static_cast<unsigned>(lanes < max_threads ? lanes : max_threads);
 }
 
 }  // namespace
@@ -213,9 +237,9 @@ extern "C" int mg_stream_fold(const void* row_start, const void* row_count,
   switch (k) {
 #define STREAM_FOLD_CASE(KK)                                              \
   case KK:                                                                \
-    mg_stream_fold_kernel<KK><<<grid, group_block_for(tile_r, KK), 0,     \
-                                s>>>(rs, rc, el, ew, ok, ov, tile_r,      \
-                                     window_entries);                     \
+    mg_stream_fold_kernel<KK><<<                                          \
+        grid, group_block_for(tile_r, KK, kMaxThreadsPerBlock), 0, s>>>(  \
+        rs, rc, el, ew, ok, ov, tile_r, window_entries);                  \
     break;
     SKETCH_ROWS_FOR_EACH_K(STREAM_FOLD_CASE)
 #undef STREAM_FOLD_CASE
@@ -291,7 +315,8 @@ extern "C" int mg_stream_rescan(const void* row_start, const void* row_count,
   switch (k) {
 #define STREAM_RESCAN_CASE(KK)                                            \
   case KK:                                                                \
-    mg_stream_rescan_kernel<KK><<<grid, block_for(tile_r), 0, s>>>(       \
+    mg_stream_rescan_kernel<KK><<<                                        \
+        grid, group_block_for(tile_r, KK, kRescanThreads), 0, s>>>(       \
         rs, rc, cd, el, ew, o, tile_r, window_entries);                   \
     break;
     SKETCH_ROWS_FOR_EACH_K(STREAM_RESCAN_CASE)

@@ -16,9 +16,8 @@
 // One BM body, bm_fold_entry, for one carry: bm_fold_row drives it from
 // device memory (K7) and BmCarry from a shared-memory stage (K3, K10).
 //
-// Two rescan bodies, likewise: rescan_group (K4: a group of K lanes, lane
-// j owning candidate j) and rescan_row (K8: one thread, all K candidates),
-// with the same per-slot adds in the same order.
+// One rescan body, rescan_group (K4 and K8: a group of K lanes, lane j
+// owning candidate j).
 //
 // Bit-exactness. Every body is a fixed sequence of float32 adds, subtracts
 // and maxes per row, the reference's sequence. The folds have no multiply,
@@ -283,40 +282,14 @@ struct BmCarry {
   }
 };
 
-// fused.py:_rescan_acc for one row. Unlike the other folds every entry
-// counts, w <= 0 included: acc[j] += w for each candidate j >= 0 equal to
-// the entry's label, in entry order from +0.0f. The reference adds 0.0f to
-// the other slots, which changes no bit (an accumulator that starts at
-// +0.0f is never -0.0f: x + (-x) and +0.0f + -0.0f are +0.0f), so those
-// adds are skipped. `cand` and `out` point at the row's k candidates and
-// k outputs.
-template <int K>
-__device__ __forceinline__ void rescan_row(const int* __restrict__ elab,
-                                           const float* __restrict__ ewgt,
-                                           int count,
-                                           const int* __restrict__ cand,
-                                           float* __restrict__ out) {
-  int lab[K];
-  float acc[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    lab[j] = cand[j];
-    acc[j] = 0.0f;
-  }
-  for (int i = 0; i < count; ++i) {
-    const int c = __ldg(elab + i);
-    const float w = __ldg(ewgt + i);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (lab[j] >= 0 && lab[j] == c) acc[j] += w;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) out[j] = acc[j];
-}
-
-// rescan_row with a group of K lanes per row, lane j holding candidate j
-// (`cand`, -1 for an empty slot) and returning its accumulator. Lanes
+// fused.py:_rescan_acc for one row, with a group of K lanes per row, lane
+// j holding candidate j (`cand`, -1 for an empty slot) and returning its
+// accumulator. Unlike the other folds every entry counts, w <= 0
+// included: acc[j] += w for each candidate j >= 0 equal to the entry's
+// label, in entry order from +0.0f. The reference adds 0.0f to the other
+// slots, which changes no bit (an accumulator that starts at +0.0f is
+// never -0.0f: x + (-x) and +0.0f + -0.0f are +0.0f), so those adds are
+// skipped. Lanes
 // 0..31 of a warp form 32/K groups of K consecutive lanes, one row each;
 // every lane of the warp must call this with the same control flow
 // (full-mask shuffles), a lane without a row passing count 0 and cand -1.
@@ -325,7 +298,7 @@ __device__ __forceinline__ void rescan_row(const int* __restrict__ elab,
 // chunk*K + j, and the next chunk's load is started before the current
 // chunk is scanned. Each entry (c, w) of the chunk is broadcast to the
 // group, and lane j adds w to its accumulator iff cand >= 0 and cand ==
-// c, so each slot's adds are rescan_row's, in entry order from +0.0f;
+// c, so each slot's adds are the reference's, in entry order from +0.0f;
 // duplicate candidates each accumulate. No ballot is needed: a rescan
 // slot neither claims nor decrements. The loop runs to the longest row
 // of the warp; a lane past its row's end broadcasts (-1, 0.0f), which

@@ -405,6 +405,13 @@ def build_fused_fold_plan(degrees: np.ndarray, k: int = 8, chunk: int = 128,
                          row_rank0=_tensor(rank0, device), max_rows0=max_rows0)
 
 
+def fused_hbm_entries(plan: FusedFoldPlan) -> int:
+    """Real entries the fused fold reads from device memory per iteration
+    (the kernels read exactly ``row_count`` entries a row, so pad slots
+    cost no traffic)."""
+    return int(sum(int(r.row_count.sum()) for r in plan.rounds))
+
+
 def fused_dispatches(plan: FusedFoldPlan) -> int:
     """Kernel launches per MG iteration: one per round (the final round's
     launch also performs candidate selection)."""

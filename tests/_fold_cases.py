@@ -261,18 +261,10 @@ def embed_at(x, offset: int = UNALIGNED_OFFSET):
     return np.concatenate([np.full(offset, fill, x.dtype), x.reshape(-1)])
 
 
-def rescan_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
-    """A fused round 0 for the rescan: the round's fields as in
-    :func:`fused_case`, plus ``cand`` [n_steps * tile_r, k] int32.
-
-    Rows of counts 0, 1, k-1, k, k+1, chunk-1 and chunk and ``n_random``
-    random ones, shuffled. Each row's candidates come from a small
-    alphabet, some duplicated, some -1, one row's all -1; its entries'
-    labels are mostly its candidates, with weights on a 0.375 grid from
-    -0.75, and +0.0 and -0.0 on candidate labels mid-row. Every entry
-    between two rows (and after the last) carries a candidate label of
-    one of its two neighbours and weight 2.5."""
-    rng = np.random.default_rng(seed)
+def _rescan_rows(k: int, rng, n_random: int):
+    """Rows of counts 0, 1, k-1, k, k+1, chunk-1 and chunk and
+    ``n_random`` random ones, shuffled, with their candidates: returns
+    (rows, cands), a list of [(label, weight)] and one of [k] int32."""
     counts = [0, 1, k - 1, k, k + 1, CHUNK - 1, CHUNK]
     counts += [int(n) for n in rng.integers(0, CHUNK + 1, n_random)]
     counts = [counts[i] for i in rng.permutation(len(counts))]
@@ -296,11 +288,18 @@ def rescan_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
             labels[n // 2 + 1], weights[n // 2 + 1] = live[-1], -0.0
         cands.append(cand)
         rows.append([(int(c), float(w)) for c, w in zip(labels, weights)])
-    starts, counts, end = _lay_out(rows, 3, rng)
-    length = end + 5
+    return rows, cands
+
+
+def _rescan_fill(length: int, rows, starts, cands, rng):
+    """Flat (labels, weights) of ``length`` entries: each row's entries at
+    its start; every entry between two rows (and before the first and
+    after the last) a candidate label of one of its two neighbours, weight
+    2.5."""
     labels = np.empty(length, np.int32)
     weights = np.full(length, 2.5, np.float32)
     prev_end, prev_live = 0, np.zeros(0, np.int32)
+    counts = [len(row) for row in rows]
     bounds = list(zip(starts, counts, cands)) + [(length, 0, None)]
     for start, count, cand in bounds:
         live = prev_live if cand is None else np.concatenate(
@@ -315,6 +314,25 @@ def rescan_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
             c, w = zip(*row)
             labels[start:start + len(row)] = c
             weights[start:start + len(row)] = w
+    return labels, weights
+
+
+def rescan_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
+    """A fused round 0 for the rescan: the round's fields as in
+    :func:`fused_case`, plus ``cand`` [n_steps * tile_r, k] int32.
+
+    Rows of counts 0, 1, k-1, k, k+1, chunk-1 and chunk and ``n_random``
+    random ones, shuffled. Each row's candidates come from a small
+    alphabet, some duplicated, some -1, one row's all -1; its entries'
+    labels are mostly its candidates, with weights on a 0.375 grid from
+    -0.75, and +0.0 and -0.0 on candidate labels mid-row. Every entry
+    between two rows (and after the last) carries a candidate label of
+    one of its two neighbours and weight 2.5."""
+    rng = np.random.default_rng(seed)
+    rows, cands = _rescan_rows(k, rng, n_random)
+    starts, counts, end = _lay_out(rows, 3, rng)
+    length = end + 5
+    labels, weights = _rescan_fill(length, rows, starts, cands, rng)
     n_steps = -(-len(rows) // tile_r)
     pad = n_steps * tile_r - len(rows)
     row_start = np.asarray(starts + [0] * pad, np.int32).reshape(n_steps,
@@ -327,6 +345,50 @@ def rescan_case(k: int, seed: int, *, tile_r: int = 13, n_random: int = 91):
             "step_dmax": row_count.max(axis=1, keepdims=True).astype(np.int32),
             "labels": labels, "weights": weights, "cand": cand,
             "n_entries_in": length, "n_rows": len(rows)}
+
+
+def stream_rescan_case(k: int, seed: int, *, tile_r: int = 6,
+                       fill=(6, 2, 0, 5, 1), n_random: int = 7):
+    """An aligned streamed round 0 for the rescan (K8): the rows and
+    candidates of :func:`rescan_case` (so ``sum(fill)`` is 7 +
+    ``n_random``) laid out in windows as in :func:`stream_case`: window w
+    holds ``fill[w]`` row slots (its first; the rest are pads, count 0,
+    candidates -1), from a window-relative offset 1, every row ending at
+    least ``chunk`` slots before its window's end. Each window's gaps
+    carry its neighbouring rows' candidates, weight 2.5. Returns the
+    fields of :func:`stream_case` plus ``cand`` [n_windows * tile_r, k]
+    int32."""
+    rng = np.random.default_rng(seed)
+    rows, cands = _rescan_rows(k, rng, n_random)
+    assert sum(fill) == len(rows) and all(f <= tile_r for f in fill)
+    n_windows = len(fill)
+    per_window, taken, ends = [], 0, []
+    for f in fill:
+        win_rows, win_cands = rows[taken:taken + f], cands[taken:taken + f]
+        taken += f
+        starts, counts, end = _lay_out(win_rows, 1, rng)
+        per_window.append((win_rows, win_cands, starts, counts))
+        ends.append(end)
+    w = -(-(max(ends) + CHUNK) // 8) * 8
+    labels = np.empty(n_windows * w, np.int32)
+    weights = np.empty(n_windows * w, np.float32)
+    row_start = np.zeros((n_windows, tile_r), np.int32)
+    row_count = np.zeros((n_windows, tile_r), np.int32)
+    cand = np.full((n_windows, tile_r, k), -1, np.int32)
+    for i, (win_rows, win_cands, starts, counts) in enumerate(per_window):
+        lab, wgt = _rescan_fill(w, win_rows, starts, win_cands, rng)
+        labels[i * w:(i + 1) * w] = lab
+        weights[i * w:(i + 1) * w] = wgt
+        row_start[i, :len(starts)] = starts
+        row_count[i, :len(counts)] = counts
+        if win_cands:
+            cand[i, :len(win_cands)] = np.stack(win_cands)
+    return {"row_start": row_start, "row_count": row_count,
+            "step_dmax": row_count.max(axis=1, keepdims=True).astype(np.int32),
+            "labels": labels, "weights": weights,
+            "entry_gather": np.arange(n_windows * w, dtype=np.int32),
+            "window_entries": w, "n_entries_in": n_windows * w,
+            "cand": cand.reshape(n_windows * tile_r, k)}
 
 
 #: the chunk widths C of the staged BM folds (K10 at 8 and 32, K3 at 16

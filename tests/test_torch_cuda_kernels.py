@@ -7,8 +7,9 @@ card against the plain-torch reference engine; the sparse frontier runs
 on the card against their dense gated runs; ``exact_choose``'s group
 sums on the card against the CPU's; K1 and K5, whose group fold takes a
 warp's lanes k to a row, K4, whose rescan does too, K9 and K10, which
-stage their tiles through shared memory, and K3, which stages its rows'
-segments, on the adversarial cases of ``tests/_fold_cases.py``; and
+stage their tiles through shared memory, K3, which stages its rows'
+segments, and K8, whose streamed rescan takes a warp's lanes k to a row
+slot, on the adversarial cases of ``tests/_fold_cases.py``; and
 modularity, whose repeated calls give the same bits on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
@@ -34,7 +35,7 @@ from repro_torch.kernels import launches
 from repro_torch.kernels.mg_sketch import fused, ops, streaming
 from _fold_cases import (TILE_SHAPES, UNALIGNED_OFFSET, bm_case,
                          bm_tile_case, embed_at, fused_case, rescan_case,
-                         stream_case, tile_case)
+                         stream_case, stream_rescan_case, tile_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -150,6 +151,36 @@ def test_rescan_kernel_on_rescan_cases(cuda, k, tile_r, n_random):
     assert fused.LAUNCH_COUNTS["rescan"] == 1
     ref = fused.rescan_round_plain(rnd, el, ew, cand, chunk=128)
     assert _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+@pytest.mark.parametrize("offset", [0, UNALIGNED_OFFSET])
+@pytest.mark.parametrize("tile_r,fill,n_random", [
+    (6, (6, 2, 0, 5, 1), 7), (100, (100, 3, 0, 77, 1), 174)])
+def test_stream_rescan_kernel_on_rescan_cases(cuda, k, offset, tile_r, fill,
+                                              n_random):
+    """K8 (a group of k lanes per row slot) against plain, bit for bit, on
+    the rescan cases laid out in windows whose row slots differ in count
+    (one window holds no row), pad slots storing zeros; tile_r 100 is no
+    multiple of the row slots a pass of 256 threads takes (64, 32 and 8
+    at k = 4, 8 and 32), nor is 6 of the 8 a block of 32 or 64 threads
+    takes at k = 4 and 8, so a pass has groups past tile_r; at offset 1
+    the windowed arrays start 4 bytes past a 16-byte boundary."""
+    case = stream_rescan_case(k, seed=300 + k, tile_r=tile_r, fill=fill,
+                              n_random=n_random)
+    rnd, _, _ = _case_round(case, cuda, "stream")
+    el = torch.from_numpy(embed_at(case["labels"], offset)).to(cuda)[offset:]
+    ew = torch.from_numpy(embed_at(case["weights"], offset)).to(cuda)[offset:]
+    assert (el.data_ptr() % 16 == 0) == (offset == 0)
+    cand = torch.from_numpy(case["cand"]).to(cuda)
+    streaming.reset_launch_counts()
+    got = streaming.rescan_round_stream(rnd, el, ew, cand, k=k, chunk=128)
+    torch.cuda.synchronize()
+    assert streaming.LAUNCH_COUNTS["stream_rescan"] == 1
+    ref = streaming.rescan_round_stream_plain(rnd, el, ew, cand, chunk=128)
+    assert _same_bits(got, ref)
+    pads = torch.from_numpy(case["row_count"].reshape(-1) == 0).to(cuda)
+    assert pads.any() and not got[pads].any()
 
 
 @pytest.mark.parametrize("k", [4, 8, 32])

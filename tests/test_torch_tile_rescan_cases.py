@@ -1,12 +1,14 @@
 """The port's plain versions of K9 (the per-bucket MG tile fold, through
-``kernels.mg_sketch.ops.mg_fold_tile_pallas``) and K4 (the rescan, through
-``kernels.mg_sketch.fused.rescan_round_fused``) against the JAX package on
-the CPU, on the cases that stress the CUDA kernels' designs
-(``tests/_fold_cases.py``): K9's tiles at every width class of its
-shared-memory stage, row counts around a block, all-pad rows and a tile
-that is an unaligned slice; K4's rows around k and the chunk, shuffled,
-with duplicate and -1 candidates, signed zeros mid-row and gap entries
-that carry the neighbouring rows' candidates. Bit for bit (float32
+``kernels.mg_sketch.ops.mg_fold_tile_pallas``), K4 (the rescan, through
+``kernels.mg_sketch.fused.rescan_round_fused``) and K8 (the streamed
+rescan, through ``kernels.mg_sketch.streaming.rescan_round_stream``)
+against the JAX package on the CPU, on the cases that stress the CUDA
+kernels' designs (``tests/_fold_cases.py``): K9's tiles at every width
+class of its shared-memory stage, row counts around a block, all-pad rows
+and a tile that is an unaligned slice; K4's rows around k and the chunk,
+shuffled, with duplicate and -1 candidates, signed zeros mid-row and gap
+entries that carry the neighbouring rows' candidates; K8's the same rows
+in windows whose row slots differ in count. Bit for bit (float32
 outputs compared as int32 bits, so -0.0 is not +0.0). The references are
 the JAX Pallas kernels in interpret mode, one call per shape. The same
 cases run through the CUDA kernels in ``tests/test_torch_cuda_kernels.py``.
@@ -19,12 +21,15 @@ import torch
 from repro.graphs import csr as jcsr
 from repro.kernels.mg_sketch import fused as jfused
 from repro.kernels.mg_sketch import ops as jops
+from repro.kernels.mg_sketch import streaming as jstream
 from repro_torch.graphs import csr as tcsr
 from repro_torch.kernels import launches
 from repro_torch.kernels.mg_sketch import fused as tfused
 from repro_torch.kernels.mg_sketch import ops as tops
+from repro_torch.kernels.mg_sketch import streaming as tstream
 from _fold_cases import (CHUNK, JUNK_LABEL, TILE_SHAPES, UNALIGNED_OFFSET,
-                         embed_at, rescan_case, tile_case)
+                         embed_at, rescan_case, stream_rescan_case,
+                         tile_case)
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from _torch_parity import to_np
 
@@ -133,3 +138,61 @@ def test_rescan_cases_cover_the_hazards(k):
         gap = labels[starts[a] + counts[a]:starts[a + 1]]
         near = (set(cand[a].tolist()) | set(cand[a + 1].tolist())) - {-1}
         assert set(gap.tolist()) <= near or not near
+
+
+def _stream_rounds(case):
+    """The aligned streamed round of a case in both packages."""
+    j = {f: jnp.asarray(case[f]) for f in ("entry_gather", "row_start",
+                                           "row_count", "step_dmax")}
+    t = {f: torch.from_numpy(case[f]) for f in j}
+    meta = dict(n_entries_in=case["n_entries_in"],
+                window_entries=case["window_entries"], aligned=True)
+    return jcsr.StreamedRound(**j, **meta), tcsr.StreamedRound(**t, **meta)
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_stream_rescan_cases_match_reference(k):
+    case = stream_rescan_case(k, seed=300 + k)
+    jr, tr = _stream_rounds(case)
+    el, ew, cand = case["labels"], case["weights"], case["cand"]
+    ref = jstream.rescan_round_stream(jr, jnp.asarray(el), jnp.asarray(ew),
+                                      jnp.asarray(cand), k=k, chunk=CHUNK,
+                                      interpret=True)
+    args = (tr, torch.from_numpy(el), torch.from_numpy(ew),
+            torch.from_numpy(cand))
+    launches.reset_launch_counts()
+    assert_same_bits(ref, tstream.rescan_round_stream(*args, k=k,
+                                                      chunk=CHUNK),
+                     "streamed rescan partials")
+    assert_same_bits(ref, tstream.rescan_round_stream_plain(*args,
+                                                            chunk=CHUNK),
+                     "streamed rescan partials (plain)")
+    assert not any(launches.LAUNCH_COUNTS.values())
+
+
+@pytest.mark.parametrize("k", [4, 8, 32])
+def test_stream_rescan_cases_cover_the_hazards(k):
+    """Windows whose row slots differ in count, one with no row, pad
+    slots with candidates -1; the rescan case's rows and candidates;
+    every row slice-safe (start + chunk <= W) and every gap entry a
+    candidate of a neighbouring row of its window."""
+    fill = (100, 3, 0, 77, 1)
+    case = stream_rescan_case(k, seed=300 + k, tile_r=100, fill=fill,
+                              n_random=174)
+    counts, starts = case["row_count"], case["row_start"]
+    w = case["window_entries"]
+    assert {0, 1, k - 1, k, k + 1, CHUNK - 1, CHUNK} <= set(
+        counts.reshape(-1).tolist())
+    assert (starts + CHUNK <= w).all()
+    cand = case["cand"].reshape(counts.shape + (k,))
+    for win, n in enumerate(fill):
+        assert (counts[win, n:] == 0).all() and (cand[win, n:] == -1).all()
+    assert any(len(set(c)) < k for c in case["cand"].tolist())
+    labels = case["labels"].reshape(-1, w)
+    for win, n in enumerate(fill):
+        for a in range(n - 1):
+            gap = labels[win, starts[win, a] + counts[win, a]:
+                         starts[win, a + 1]]
+            near = (set(cand[win, a].tolist())
+                    | set(cand[win, a + 1].tolist())) - {-1}
+            assert set(gap.tolist()) <= near or not near
