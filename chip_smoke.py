@@ -24,7 +24,12 @@ the kernel launch counts set to 0 just before it:
     layout (K5, K6 over the compacted windows); each sparse run at the
     default capacity and at one every iteration fits.
   * the partitioner — ``lpa_partition(graph, 4, config)`` with the
-    νMG8 config above (K1, K2), then the numpy packing.
+    νMG8 config above (K1, K2), then the numpy packing;
+  * distributed LPA — ``dist_lpa`` over 4 ``gloo`` ranks sharing the
+    card (``spawn_ranks``; each label exchange staged through the host),
+    each shard folding its single-width plan: K1 every round on
+    ``pallas_fused`` (K3 for νBM, K4 for the rescan), K5 on
+    ``pallas_stream`` (K7, K8), K9 on ``pallas`` (K10).
 
 Phases:
 
@@ -69,7 +74,27 @@ Phases:
      weight raising ``ContractError``); then ``lpa_partition(graph, 4)``
      on the main graph with the main path's config, its edge cut beside
      ``contiguous_parts``'s and its seconds;
-  6. one JSON line describing every kernel.
+  6. distributed LPA: 4 gloo ranks on the card (one process each,
+     started once). At 2^16, every rank builds each workspace itself
+     and runs mg, bm and the rescan on jnp, pallas, pallas_fused and
+     pallas_stream (unaligned and aligned), with the full gather and the
+     halo exchange, and gated mg on pallas_fused: each equal to the
+     single-host ``lpa()`` of its method and engine on the card (labels,
+     iterations), with the plan's launches on every rank. At 2^22, fused
+     mg with the full gather and with the halo exchange, fused bm and
+     fused rescan with halo, and aligned streamed mg with halo, each
+     equal to phase 4's single-host run of its method, every rank
+     building each workspace itself. Before every run, each kernel
+     launch of its first step (K1, K3, K4; K5, K7, K8; K9, K10) is held
+     to its plain twin, int32 bits, on the inputs the shard mover gave
+     it on the rank's own blocks (the 2^16 streamed shards carry
+     appended all-pad windows and unused stride columns, which the phase
+     requires and prints). Per rank at 2^22: the step's ms (median over
+     a timed replay), the label exchange's ms alone and its bytes
+     (received, and staged through the host), peak device memory,
+     launches (checked against the plan) and the build seconds, the
+     halo tables' among them;
+  7. one JSON line describing every kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a
@@ -1280,6 +1305,490 @@ def _partition(graph, cfg, mg_labels, mg_launches, tag: str) -> dict:
             "contiguous_seconds": base_s}
 
 
+# -- phase 6: distributed LPA over gloo ranks --------------------------------
+
+#: ranks of the distributed phase, all on the one card (gloo: NCCL refuses
+#: two ranks on one GPU)
+DIST_RANKS = 4
+#: the 2^16 matrix's engines: key -> (engine, workspace flags,
+#: single-host LPAConfig fields)
+DIST_ENGINES = {
+    "jnp": ("jnp", {}, {"fold_backend": "jnp"}),
+    "pallas": ("pallas", {}, {"fold_backend": "pallas"}),
+    "fused": ("pallas_fused", {"fused": True, "tile_r": 32},
+              {"fold_backend": "pallas_fused"}),
+    "stream": ("pallas_stream", {"stream": True, "window_entries": 512},
+               {"fold_backend": "pallas_stream", "stream_window": 512}),
+    "stream_aligned": ("pallas_stream", {"stream": True,
+                                         "window_entries": 512,
+                                         "aligned": True},
+                       {"fold_backend": "pallas_stream",
+                        "stream_window": 512, "aligned_layout": True}),
+}
+#: method key -> (dist_lpa method, rescan)
+DIST_METHODS = {"mg": ("mg", False), "bm": ("bm", False),
+                "rescan": ("mg", True)}
+#: the 2^22 workspaces, each built by every rank, and the runs on each:
+#: name -> (build_dist_workspace flags, [(path, engine, method key)])
+DIST_MAIN = {
+    "fused_full": ({"fused": True},
+                   [("dist_fused_mg_full", "pallas_fused", "mg")]),
+    "fused_halo": ({"fused": True, "halo": True},
+                   [("dist_fused_mg_halo", "pallas_fused", "mg"),
+                    ("dist_fused_bm_halo", "pallas_fused", "bm"),
+                    ("dist_fused_rescan_halo", "pallas_fused", "rescan")]),
+    "stream_aligned_halo": ({"stream": True, "aligned": True, "halo": True},
+                            [("dist_stream_mg_aligned_halo",
+                              "pallas_stream", "mg")]),
+}
+#: replays of the exchange alone per 2^22 run
+EXCHANGE_REPS = 10
+#: Pick-Less cadence of the distributed runs: LPAConfig's default, which
+#: phase 4's single-host runs used
+DIST_RHO = 8
+
+
+def _dist_twins() -> dict:
+    """The kernel wrappers the shard mover calls, by name -> (launch-count
+    key, plain twin taking the same arguments): the six round wrappers
+    it imports, and the tile folds it calls as ``fold_tile``."""
+    from repro_torch.kernels.mg_sketch import fused, ref, streaming
+    return {
+        "fused_fold_round": ("fused_fold", fused.fused_fold_round_plain),
+        "bm_fold_round_fused": ("bm_fold", fused.bm_fold_round_plain),
+        "rescan_round_fused": (
+            "rescan", lambda *a, k, chunk: fused.rescan_round_plain(
+                *a, chunk=chunk)),
+        "stream_fold_round": ("stream_fold",
+                              streaming.stream_fold_round_plain),
+        "bm_fold_round_stream": ("stream_bm",
+                                 streaming.bm_fold_round_stream_plain),
+        "rescan_round_stream": (
+            "stream_rescan", lambda *a, k, chunk:
+            streaming.rescan_round_stream_plain(*a, chunk=chunk)),
+        "mg_fold_tile_pallas": ("tile_mg_fold", ref.mg_fold_ref),
+        "bm_fold_tile_pallas": ("tile_bm_fold", ref.bm_fold_ref),
+    }
+
+
+def _dist_launches_expected(engine: str, method: str, n_rounds: int,
+                            iterations: int) -> dict:
+    """The launches of one rank's ``dist_lpa`` run by the plan: per
+    iteration ``n_rounds`` of K1 (K5, K9) for mg, one K3 (K7, K10) for
+    bm, and ``n_rounds`` of K1 (K5, K9) plus one K4 (K8) for the rescan;
+    none on the plain engine."""
+    from repro_torch.kernels.launches import LAUNCH_COUNTS
+    want = dict.fromkeys(LAUNCH_COUNTS, 0)
+    fold, bm, rescan = {"pallas_fused": ("fused_fold", "bm_fold", "rescan"),
+                        "pallas_stream": ("stream_fold", "stream_bm",
+                                          "stream_rescan"),
+                        "pallas": ("tile_mg_fold", "tile_bm_fold", None),
+                        "jnp": (None, None, None)}[engine]
+    if fold is None:
+        return want
+    if method == "bm":
+        want[bm] = iterations
+    else:
+        want[fold] = iterations * n_rounds
+        if method == "rescan" and rescan is not None:
+            want[rescan] = iterations
+    return want
+
+
+def _dist_kernels_vs_plain(comm, ws, engine, mkey) -> dict:
+    """Every kernel launch of this run's first step on this rank, replayed
+    on the inputs the shard mover gave it (its own blocks: the stacked
+    fused tiles, the window strides widened to the maximum over shards,
+    the all-pad windows appended to the shorter shards) and held to its
+    plain twin, float32 as int32 bits. The launches are recorded by
+    wrapping the mover's round wrappers (and passing the engine's tile
+    fold as ``fold_tile``); the recorded calls must be every launch the
+    step made, as many as the plan says. Returns {launch key: {"calls",
+    "max_abs_err"}}."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.core import distributed
+    from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
+    from repro_torch.kernels.mg_sketch import ops
+    method, rescan = DIST_METHODS[mkey]
+    twins = _dist_twins()
+    calls = []
+
+    def recording(name, fn):
+        def record(*args, **kw):
+            calls.append((name, fn, args, kw))
+            return fn(*args, **kw)
+        return record
+
+    tile = None
+    if engine == "pallas":
+        name = f"{method}_fold_tile_pallas"
+        tile = recording(name, getattr(ops, name))
+    reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        for name in twins:
+            if hasattr(distributed, name):
+                stack.enter_context(mock.patch.object(
+                    distributed, name,
+                    recording(name, getattr(distributed, name))))
+        step = distributed.dist_lpa_step(comm, ws, engine=engine,
+                                         method=method, rescan=rescan,
+                                         fold_tile=tile)
+        step(ws.init_labels[comm.rank].to(comm.device), True, 1)
+    launched = {key: n for key, n in LAUNCH_COUNTS.items() if n}
+    recorded: dict = {}
+    for name, *_ in calls:
+        key = twins[name][0]
+        recorded[key] = recorded.get(key, 0) + 1
+    planned = {key: n for key, n in _dist_launches_expected(
+        engine, mkey, ws.n_rounds, 1).items() if n}
+    if not (launched == recorded == planned):
+        raise AssertionError(f"rank {comm.rank}: {engine} {mkey}: one step "
+                             f"launched {launched}, recorded {recorded}, "
+                             f"the plan {planned}")
+    out: dict = {}
+    for name, fn, args, kw in calls:
+        key, plain = twins[name]
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(_same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"rank {comm.rank}: {engine} {mkey}: "
+                                 f"{name} call {out.get(key, {}).get('calls', 0)}"
+                                 f" differs from its plain twin on the "
+                                 f"shard's inputs")
+        rec = out.setdefault(key, {"calls": 0, "max_abs_err": 0.0})
+        rec["calls"] += 1
+        rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+            _max_abs_err(a, b) for a, b in zip(got, want)])
+    return out
+
+
+def _window_padding(ws, rank: int) -> list:
+    """Per round of a streamed workspace, on this rank's shard: [windows,
+    windows holding a row, window stride, columns any window uses]; the
+    rest are the all-pad windows and columns the stacking added or the
+    shard's own packing left."""
+    pad = []
+    for counts, gathers in zip(ws.stream_counts, ws.stream_gathers):
+        used = (gathers[rank] >= 0).any(dim=0).nonzero()
+        pad.append([counts.shape[1],
+                    int((counts[rank] > 0).any(dim=1).sum()),
+                    gathers.shape[2],
+                    int(used.max()) + 1 if used.numel() else 0])
+    return pad
+
+
+def _dist_run(comm, ws, engine, mkey, want, gated=False) -> dict:
+    """One ``dist_lpa`` run on this rank with its launch counts (set to 0
+    just before, read just after), collective counters, wall seconds and
+    peak device memory; raises unless the labels and iterations are
+    ``want``'s and the launches the plan's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import dist_lpa
+    from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
+    method, rescan = DIST_METHODS[mkey]
+    dev = comm.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    labels, iters = dist_lpa(comm, ws, rho=DIST_RHO, engine=engine,
+                             method=method, rescan=rescan,
+                             frontier_gate=gated)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCH_COUNTS)
+    want_labels, want_iters = want
+    same = np.array_equal(labels.cpu().numpy(), want_labels)
+    if iters != want_iters or not same:
+        raise AssertionError(f"rank {comm.rank}: {engine} {mkey} (gated "
+                             f"{gated}): {iters} iterations, labels equal "
+                             f"{same}; the single-host run: {want_iters}")
+    expected = _dist_launches_expected(engine, mkey, ws.n_rounds, iters)
+    if launches != expected:
+        raise AssertionError(f"rank {comm.rank}: {engine} {mkey}: launches "
+                             f"{launches}, the plan's {expected}")
+    return {"iterations": iters, "seconds": wall, "n_rounds": ws.n_rounds,
+            "launches": {key: n for key, n in launches.items() if n},
+            "calls": comm.calls, "exchanged_bytes": comm.exchanged_bytes,
+            "staged_bytes": comm.staged_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "labels": labels}
+
+
+def _dist_matrix(comm, graph, expected) -> dict:
+    """At 2^16: this rank builds every stacked workspace of the matrix
+    itself and runs mg, bm and the rescan on each engine and exchange,
+    then gated mg on the fused one; each run must give the single-host
+    run (``expected[(method, engine)]``) and the plan's launches. Before
+    each run, every kernel of its first step is held to its plain twin
+    on this rank's blocks (``_dist_kernels_vs_plain``)."""
+    from repro_torch.core.distributed import build_dist_workspace
+    out = {"builds": {}, "runs": {}, "checks": {}, "window_padding": {}}
+    for ekey, (engine, flags, _) in DIST_ENGINES.items():
+        for exchange in ("full", "halo"):
+            t0 = time.perf_counter()
+            ws = build_dist_workspace(graph, comm.world_size, k=8, chunk=128,
+                                      halo=exchange == "halo", **flags)
+            name = f"{ekey}_{exchange}"
+            out["builds"][name] = time.perf_counter() - t0
+            if ws.stream_gathers is not None:
+                out["window_padding"][name] = _window_padding(ws, comm.rank)
+            runs = [(mkey, False) for mkey in DIST_METHODS]
+            if ekey == "fused":
+                runs.append(("mg", True))
+            for mkey, gated in runs:
+                tag = f"{mkey}{'_gated' if gated else ''}"
+                if engine != "jnp" and not gated:
+                    out["checks"][f"{tag}_{name}"] = _dist_kernels_vs_plain(
+                        comm, ws, engine, mkey)
+                r = _dist_run(comm, ws, engine, mkey,
+                              expected[(tag, ekey)], gated=gated)
+                r.pop("labels")
+                out["runs"][f"{tag}_{name}"] = r
+    return out
+
+
+def _dist_main(comm, graph, main_refs) -> dict:
+    """At 2^22: for each workspace of ``DIST_MAIN``, this rank builds the
+    stacked workspace itself, then for each run: its first step's kernels
+    held to plain on this rank's blocks, ``dist_lpa`` (== phase 4's
+    single-host run, the plan's launches), a timed replay of its steps
+    through ``dist_lpa_step`` (host wall between barriers, synchronised;
+    it must end at the same labels), and the label exchange alone."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import (_exchange,
+                                              build_dist_workspace,
+                                              dist_lpa_step)
+    dev = comm.device
+    out = {"builds": {}, "runs": {}, "checks": {}}
+    for kind, (flags, runs) in DIST_MAIN.items():
+        t0 = time.perf_counter()
+        ws = build_dist_workspace(graph, comm.world_size, k=8, chunk=128,
+                                  **flags)
+        build_s = time.perf_counter() - t0
+        out["builds"][kind] = {
+            # every array has the leading P axis
+            "seconds": build_s,
+            "rank_bytes": _plan_bytes(ws) // comm.world_size,
+            "sizes": {"v_pad": ws.v_pad, "m_pad": ws.nbr_pos.shape[1],
+                      "h_pad": ws.h_pad, "hub_pad": ws.hub_pad,
+                      "n_rounds": ws.n_rounds}}
+        init = ws.init_labels[comm.rank].to(dev)
+        own = init >= 0
+        for path, engine, mkey in runs:
+            out["checks"][path] = _dist_kernels_vs_plain(comm, ws, engine,
+                                                         mkey)
+            labels, iters = main_refs[mkey]
+            r = _dist_run(comm, ws, engine, mkey, (labels.numpy(), iters))
+            final = r.pop("labels")[init[own].long()]
+            method, rescan = DIST_METHODS[mkey]
+            step = dist_lpa_step(comm, ws, engine=engine, method=method,
+                                 rescan=rescan)
+            labels = init
+            step_ms = []
+            comm.reset_counts()
+            for it in range(r["iterations"]):
+                dist.barrier()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                labels, delta = step(labels, it % DIST_RHO == 0, it + 1)
+                int(delta)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not torch.equal(labels[own], final):
+                raise AssertionError(f"rank {comm.rank}, {path}: the timed "
+                                     f"replay diverged from dist_lpa")
+            per_iter = {"calls": comm.calls / r["iterations"],
+                        "exchanged_bytes": (comm.exchanged_bytes
+                                            / r["iterations"]),
+                        "staged_bytes": comm.staged_bytes / r["iterations"]}
+            del step
+            # the exchange alone, on this rank's blocks
+            sh = ws.shard(comm.rank, dev)
+            ex_ms = []
+            for _ in range(EXCHANGE_REPS + 1):
+                dist.barrier()
+                torch.cuda.synchronize(dev)
+                comm.reset_counts()
+                t0 = time.perf_counter()
+                _exchange(comm, sh, labels, -1)
+                torch.cuda.synchronize(dev)
+                ex_ms.append((time.perf_counter() - t0) * 1e3)
+            r.update(step_ms=step_ms,
+                     step_ms_median=statistics.median(step_ms),
+                     per_iteration=per_iter,
+                     exchange_ms_median=statistics.median(ex_ms[1:]),
+                     exchange_bytes=comm.exchanged_bytes,
+                     exchange_staged_bytes=comm.staged_bytes,
+                     exchange_calls=comm.calls)
+            out["runs"][path] = r
+            del sh
+        del ws
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_rank(comm, g16, expected16, graph, main_refs, out_dir) -> None:
+    """Rank body of phase 6: the 2^16 matrix, then the 2^22 runs; this
+    rank's report goes to ``out_dir/rank{r}.json``."""
+    out = {"rank": comm.rank, "staged": comm.staged,
+           "backend": comm.backend, "device": str(comm.device)}
+    t0 = time.perf_counter()
+    out["matrix"] = _dist_matrix(comm, g16, expected16)
+    out["matrix_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["main"] = _dist_main(comm, graph, main_refs)
+    out["main_s"] = time.perf_counter() - t0
+    Path(out_dir, f"rank{comm.rank}.json").write_text(json.dumps(out))
+
+
+def _on_host(graph):
+    """The graph with its arrays on the host (handed to the ranks in shared
+    memory)."""
+    return dataclasses.replace(graph, offsets=graph.offsets.cpu(),
+                               indices=graph.indices.cpu(),
+                               weights=graph.weights.cpu())
+
+
+def _distributed(g16, graph, main_refs: dict, tag: str) -> dict:
+    """Phase 6: ``dist_lpa`` over ``DIST_RANKS`` gloo ranks sharing the
+    card (one ``spawn_ranks``; each exchange staged through the host).
+
+    (a) At 2^16: the single-host ``lpa()`` of every method and engine on
+    the card, then each rank builds every workspace (full gather and halo,
+    on jnp, pallas, pallas_fused with tile_r=32, pallas_stream with
+    512-entry windows, unaligned and aligned) and runs mg, bm and the
+    rescan on each, and gated mg on the fused one; each run equals the
+    single-host run of its method and engine and launches what the plan
+    says, and every kernel of its first step equals its plain twin on
+    the rank's blocks. (b) At 2^22: each rank builds each workspace of
+    ``DIST_MAIN`` and runs its paths against phase 4's runs
+    (``main_refs``: CPU labels, iterations), with the same kernel check."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core.distributed import spawn_ranks
+    from repro_torch.core.lpa import LPAConfig, lpa
+    report = {"ranks": DIST_RANKS, "backend": "gloo"}
+    t0 = time.perf_counter()
+    expected = {}
+    for mkey, (method, rescan) in DIST_METHODS.items():
+        first = None
+        for ekey, (_, _, fields) in DIST_ENGINES.items():
+            res = lpa(g16, LPAConfig(method=method, rescan=rescan, k=8,
+                                     chunk=128, **fields))
+            got = (res.labels.cpu().numpy(), res.iterations)
+            if first is not None and (got[1] != first[1] or
+                                      not np.array_equal(got[0], first[0])):
+                raise AssertionError(f"phase 6, single-host {mkey}: {ekey} "
+                                     f"differs from jnp")
+            first = first or got
+            expected[(mkey, ekey)] = got
+    res = lpa(g16, LPAConfig(method="mg", k=8, chunk=128,
+                             fold_backend="pallas_fused",
+                             frontier_gate=True))
+    expected[("mg_gated", "fused")] = (res.labels.cpu().numpy(),
+                                       res.iterations)
+    single_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(_dist_rank, DIST_RANKS,
+                    (_on_host(g16), expected, _on_host(graph), main_refs,
+                     tmp))
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+    report.update(single_host_s=single_s, spawn_s=spawn_s, ranks=ranks)
+
+    # (a) the 2^16 matrix
+    mats = [rk["matrix"] for rk in ranks]
+    runs = mats[0]["runs"]
+    checks: dict = {}
+    for m in mats:
+        for per_key in m["checks"].values():
+            for key, rec in per_key.items():
+                checks[key] = checks.get(key, 0) + rec["calls"]
+    padded = {name: [m["window_padding"][name] for m in mats]
+              for name in mats[0]["window_padding"]}
+    # the streamed checks must have met a shard with appended all-pad
+    # windows and one whose windows leave columns of the stride unused
+    pad_windows = any(n_win > real for per_rank in padded.values()
+                      for rounds in per_rank for n_win, real, _, _ in rounds)
+    pad_columns = any(stride > used for per_rank in padded.values()
+                      for rounds in per_rank for _, _, stride, used in rounds)
+    if not (pad_windows and pad_columns):
+        raise AssertionError("phase 6: no shard of the 2^16 streamed "
+                             "workspaces has padded windows: the kernel "
+                             "check met no padding")
+    print(f"{tag} phase 6: 2^{PARITY_SCALE} vertices, {DIST_RANKS} gloo "
+          f"ranks on one card (staged through the host: "
+          f"{ranks[0]['staged']}): {len(runs)} dist_lpa runs per rank "
+          f"(mg, bm, rescan x jnp, pallas, pallas_fused, pallas_stream "
+          f"unaligned and aligned x full gather, halo; gated mg on "
+          f"pallas_fused), every one equal to the single-host lpa() of its "
+          f"method and engine in labels and iterations, launches the "
+          f"plan's on every rank; every kernel launch of each run's first "
+          f"step equal to its plain twin (int32 bits) on the rank's "
+          f"blocks, launches checked summed over the ranks {checks}; "
+          f"the streamed shards' windows per round [windows, with a row, "
+          f"stride, columns used] per rank {padded['stream_full']}; "
+          f"single-host runs {single_s:.1f} s, the matrix per rank "
+          f"{[round(rk['matrix_s'], 1) for rk in ranks]} s", flush=True)
+    for name, r in runs.items():
+        print(f"{tag} phase 6: 2^{PARITY_SCALE}, {name}: {r['iterations']} "
+              f"iterations, {r['n_rounds']} rounds, rank 0's launches "
+              f"{r['launches']}, "
+              f"{r['exchanged_bytes']} B exchanged and {r['staged_bytes']} "
+              f"B staged on rank 0, {r['seconds']:.2f} s", flush=True)
+
+    # (b) the main graph
+    report["main"] = {}
+    report["builds"] = {}
+    for kind, (flags, kind_runs) in DIST_MAIN.items():
+        builds = [rk["main"]["builds"][kind] for rk in ranks]
+        print(f"{tag} phase 6: 2^{SCALE}, workspace {kind} {flags} "
+              f"({builds[0]['sizes']}): built by each rank in "
+              f"{[round(b['seconds'], 1) for b in builds]} s, the rank's "
+              f"blocks {[b['rank_bytes'] for b in builds]} B", flush=True)
+        report["builds"][kind] = builds
+        for path, _, mkey in kind_runs:
+            per = [rk["main"]["runs"][path] for rk in ranks]
+            held = [rk["main"]["checks"][path] for rk in ranks]
+            r0 = per[0]
+            print(f"{tag} phase 6: 2^{SCALE}, {path}: {r0['iterations']} "
+                  f"iterations, labels and iterations equal to phase "
+                  f"4's single-host {mkey} run on every rank; first-step "
+                  f"kernels equal to plain per rank "
+                  f"{[{k: v['calls'] for k, v in h.items()} for h in held]}"
+                  f"; step ms median per rank "
+                  f"{[round(p['step_ms_median'], 3) for p in per]}; label "
+                  f"exchange alone (host-staged {ranks[0]['staged']}) ms "
+                  f"median per rank "
+                  f"{[round(p['exchange_ms_median'], 3) for p in per]}, "
+                  f"{r0['exchange_bytes']} B received and "
+                  f"{r0['exchange_staged_bytes']} B staged per exchange "
+                  f"on rank 0; per iteration {r0['per_iteration']}; "
+                  f"dist_lpa wall {[round(p['seconds'], 3) for p in per]}"
+                  f" s; peak device memory per rank "
+                  f"{[p['peak_bytes'] for p in per]} B; launches per "
+                  f"rank {[p['launches'] for p in per]}", flush=True)
+            report["main"][path] = {"kind": kind, "flags": flags,
+                                    "sizes": builds[0]["sizes"],
+                                    "ranks": per, "checks": held}
+    halo_s = [rk["main"]["builds"]["fused_halo"]["seconds"]
+              - rk["main"]["builds"]["fused_full"]["seconds"]
+              for rk in ranks]
+    report["halo_tables_s"] = halo_s
+    print(f"{tag} phase 6: the halo tables cost {[round(h, 1) for h in halo_s]}"
+          f" s per rank (fused halo build minus fused full); the spawn "
+          f"{spawn_s:.1f} s, of it the 2^22 part per rank "
+          f"{[round(rk['main_s'], 1) for rk in ranks]} s", flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -1806,17 +2315,42 @@ def main(argv=None) -> int:
     # -- phase 5: the runtime contracts and the partitioner ------------------
     t_phase = time.perf_counter()
     report["checked"] = _checked_runs(g16, tag)
-    del g16
     torch.cuda.empty_cache()
     report["partition"] = _partition(graph, cfg, final_labels["mg"],
                                      report["main"]["mg"]["launches"], tag)
     _phase_took(tag, 5, t_phase, report)
 
-    # -- phase 6: the kernels line --------------------------------------------
+    # -- phase 6: distributed LPA over gloo ranks sharing the card -----------
+    t_phase = time.perf_counter()
+    main_refs = {path: (final_labels[path].cpu(),
+                        report["main"][path]["iterations"])
+                 for path in DIST_METHODS}
+    # the ranks hold their own blocks: free this process's plans first
+    del (ws, stream_ws, ws_pallas, ws_plain, fplan, bplan, final_labels,
+         sws, splan, gws, gated_paths, pws)
+    torch.cuda.empty_cache()
+    report["distributed"] = _distributed(g16, graph, main_refs, tag)
+    del g16
+    _phase_took(tag, 6, t_phase, report)
+
+    # -- phase 7: the kernels line --------------------------------------------
     main = report["main"]
+    # launches of the distributed runs, summed over the ranks
+    dist_launches = {}
+    for path, run in report["distributed"]["main"].items():
+        dist_launches[path] = run["ranks"]
+    dist_ranks = report["distributed"]["ranks"]
+    for name in dist_ranks[0]["matrix"]["runs"]:
+        dist_launches[f"dist16_{name}"] = [
+            rk["matrix"]["runs"][name] for rk in dist_ranks]
 
     def by_path(key, paths):
-        return {p: main[p]["launches"][key] for p in paths}
+        out = {p: main[p]["launches"][key] for p in paths}
+        for p, per_rank in dist_launches.items():
+            total = sum(r["launches"].get(key, 0) for r in per_rank)
+            if total:
+                out[p] = total
+        return out
     rows = (("K1", "mg_fused_fold", "mg_fused",
              "src/repro/kernels/mg_sketch/fused.py:173", "mg",
              by_path("fused_fold", ("mg", "rescan", "gated_fused_dense",
@@ -1872,7 +2406,8 @@ def main(argv=None) -> int:
             "launches_by_path": launches_by_path,
             "parity": "exact (torch.equal; float32 as int32 bits) vs "
                       "plain torch on the card",
-            "ms_is": "one main-path iteration (sum over its launches)"})
+            "ms_is": "one main-path iteration (sum over its launches)",
+            "dist_launches_are": f"summed over the {DIST_RANKS} ranks"})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     if args.out:

@@ -10,7 +10,9 @@ warp's lanes k to a row, K4, whose rescan does too, K9 and K10, which
 stage their tiles through shared memory, K3, which stages its rows'
 segments, and K8, whose streamed rescan takes a warp's lanes k to a row
 slot, on the adversarial cases of ``tests/_fold_cases.py``; and
-modularity, whose repeated calls give the same bits on the card.
+modularity, whose repeated calls give the same bits on the card; and
+K5, K7 and K8 on the shards of a stacked distributed workspace whose
+windows the stacking padded (appended all-pad windows, widened strides).
 
 Marked ``gpu``: without a CUDA device every test here skips (the decision
 is taken inside the ``cuda`` fixture, never at import). On a machine with
@@ -27,6 +29,7 @@ from repro_torch.core.lpa import LPAConfig, lpa
 from repro_torch.core.modularity import modularity
 from repro_torch.graphs import generators as tgen
 from repro_torch.core.lpa import build_workspace
+from repro_torch.core.distributed import _stream_round, build_dist_workspace
 from repro_torch.graphs.csr import (FusedRound, StreamedRound, build_csr,
                                     build_fused_fold_plan,
                                     build_streamed_fold_plan,
@@ -684,3 +687,78 @@ def test_sparse_paths_match_dense_gated_on_the_card(cuda, backend, aligned,
         assert sparse.changed_history == dense.changed_history
         assert sparse.frontier_history == dense.frontier_history
         assert sparse.iterations == dense.iterations
+
+
+def _skewed_graph():
+    """32 hubs of 64 random neighbours each, and a ring over the other 480
+    vertices: the edge-balanced shards of 4 differ in window count and
+    window stride (k=4, chunk=16, tile_r=32, 1,024-entry windows)."""
+    rng = np.random.default_rng(0)
+    n, hubs, fan = 512, 32, 64
+    hub_edges = np.stack([np.repeat(np.arange(hubs), fan),
+                          rng.integers(hubs, n, hubs * fan)], 1)
+    ring = np.stack([np.arange(hubs, n),
+                     np.r_[np.arange(hubs + 1, n), hubs]], 1)
+    edges = np.concatenate([hub_edges, ring])
+    w = (rng.integers(1, 8, len(edges)) * 0.5).astype(np.float32)
+    return build_csr(edges, n, weights=w, device="cpu")
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+def test_stream_kernels_on_padded_shards_match_plain(cuda, aligned):
+    """Each shard's blocks of a stacked streamed workspace whose shards
+    differ in window count and stride, so the stacking appended all-pad
+    windows to the shorter shards and widened the narrower strides: K5 on
+    every round (each fed the previous round's sketches), K7 and K8 on
+    round 0, equal to their plain versions bit for bit."""
+    k, chunk = 4, 16
+    ws = build_dist_workspace(_skewed_graph(), 4, k=k, chunk=chunk,
+                              tile_r=32, window_entries=1024, stream=True,
+                              aligned=aligned)
+    for counts, gathers in zip(ws.stream_counts, ws.stream_gathers):
+        real = (counts > 0).any(dim=2).sum(dim=1)
+        used = torch.stack([(g >= 0).any(dim=0).nonzero().max() + 1
+                            for g in gathers])
+        # windows appended to some shard, a 128-entry block of the stride
+        # added to another
+        assert int(real.min()) < counts.shape[1] == int(real.max())
+        assert int(used.min()) <= gathers.shape[2] - 128
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.integers(
+        -1, 24, 4 * ws.v_pad).astype(np.int32)).to(cuda)
+    for p in range(4):
+        sh = ws.shard(p, cuda)
+        valid = sh.nbr_pos >= 0
+        el = torch.where(valid, table[sh.nbr_pos.clamp_min(0).long()], -1)
+        ew = sh.weights
+        if aligned:
+            sap = sh.stream_aligned_pos
+            el = torch.where(sap >= 0, table[sap.clamp_min(0).long()], -1)
+            ew = sh.stream_aligned_w
+        el0, ew0 = el, ew
+        launches.reset_launch_counts()
+        for r in range(ws.n_rounds):
+            rnd = _stream_round(sh, r, el, aligned and r == 0)
+            got = streaming.stream_fold_round(rnd, el, ew, k=k, chunk=chunk)
+            ref = streaming.stream_fold_round_plain(rnd, el, ew, k=k,
+                                                    chunk=chunk)
+            assert torch.equal(got[0], ref[0]), (p, r)
+            assert _same_bits(got[1], ref[1]), (p, r)
+            el, ew = got[0].reshape(-1), got[1].reshape(-1)
+        rnd0 = _stream_round(sh, 0, el0, aligned)
+        init = sketch.bm_init_rows(sh.stream_rv0, sh.init_labels)
+        got = streaming.bm_fold_round_stream(rnd0, el0, ew0, init,
+                                             chunk=chunk)
+        ref = streaming.bm_fold_round_stream_plain(rnd0, el0, ew0, init,
+                                                   chunk=chunk)
+        assert torch.equal(got[0], ref[0]) and _same_bits(got[1], ref[1])
+        cand = torch.from_numpy(rng.integers(
+            -1, 24, (init.shape[0], k)).astype(np.int32)).to(cuda)
+        got = streaming.rescan_round_stream(rnd0, el0, ew0, cand, k=k,
+                                            chunk=chunk)
+        ref = streaming.rescan_round_stream_plain(rnd0, el0, ew0, cand,
+                                                  chunk=chunk)
+        assert _same_bits(got, ref), p
+        assert launches.LAUNCH_COUNTS["stream_fold"] == ws.n_rounds
+        assert launches.LAUNCH_COUNTS["stream_bm"] == 1
+        assert launches.LAUNCH_COUNTS["stream_rescan"] == 1

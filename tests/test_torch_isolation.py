@@ -56,6 +56,7 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.mg_sketch.ops, "
             "repro_torch.kernels.mg_sketch.mg_sketch, "
             "repro_torch.kernels.mg_sketch.ref, repro_torch.core, "
+            "repro_torch.core.distributed, "
             "repro_torch.graphs.generators, repro_torch.kernels.build; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
