@@ -57,7 +57,14 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.mg_sketch.mg_sketch, "
             "repro_torch.kernels.mg_sketch.ref, repro_torch.core, "
             "repro_torch.core.distributed, "
-            "repro_torch.graphs.generators, repro_torch.kernels.build; "
+            "repro_torch.graphs.generators, repro_torch.kernels.build, "
+            "repro_torch.graphs.sampler, repro_torch.data.synthetic, "
+            "repro_torch.models.common, repro_torch.models.convert, "
+            "repro_torch.models.gnn, repro_torch.models.gnn.wigner, "
+            "repro_torch.configs.pna, repro_torch.configs.meshgraphnet, "
+            "repro_torch.configs.egnn, repro_torch.configs.equiformer_v2, "
+            "repro_torch.configs.lpa_graphs, repro_torch.launch.cells, "
+            "repro_torch.launch.serve; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
