@@ -34,7 +34,14 @@ the kernel launch counts set to 0 just before it:
     then PNA, MeshGraphNet and EGNN forwards at full width on it, PNA on
     sampled ``minibatch_lg`` batches and Equiformer-v2 and EGNN on the
     ``molecule`` cell (plain torch: matmuls, gathers and scatters; the
-    GNN layers have no TPU kernel to port).
+    GNN layers have no TPU kernel to port);
+  * the training path — ``lpa_partition`` of the 2^18 graph again (K1,
+    K2), then train steps (forward, backward, hand-written AdamW with the
+    cosine schedule; plain torch) of PNA FULL on it, of PNA and
+    MeshGraphNet on ``minibatch_lg`` trees, of the four archs on
+    ``molecule`` and ``full_graph_sm``, and of DCN-v2 FULL (46.88 M
+    table rows); its checkpoints, the launcher's crash and resume, and
+    data-parallel steps over 4 gloo ranks (no kernel but K1/K2).
 
 Phases:
 
@@ -119,8 +126,31 @@ Phases:
      ``repro_torch.launch.serve``). Each forward: the median of 5
      between CUDA events after 2 warm-up runs, peak device memory, the
      output's shape and finiteness;
-  8. one JSON line describing every kernel (K1 and K2 also list the
-     partition of phase 7 as ``gnn_partition``).
+  8. the training path, TF32 off (asserted), ``repro_torch.launch.
+     train_cells``' cells: (a) each GNN arch and DCN-v2 at SMOKE, 3 train
+     steps from one state dict on the card and on the CPU, losses and
+     parameters within rtol = atol = 1e-4 (Equiformer 1e-3); (b)
+     ``lpa_partition`` of the 2^18 graph as in 7b (K1/K2 launches
+     counted, held to plain, equal to jnp's partition), then PNA FULL, 5
+     full-graph train steps; (c) ``minibatch_lg`` in the tree layout
+     (1,024 trees, fanouts (15, 10), 602 features, one batch a step):
+     PNA and MeshGraphNet FULL; (d) ``molecule``: Equiformer-v2 and EGNN
+     FULL; ``full_graph_sm`` (2,708 nodes, 10,556 edges, 1,433 features):
+     all four FULL; (e) DCN-v2 FULL (tables drawn on a CUDA generator):
+     5 train steps of 65,536 rows, a ``CheckpointManager`` save and
+     restore of the whole state bit for bit (bytes, seconds), forwards at
+     512 and 262,144 rows, one query against 1,000,000 candidates; (f)
+     ``python -m repro_torch.launch.train --arch dcn-v2`` uninterrupted,
+     with ``--fail-at 6``, and relaunched: the resumed losses and last
+     checkpoint equal the uninterrupted run's bit for bit; (g)
+     ``make_dp_train_step`` over 4 gloo ranks on the card, PNA FULL on
+     256 trees a rank, int8 and plain: every rank's parameters equal bit
+     for bit, step and all-reduce ms and bytes per rank. Every train
+     step: ms between CUDA events (median after the first), peak device
+     memory, loss;
+  9. one JSON line describing every kernel (K1 and K2 also list the
+     partitions of phases 7 and 8 as ``gnn_partition`` and
+     ``train_partition``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a
@@ -1882,13 +1912,14 @@ def _gnn_card_vs_cpu(tag: str) -> dict:
     return out
 
 
-def _gnn_partition(g, lpa_cfg, tag: str) -> dict:
+def _gnn_partition(g, lpa_cfg, tag: str, phase: str = "7b") -> dict:
     """7b (a): ``lpa_partition(g, 4, lpa_cfg)`` of the 2^18 graph with its
     K1/K2 launches counted (the plan's rounds x iterations); then K1 and
     K2 held to their plain versions on that plan's rounds (phase 2's
     check, on this path's own shapes and first-iteration inputs), and the
     partition held to the plain-torch engine's (``fold_backend="jnp"``:
-    equal order, parts, bounds, communities and cut)."""
+    equal order, parts, bounds, communities and cut). Phase 8b runs it
+    again before training (``phase`` names the phase in the lines)."""
     import numpy as np
     import torch
     from repro_torch.core.lpa import build_workspace
@@ -1909,10 +1940,10 @@ def _gnn_partition(g, lpa_cfg, tag: str) -> dict:
     iters = launches.get("fused_select", 0)
     want = {"fused_fold": (n_rounds - 1) * iters, "fused_select": iters}
     if not 0 < iters <= lpa_cfg.max_iters or launches != want:
-        raise AssertionError(f"phase 7b, lpa_partition: launches "
+        raise AssertionError(f"phase {phase}, lpa_partition: launches "
                              f"{launches}, the plan's {n_rounds} rounds x "
                              f"{iters} iterations give {want}")
-    kstats = kernels_vs_plain(g, fplan, tag, phase="7b",
+    kstats = kernels_vs_plain(g, fplan, tag, phase=phase,
                               row_contiguous=False)
     del fplan
     reset_launch_counts()
@@ -1922,23 +1953,23 @@ def _gnn_partition(g, lpa_cfg, tag: str) -> dict:
     plain_s = time.perf_counter() - t0
     plain_launches = {key: n for key, n in LAUNCH_COUNTS.items() if n}
     if plain_launches:
-        raise AssertionError(f"phase 7b, lpa_partition on jnp: a kernel "
+        raise AssertionError(f"phase {phase}, lpa_partition on jnp: a kernel "
                              f"ran: {plain_launches}")
     if (part.n_communities != plain.n_communities
             or part.edge_cut != plain.edge_cut
             or not np.array_equal(part.order, plain.order)
             or not np.array_equal(part.parts, plain.parts)
             or not np.array_equal(part.bounds, plain.bounds)):
-        raise AssertionError(f"phase 7b: lpa_partition on "
+        raise AssertionError(f"phase {phase}: lpa_partition on "
                              f"{lpa_cfg.fold_backend} ({part.n_communities}"
                              f" communities, cut {part.edge_cut!r}) differs "
                              f"from jnp's ({plain.n_communities}, "
                              f"{plain.edge_cut!r})")
     if not np.array_equal(np.sort(part.order), np.arange(g.n_nodes)):
-        raise AssertionError("phase 7b: the partition order is not a "
+        raise AssertionError(f"phase {phase}: the partition order is not a "
                              "permutation")
     base_cut = edge_cut_fraction(g, contiguous_parts(g, 4))
-    print(f"{tag} phase 7b: lpa_partition(graph, 4) on "
+    print(f"{tag} phase {phase}: lpa_partition(graph, 4) on "
           f"{lpa_cfg.fold_backend}: {part.n_communities} communities, "
           f"launches {launches} ({n_rounds} rounds x {iters} iterations), "
           f"K1 and K2 exact to plain on this plan's rounds, order, parts, "
@@ -2086,6 +2117,534 @@ def _gnn_path(graph, lpa_cfg, tag: str) -> dict:
     report["minibatch_lg"] = _gnn_minibatch(graph, tag)
     torch.cuda.empty_cache()
     report["molecule"] = _gnn_molecule(tag)
+    return report
+
+
+# -- phase 8: the training path ------------------------------------------------
+
+#: card-vs-CPU tolerance (rtol = atol) of 8a's SMOKE train steps: float32
+#: sums on the card add in another order
+TRAIN_TOL = {"pna": 1e-4, "meshgraphnet": 1e-4, "egnn": 1e-4,
+             "equiformer-v2": 1e-3, "dcn-v2": 1e-4}
+#: SMOKE train steps of 8a, and DCN-v2's rows a step there
+SMOKE_TRAIN_STEPS = 3
+SMOKE_DCN_ROWS = 256
+#: ranks and trees per rank of 8g's data-parallel steps
+DP_RANKS = 4
+DP_TREES = 256
+#: the crash-and-resume run of 8f: the launcher's steps, checkpoint
+#: cadence and injected failure
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL_AT = 12, 4, 6
+
+
+def _param_leaves(model) -> list:
+    from repro_torch.tree import tree_leaves
+    return [p.detach() for p in tree_leaves(model)]
+
+
+def _train_card_vs_cpu(tag: str) -> dict:
+    """8a: each GNN arch and DCN-v2 at SMOKE, one state dict on the card
+    and on the CPU, 3 train steps each (the reference's schedule): the
+    losses and every parameter after them within ``TRAIN_TOL``. The GNN
+    batches are 7a's (the 2^12 graph's full-graph batch, 16 molecules for
+    Equiformer-v2), DCN-v2's ``dcn_batch`` rows."""
+    import torch
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.data.synthetic import (dcn_batch, gnn_full_batch,
+                                            molecule_batch)
+    from repro_torch.graphs.generators import powerlaw_communities
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.optim.adamw import adamw_init
+
+    n = 1 << GNN_SMOKE_SCALE
+    g_cpu, _ = powerlaw_communities(n, p_in=0.5, mix=0.02, seed=1,
+                                    device="cpu")
+    g_card, _ = powerlaw_communities(n, p_in=0.5, mix=0.02, seed=1)
+    graph_batches = (gnn_full_batch(0, g_cpu, d_feat=8),
+                     gnn_full_batch(0, g_card, d_feat=8))
+    mol = molecule_batch(0, 16, 30, 64, 8, device="cpu")
+    mol_batches = (mol, {k: v.cuda() for k, v in mol.items()})
+    out = {}
+    for arch in GNN_ARCHS + ("dcn-v2",):
+        spec = get_arch(arch)
+        spec = dataclasses.replace(spec, config=spec.smoke)
+        if arch == "dcn-v2":
+            cell = ShapeCell("smoke", "recsys_train",
+                             {"batch": SMOKE_DCN_ROWS})
+            cfg = spec.smoke
+            steps = [dcn_batch(0, s, SMOKE_DCN_ROWS, cfg.n_dense,
+                               cfg.n_sparse, cfg.vocab_sizes, device=dev)
+                     for s in range(SMOKE_TRAIN_STEPS)
+                     for dev in ("cpu", None)]
+            cpu_batches, card_batches = steps[0::2], steps[1::2]
+        else:
+            cpu_b, card_b = (mol_batches if arch == "equiformer-v2"
+                             else graph_batches)
+            cell = ShapeCell("smoke", "gnn_full",
+                             {"n_nodes": cpu_b["node_feat"].shape[0],
+                              "n_edges": cpu_b["edge_src"].shape[0],
+                              "d_feat": 8})
+            cpu_batches = [cpu_b] * SMOKE_TRAIN_STEPS
+            card_batches = [card_b] * SMOKE_TRAIN_STEPS
+        plan = build_cell(spec, cell)
+        model = plan.init(torch.Generator().manual_seed(0), device="cpu")
+        card = plan.init(torch.Generator().manual_seed(1))
+        card.load_state_dict(model.state_dict())
+        opt, card_opt = adamw_init(model), adamw_init(card)
+        ref_losses, losses = [], []
+        for cb, gb in zip(cpu_batches, card_batches):
+            model, opt, m = plan.fn(model, opt, cb)
+            card, card_opt, cm = plan.fn(card, card_opt, gb)
+            ref_losses.append(float(m["loss"]))
+            losses.append(float(cm["loss"]))
+        tol = TRAIN_TOL[arch]
+        got, ref = _param_leaves(card), _param_leaves(model)
+        if any(p.device.type != "cuda" for p in got) or \
+                int(card_opt["step"]) != SMOKE_TRAIN_STEPS:
+            raise AssertionError(f"phase 8a, {arch}: the card's state is "
+                                 f"not on the card")
+        err = max(_max_abs_err(a.cpu(), b) for a, b in zip(got, ref))
+        loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        ok = all(torch.allclose(a.cpu(), b, rtol=tol, atol=tol)
+                 for a, b in zip(got, ref))
+        ok = ok and torch.allclose(torch.tensor(losses),
+                                   torch.tensor(ref_losses), rtol=tol,
+                                   atol=tol)
+        if not ok:
+            raise AssertionError(f"phase 8a, {arch}: after "
+                                 f"{SMOKE_TRAIN_STEPS} SMOKE train steps "
+                                 f"the card is off the CPU: parameters by "
+                                 f"{err!r}, losses {losses} vs "
+                                 f"{ref_losses} (tolerance {tol})")
+        print(f"{tag} phase 8a: {arch} SMOKE, {SMOKE_TRAIN_STEPS} train "
+              f"steps on the card and on the CPU from one state: losses "
+              f"{losses} (CPU {ref_losses}, max abs err {loss_err!r}), "
+              f"parameters' max abs err {err!r} (rtol = atol = {tol})",
+              flush=True)
+        out[arch] = {"losses": losses, "cpu_losses": ref_losses,
+                     "loss_err": loss_err, "param_err": err,
+                     "tolerance": tol}
+    return out
+
+
+def _train_cell(tag: str, phase: str, what: str, plan, batches) -> dict:
+    """``plan``'s train step on the card: the model from a CPU generator
+    seeded 0, one step per batch (``train_steps``), printed."""
+    import torch
+    from repro_torch.launch.train_cells import train_steps
+    from repro_torch.optim.adamw import adamw_init
+
+    model = plan.init(torch.Generator().manual_seed(0))
+    opt = adamw_init(model)
+    r = train_steps(plan.fn, model, opt, batches)
+    del r["model"], r["opt"]
+    n_params = sum(p.numel() for p in model.parameters())
+    r.update(config=dataclasses.asdict(plan.config), n_params=n_params,
+             meta=dict(plan.meta))
+    print(f"{tag} phase {phase}: {what}: {len(batches)} train steps "
+          f"(forward, backward, AdamW) of {n_params} parameters: median "
+          f"{r['median_ms']:.3f} ms after 1 warm-up (each: "
+          f"{', '.join(f'{m:.3f}' for m in r['ms'])} ms), peak "
+          f"{r['peak_bytes']} B ({r['working_bytes']} B above the "
+          f"{r['resident_bytes']} B resident), losses "
+          f"{', '.join(f'{x:.6f}' for x in r['losses'])}", flush=True)
+    return r
+
+
+def _train_example(lpa_cfg, tag: str) -> dict:
+    """8b: the example's path, trained: ``lpa_partition`` of the 2^18
+    graph (K1/K2 counted and held to plain, as 7b), then PNA FULL on its
+    full-graph batch."""
+    import torch
+    from repro_torch.launch.serve import EXAMPLE, example_batch, example_graph
+    from repro_torch.launch.train_cells import TRAIN_STEPS, example_plan
+
+    g = example_graph()
+    report = {"n_nodes": g.n_nodes, "n_edges": g.n_edges,
+              "scale": EXAMPLE["scale"],
+              "partition": _gnn_partition(g, lpa_cfg, tag, phase="8b")}
+    torch.cuda.empty_cache()
+    batch = example_batch(g)
+    report["pna"] = _train_cell(
+        tag, "8b", f"2^{EXAMPLE['scale']} full graph ({g.n_nodes} nodes, "
+        f"{g.n_edges} edges, {EXAMPLE['d_feat']} features), PNA FULL",
+        example_plan("pna", g), [batch] * TRAIN_STEPS)
+    return report
+
+
+def _train_minibatch(graph, tag: str) -> dict:
+    """8c: ``minibatch_lg`` in the tree layout, sampled on the host from
+    the main graph (resident on the card): PNA FULL and MeshGraphNet FULL,
+    one batch a step."""
+    from repro_torch.launch.serve import MINIBATCH
+    from repro_torch.launch.train_cells import (TRAIN_STEPS, train_plan,
+                                                tree_batch)
+
+    batch_s, batches = [], []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batches.append(tree_batch(graph, step))
+        batch_s.append(time.perf_counter() - t0)
+    b = batches[0]
+    if (b["node_feat"].device.type != "cuda"
+            or b["node_feat"].shape[0] != MINIBATCH["batch_nodes"]):
+        raise AssertionError(f"phase 8c: a tree batch of shape "
+                             f"{tuple(b['node_feat'].shape)}")
+    shape = tuple(b["node_feat"].shape)
+    print(f"{tag} phase 8c: minibatch_lg in the tree layout from the 2^"
+          f"{MINIBATCH['scale']} graph: node features {list(shape)}, "
+          f"edges {list(b['edge_src'].shape)}; host seconds a batch "
+          f"(sampling, features, copy): "
+          f"{', '.join(f'{s:.3f}' for s in batch_s)}", flush=True)
+    report = {"batch_s": batch_s, "node_feat_shape": list(shape)}
+    for arch in ("pna", "meshgraphnet"):
+        report[arch] = _train_cell(tag, "8c", f"minibatch_lg, {arch} FULL",
+                                   train_plan(arch, "minibatch_lg"), batches)
+    return report
+
+
+def _train_small_cells(tag: str) -> dict:
+    """8d: ``molecule`` (Equiformer-v2 and EGNN FULL) and ``full_graph_sm``
+    (all four archs FULL)."""
+    import torch
+    from repro_torch.launch.serve import molecule_cell_batch
+    from repro_torch.launch.train_cells import (TRAIN_STEPS,
+                                                full_graph_sm_batch,
+                                                train_plan)
+
+    report = {"molecule": {}, "full_graph_sm": {}}
+    mol = molecule_cell_batch()
+    for arch in ("equiformer-v2", "egnn"):
+        report["molecule"][arch] = _train_cell(
+            tag, "8d", f"molecule, {arch} FULL", train_plan(arch, "molecule"),
+            [mol] * TRAIN_STEPS)
+        torch.cuda.empty_cache()
+    sm = full_graph_sm_batch()
+    for arch in GNN_ARCHS:
+        report["full_graph_sm"][arch] = _train_cell(
+            tag, "8d", f"full_graph_sm ({sm['node_feat'].shape[0]} nodes, "
+            f"{sm['edge_src'].shape[0]} edges, {sm['node_feat'].shape[1]} "
+            f"features), {arch} FULL", train_plan(arch, "full_graph_sm"),
+            [sm] * TRAIN_STEPS)
+        torch.cuda.empty_cache()
+    return report
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _train_dcn(tag: str) -> dict:
+    """8e: DCN-v2 FULL. The tables (46.88 M rows x 16) are drawn on a
+    CUDA generator (a CPU one takes ~40 s for 750 M draws); 5 train steps
+    at ``train_batch``'s 65,536 rows; one ``CheckpointManager`` save and
+    restore of the whole state (parameters and AdamW moments), bit for
+    bit, timed, then deleted; forwards at ``serve_p99`` and
+    ``serve_bulk``; ``retrieval_cand``'s scores of one query against
+    1,000,000 candidates."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import dcn_batch
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train_cells import (TRAIN_STEPS, registry_cell,
+                                                train_plan, train_steps)
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("dcn-v2").config
+    plan = train_plan("dcn-v2", "train_batch")
+    rows = registry_cell("dcn-v2", "train_batch").params["batch"]
+
+    def batch(step, n):
+        return dcn_batch(0, step, n, cfg.n_dense, cfg.n_sparse,
+                         cfg.vocab_sizes)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = plan.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    table_rows = sum(cfg.vocab_sizes)
+    opt = adamw_init(model)
+    batches = [batch(s, rows) for s in range(TRAIN_STEPS)]
+    r = train_steps(plan.fn, model, opt, batches)
+    model, opt = r.pop("model"), r.pop("opt")
+    report = {"init_s": init_s, "n_params": n_params,
+              "table_rows": table_rows, "train": r}
+    print(f"{tag} phase 8e: DCN-v2 FULL ({table_rows} table rows x "
+          f"{cfg.embed_dim}, {n_params} parameters; drawn on a CUDA "
+          f"generator in {init_s:.2f} s): {TRAIN_STEPS} train steps of "
+          f"{rows} rows: median {r['median_ms']:.3f} ms after 1 warm-up "
+          f"(each: {', '.join(f'{m:.3f}' for m in r['ms'])} ms), peak "
+          f"{r['peak_bytes']} B ({r['working_bytes']} B above the "
+          f"{r['resident_bytes']} B resident), losses "
+          f"{', '.join(f'{x:.6f}' for x in r['losses'])}", flush=True)
+
+    # one save and restore of the whole state
+    state = {"params": model, "opt": opt}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        mgr = CheckpointManager(str(tmp), keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, state)
+        save_s = time.perf_counter() - t0
+        n_bytes = _dir_bytes(tmp)
+        template = plan.init(torch.Generator(device="cuda").manual_seed(1))
+        template = {"params": template, "opt": adamw_init(template)}
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    leaves, back = tree_leaves(state), tree_leaves(restored)
+    same = (step == TRAIN_STEPS and len(leaves) == len(back)
+            and all(b.device.type == "cuda" and _same_bits(a, b)
+                    for a, b in zip(leaves, back)))
+    if not same:
+        raise AssertionError("phase 8e: the restored DCN-v2 state differs "
+                             "from the saved one")
+    del template, restored, back
+    torch.cuda.empty_cache()
+    report["checkpoint"] = {"bytes": n_bytes, "save_s": save_s,
+                            "restore_s": restore_s, "leaves": len(leaves)}
+    print(f"{tag} phase 8e: CheckpointManager save of the whole DCN-v2 "
+          f"state ({len(leaves)} leaves: parameters, m, v, step): "
+          f"{n_bytes} B in {save_s:.2f} s (fsynced), restore to the card "
+          f"in {restore_s:.2f} s, every leaf equal bit for bit; directory "
+          f"deleted", flush=True)
+
+    # the serving cells and retrieval
+    for name in ("serve_p99", "serve_bulk"):
+        splan = train_plan("dcn-v2", name)
+        n = registry_cell("dcn-v2", name).params["batch"]
+        sb = [batch(100 + s, n) for s in range(2)]
+        res = serve(lambda m, b: splan.fn(m, b["dense"], b["sparse"]),
+                    model, sb)
+        if res["shape"] != [n]:
+            raise AssertionError(f"phase 8e, {name}: output {res['shape']}")
+        report[name] = res
+        print(f"{tag} phase 8e: DCN-v2 FULL {name} ({n} rows): forward "
+              f"{', '.join(f'{m:.3f}' for m in res['ms'])} ms (median of 5 "
+              f"each, 2 batches), peak {res['peak_bytes']} B, finite",
+              flush=True)
+    rcell = registry_cell("dcn-v2", "retrieval_cand").params
+    rplan = train_plan("dcn-v2", "retrieval_cand")
+    d_q = cfg.d_interact + cfg.mlp_dims[-1]
+    cand = torch.randn((rcell["n_candidates"], d_q), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+    q = batch(200, rcell["batch"])
+    res = serve(lambda m, b: rplan.fn(m, b["dense"], b["sparse"], cand),
+                model, [q])
+    if res["shape"] != [rcell["batch"], rcell["n_candidates"]]:
+        raise AssertionError(f"phase 8e, retrieval: output {res['shape']}")
+    report["retrieval_cand"] = res
+    print(f"{tag} phase 8e: DCN-v2 FULL retrieval_cand (1 query against "
+          f"{rcell['n_candidates']} candidates x {d_q}, "
+          f"{cand.numel() * 4} B): {res['ms'][0]:.3f} ms (median of 5), "
+          f"peak {res['peak_bytes']} B, finite", flush=True)
+    del model, opt, state, cand
+    torch.cuda.empty_cache()
+    return report
+
+
+def _launch_train(root: Path, ckpt: Path, *extra: str):
+    """``python -m repro_torch.launch.train --arch dcn-v2`` on the card
+    (SMOKE) with 8f's steps; returns the finished process."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "dcn-v2", "--steps", str(RESUME_STEPS), "--ckpt-every",
+           str(RESUME_EVERY), "--ckpt-dir", str(ckpt), *extra]
+    return subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def _train_resume(root: Path, tag: str) -> dict:
+    """8f: crash and resume on the card. The launcher's run of
+    ``RESUME_STEPS`` steps uninterrupted; then with ``--fail-at`` into a
+    fresh directory (it must fail there), then relaunched: the resumed
+    run's losses equal the tail of the uninterrupted run's bit for bit,
+    and so does the last checkpoint (the launcher runs under
+    ``torch.use_deterministic_algorithms(True)``)."""
+    import tempfile
+    import numpy as np
+
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        t0 = time.perf_counter()
+        ref = _launch_train(root, Path(tmp, "ref"))
+        crash = _launch_train(root, Path(tmp, "crash"), "--fail-at",
+                              str(RESUME_FAIL_AT))
+        resumed = _launch_train(root, Path(tmp, "crash"))
+        report["seconds"] = time.perf_counter() - t0
+        if ref.returncode or resumed.returncode:
+            raise AssertionError(f"phase 8f: the launcher failed:\n"
+                                 f"{ref.stderr[-2000:]}\n"
+                                 f"{resumed.stderr[-2000:]}")
+        if (crash.returncode == 0 or "injected failure at step "
+                f"{RESUME_FAIL_AT}" not in crash.stderr):
+            raise AssertionError(f"phase 8f: the run with --fail-at did not "
+                                 f"fail as injected:\n{crash.stderr[-2000:]}")
+        hist = json.loads(ref.stdout.strip().splitlines()[-1])
+        tail = json.loads(resumed.stdout.strip().splitlines()[-1])
+        start = tail["start"]
+        last = f"step_{RESUME_STEPS:08d}/host_0.npz"
+        with np.load(Path(tmp, "ref", last)) as a, \
+                np.load(Path(tmp, "crash", last)) as b:
+            same_ckpt = sorted(a.files) == sorted(b.files) and all(
+                a[k].tobytes() == b[k].tobytes() for k in a.files)
+    if (start != (RESUME_FAIL_AT // RESUME_EVERY) * RESUME_EVERY
+            or tail["history"] != hist["history"][start:] or not same_ckpt):
+        raise AssertionError(f"phase 8f: the resumed run (from step "
+                             f"{start}) differs from the uninterrupted one: "
+                             f"{tail['history']} vs "
+                             f"{hist['history'][start:]}; last checkpoint "
+                             f"equal: {same_ckpt}")
+    report.update(history=hist["history"], resumed_from=start,
+                  tail=tail["history"])
+    print(f"{tag} phase 8f: python -m repro_torch.launch.train --arch dcn-v2 "
+          f"--steps {RESUME_STEPS} --ckpt-every {RESUME_EVERY} on the card: "
+          f"uninterrupted, then --fail-at {RESUME_FAIL_AT} (failed as "
+          f"injected) and relaunched from step {start}: the resumed losses "
+          f"{tail['history']} equal the uninterrupted run's tail bit for "
+          f"bit, and so does the step-{RESUME_STEPS} checkpoint; three "
+          f"launches in {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+def _dp_rank(comm, graph, out_dir) -> None:
+    """Rank body of 8g: PNA FULL on ``DP_TREES`` ``minibatch_lg`` trees of
+    this rank's own (sampled from the host copy of the main graph),
+    ``TRAIN_STEPS`` data-parallel steps with the int8 error-feedback
+    all-reduce, then as many with the float32 mean, each run from the
+    same init: every step's ms and its all-reduces' ms (host wall,
+    synchronised), the bytes they send, and the parameters' bits equal
+    across the ranks after each run. The report goes to
+    ``out_dir/dp{r}.json``."""
+    import torch
+    from repro_torch.launch.train_cells import (TRAIN_STEPS, train_plan,
+                                                tree_batch)
+    from repro_torch.train.steps import make_dp_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    plan = train_plan("pna", "minibatch_lg")
+    t0 = time.perf_counter()
+    batches = [{k: v.to(comm.device) for k, v in
+                tree_batch(graph, s, DP_TREES, comm.rank,
+                           comm.world_size).items()}
+               for s in range(TRAIN_STEPS)]
+    out = {"rank": comm.rank, "batch_s": time.perf_counter() - t0,
+           "trees": DP_TREES}
+    reduce = comm.all_reduce
+    timing = {"s": 0.0, "bytes": 0}
+
+    def timed_reduce(t, op="sum"):
+        torch.cuda.synchronize(comm.device)
+        t1 = time.perf_counter()
+        res = reduce(t, op)
+        torch.cuda.synchronize(comm.device)
+        timing["s"] += time.perf_counter() - t1
+        timing["bytes"] += t.numel() * t.element_size()
+        return res
+
+    comm.all_reduce = timed_reduce
+    for run, compress in (("int8", True), ("plain", False)):
+        model = plan.init(torch.Generator().manual_seed(0),
+                          device=comm.device)
+        init, step = make_dp_train_step(plan.loss, comm, compress=compress)
+        opt, err = init(model)
+        ms, ex_ms, wire, losses = [], [], [], []
+        for b in batches:
+            timing.update(s=0.0, bytes=0)
+            torch.cuda.synchronize(comm.device)
+            t1 = time.perf_counter()
+            model, opt, err, m = step(model, opt, err, b)
+            torch.cuda.synchronize(comm.device)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            ex_ms.append(timing["s"] * 1e3)
+            wire.append(timing["bytes"])
+            losses.append(float(m["loss"]))
+        bits = torch.cat([p.reshape(-1) for p in _param_leaves(model)]
+                         ).view(torch.int32)
+        every = comm.all_gather(bits).reshape(comm.world_size, -1)
+        n_params = bits.numel()
+        out[run] = {"ms": ms, "exchange_ms": ex_ms, "wire_bytes": wire,
+                    "losses": losses,
+                    "equal_across_ranks": bool((every == every[0]).all()),
+                    "n_params": n_params}
+    Path(out_dir, f"dp{comm.rank}.json").write_text(json.dumps(out))
+
+
+def _train_dp(graph, tag: str) -> dict:
+    """8g: ``make_dp_train_step`` over ``DP_RANKS`` gloo ranks sharing the
+    card (one ``spawn_ranks``; the all-reduces staged through the host),
+    PNA FULL on ``minibatch_lg`` trees, ``DP_TREES`` a rank: compressed
+    and plain, every rank's parameters equal bit for bit."""
+    import statistics
+    import tempfile
+    from repro_torch.core.distributed import spawn_ranks
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(_dp_rank, DP_RANKS, (_on_host(graph), tmp))
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"dp{r}.json").read_text())
+                 for r in range(DP_RANKS)]
+    report = {"ranks": ranks, "spawn_s": spawn_s}
+    for run in ("int8", "plain"):
+        if not all(rk[run]["equal_across_ranks"] for rk in ranks):
+            raise AssertionError(f"phase 8g, {run}: the ranks' parameters "
+                                 f"differ")
+        losses = [rk[run]["losses"] for rk in ranks]
+        if any(x != losses[0] for x in losses):
+            raise AssertionError(f"phase 8g, {run}: the ranks' mean losses "
+                                 f"differ: {losses}")
+        n = ranks[0][run]["n_params"]
+        print(f"{tag} phase 8g: {DP_RANKS} gloo ranks on the card, PNA FULL "
+              f"({n} parameters), minibatch_lg trees, {DP_TREES} a rank, "
+              f"{run} all-reduce: every rank's parameters equal bit for bit"
+              f" after {len(losses[0])} steps; losses "
+              f"{', '.join(f'{x:.6f}' for x in losses[0])}; per rank, step "
+              f"ms (median after 1 warm-up) / all-reduce ms / bytes sent a "
+              f"step: "
+              + "; ".join(f"{statistics.median(rk[run]['ms'][1:]):.2f} / "
+                          f"{statistics.median(rk[run]['exchange_ms'][1:]):.2f}"
+                          f" / {rk[run]['wire_bytes'][0]}" for rk in ranks)
+              + f" (the int8 payload is {n} B, the float32 gradient "
+              f"{4 * n} B; the int8 sum travels as int32)", flush=True)
+    return report
+
+
+def _train_path(graph, lpa_cfg, root: Path, tag: str) -> dict:
+    """Phase 8: the training path (8a-8g), float32 matmuls without TF32."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("phase 8: TF32 is on")
+    report = {"card_vs_cpu": _train_card_vs_cpu(tag)}
+    for key, fn in (("example", lambda: _train_example(lpa_cfg, tag)),
+                    ("minibatch_lg", lambda: _train_minibatch(graph, tag)),
+                    ("small_cells", lambda: _train_small_cells(tag)),
+                    ("dcn", lambda: _train_dcn(tag)),
+                    ("resume", lambda: _train_resume(root, tag)),
+                    ("data_parallel", lambda: _train_dp(graph, tag))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report[key] = fn()
+        report[key + "_s"] = time.perf_counter() - t0
+    print(f"{tag} phase 8: seconds by part: "
+          + ", ".join(f"{key} {report[key + '_s']:.1f}" for key in
+                      ("example", "minibatch_lg", "small_cells", "dcn",
+                       "resume", "data_parallel")), flush=True)
     return report
 
 
@@ -2639,11 +3198,20 @@ def main(argv=None) -> int:
     report["gnn"] = _gnn_path(graph, cfg, tag)
     _phase_took(tag, 7, t_phase, report)
 
-    # -- phase 8: the kernels line --------------------------------------------
+    # -- phase 8: the training path ------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report["train"] = _train_path(graph, cfg, root, tag)
+    _phase_took(tag, 8, t_phase, report)
+
+    # -- phase 9: the kernels line --------------------------------------------
     main = report["main"]
     gnn_launches = report["gnn"]["example"]["partition"]["launches"]
-    # K1/K2 held to plain on the 2^18 partition's plan (phase 7b)
-    gnn_vs_plain = report["gnn"]["example"]["partition"]["kernels_vs_plain"]
+    train_launches = report["train"]["example"]["partition"]["launches"]
+    # K1/K2 held to plain on the 2^18 partition's plan (phases 7b and 8b)
+    partitions_vs_plain = (
+        report["gnn"]["example"]["partition"]["kernels_vs_plain"],
+        report["train"]["example"]["partition"]["kernels_vs_plain"])
     # launches of the distributed runs, summed over the ranks
     dist_launches = {}
     for path, run in report["distributed"]["main"].items():
@@ -2661,6 +3229,8 @@ def main(argv=None) -> int:
                 out[p] = total
         if key in gnn_launches:
             out["gnn_partition"] = gnn_launches[key]
+        if key in train_launches:
+            out["train_partition"] = train_launches[key]
         return out
     rows = (("K1", "mg_fused_fold", "mg_fused",
              "src/repro/kernels/mg_sketch/fused.py:173", "mg",
@@ -2708,8 +3278,9 @@ def main(argv=None) -> int:
     for key, name, lib, replaces, main_path, launches_by_path in rows:
         st = kstats[key]
         err = st["max_abs_err"]
-        if key in gnn_vs_plain:
-            err = max(err, gnn_vs_plain[key]["max_abs_err"])
+        for vs_plain in partitions_vs_plain:
+            if key in vs_plain:
+                err = max(err, vs_plain[key]["max_abs_err"])
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[lib],
             "replaces": replaces,

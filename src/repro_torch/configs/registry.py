@@ -2,8 +2,8 @@
 config, a reduced smoke config, and its assigned input-shape cells.
 
 A copy of ``repro.configs.registry`` over the architectures the port has:
-the four GNNs and the paper's own LPA workload. The LM and recsys ids of
-the reference come with their model families; until then ``get_arch``
+the four GNNs, DCN-v2 and the paper's own LPA workload. The LM ids of
+the reference come with their model family; until then ``get_arch``
 raises ``KeyError`` for them, naming the ids it knows.
 """
 from __future__ import annotations
@@ -17,7 +17,7 @@ __all__ = ["ShapeCell", "ArchSpec", "ARCHS", "register", "get_arch",
 
 #: the config modules of the ported architectures, imported on first use
 CONFIG_MODULES = ("pna", "meshgraphnet", "egnn", "equiformer_v2",
-                  "lpa_graphs")
+                  "dcn_v2", "lpa_graphs")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -376,7 +376,8 @@ def build_dist_workspace(graph: CSRGraph, n_shards: int, k: int = 8,
 class ShardComm:
     """One rank's end of the shard axis: the three collectives of the
     reference's shard body over an initialised ``torch.distributed``
-    process group.
+    process group, and the tensor all-reduce (sum, max) of the
+    data-parallel train step (``repro_torch.train.steps``).
 
     ``staged`` is fixed here, from the group's backend and the device: a
     ``gloo`` group cannot gather CUDA tensors, so on a CUDA device every
@@ -445,6 +446,16 @@ class ShardComm:
         src = self._to_wire(value.to(torch.int32).reshape(1)).clone()
         dist.all_reduce(src, op=dist.ReduceOp.SUM)
         return self._from_wire(src).reshape(())
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The elementwise ``"sum"`` or ``"max"`` of ``t`` (any shape and
+        dtype) over the ranks, as a new tensor on this rank's device."""
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        if op not in ops:
+            raise ValueError(f"all_reduce op {op!r}; expected sum or max")
+        src = self._to_wire(t).clone()
+        dist.all_reduce(src, op=ops[op])
+        return self._from_wire(src)
 
 
 def _exchange(comm: ShardComm, sh: DistLPAWorkspace, vec: torch.Tensor,

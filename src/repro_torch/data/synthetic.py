@@ -1,22 +1,55 @@
-"""Deterministic synthetic GNN batches with skip-ahead resume.
+"""Deterministic synthetic batches with skip-ahead resume.
 
-A copy of the GNN half of ``repro.data.synthetic``: every batch is a pure
-function of (seed, step), drawn with numpy in the reference's order, so
-the arrays equal the reference's exactly; they then go to the graph's
-device. ``molecule_batch`` builds the registry's ``molecule`` cell as
-the reference's tests do. The LM and recsys batches (``token_batch``,
-``dcn_batch``) draw from JAX's PRNG in the reference and come with those
-model families.
+A copy of ``repro.data.synthetic`` but for ``token_batch`` (it comes
+with the LM family): every batch is a pure function of (seed, step), so a
+restarted job resumes exactly where it left off. The GNN batches are
+drawn with numpy in the reference's order, so the arrays equal the
+reference's exactly; they then go to the graph's device.
+``molecule_batch`` builds the registry's ``molecule`` cell as the
+reference's tests do, and ``gnn_tree_batch`` the tree layout of the
+``minibatch_lg`` train step. ``dcn_batch`` draws from JAX's PRNG in the
+reference, whose bits torch cannot reproduce: here it draws the same law
+from ``torch.Generator``s seeded from (seed, step), the planted rule from
+the seed alone.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.sampler import sample_fanout_trees
 
-__all__ = ["gnn_full_batch", "gnn_sampled_batch", "molecule_batch"]
+__all__ = ["dcn_batch", "gnn_full_batch", "gnn_sampled_batch",
+           "gnn_tree_batch", "molecule_batch"]
+
+
+def _generator(seed: int, *key: int) -> torch.Generator:
+    """A CPU generator seeded from ``seed`` and the spawn ``key``."""
+    state = np.random.SeedSequence(seed, spawn_key=key).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) & ((1 << 63) - 1))
+
+
+def dcn_batch(seed: int, step: int, batch: int, n_dense: int, n_sparse: int,
+              vocab_sizes: Sequence[int], device=None) -> dict:
+    """DCN-v2 batch ``step``: standard-normal dense features, uniform ids
+    per field, and labels from a planted rule (a normal weight vector on
+    the dense features plus 0.3 (id_0 mod 5 - 2)) that depends on
+    ``seed`` only, so the loss can fall. ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    gen = _generator(seed, step)
+    dense = torch.randn(batch, n_dense, generator=gen)
+    sparse = torch.stack([torch.randint(0, v, (batch,), generator=gen)
+                          for v in vocab_sizes], dim=1)
+    w = torch.randn(n_dense, generator=_generator(seed))
+    logit = dense @ w + 0.3 * (sparse[:, 0] % 5 - 2)
+    labels = (logit > 0).to(torch.float32)
+    return {"dense": dense.to(dev), "sparse": sparse.to(dev, torch.int32),
+            "labels": labels.to(dev)}
 
 
 def _on(x: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
@@ -46,11 +79,12 @@ def gnn_full_batch(seed: int, graph: CSRGraph, d_feat: int,
 
 
 def molecule_batch(seed: int, n_mol: int, n_per: int, e_per: int,
-                   d_feat: int, device=None) -> dict:
+                   d_feat: int, device=None, n_classes: int = 16) -> dict:
     """``n_mol`` disjoint molecules of ``n_per`` nodes and ``e_per`` random
     edges each in one batch (the registry's ``molecule`` cell is 128 of
     30 and 64), drawn in the order of the reference's molecule test
-    (sources, destinations, features), then coordinates. ``device=None``
+    (sources, destinations, features), then coordinates, then the train
+    steps' node labels in [0, n_classes) and 4 edge features. ``device=None``
     means CUDA."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -60,9 +94,13 @@ def molecule_batch(seed: int, n_mol: int, n_per: int, e_per: int,
     dst = rng.integers(0, n_per, e) + offset
     feat = rng.normal(size=(n, d_feat)).astype(np.float32)
     coords = rng.normal(size=(n, 3)).astype(np.float32)
+    labels = rng.integers(0, n_classes, n)
+    edge_feat = rng.normal(size=(e, 4)).astype(np.float32)
     return {"node_feat": _on(feat, dev), "coords": _on(coords, dev),
             "edge_src": _on(src, dev, torch.int32),
-            "edge_dst": _on(dst, dev, torch.int32)}
+            "edge_dst": _on(dst, dev, torch.int32),
+            "labels": _on(labels, dev, torch.int32),
+            "edge_feat": _on(edge_feat, dev)}
 
 
 def gnn_sampled_batch(seed: int, step: int, graph: CSRGraph, sampler_fn,
@@ -89,4 +127,38 @@ def gnn_sampled_batch(seed: int, step: int, graph: CSRGraph, sampler_fn,
                       dev),
         "edge_feat": _on(rng.normal(
             size=(len(sub.edge_src), 4)).astype(np.float32), dev),
+    }
+
+
+def gnn_tree_batch(seed: int, step: int, graph: CSRGraph, batch_nodes: int,
+                   fanouts, d_feat: int, n_classes: int = 16) -> dict:
+    """``minibatch_lg`` in the tree layout: ``sample_fanout_trees`` of
+    ``batch_nodes`` seeds, features and labels drawn as
+    ``gnn_sampled_batch`` draws them, as [B, v_t, ...] node and [B, e_t]
+    edge tensors on the graph's device. Every tree's edges use local ids
+    in [0, v_t); an edge the sampler marks invalid (its parent has no
+    neighbour) points at the tree's dump row v_t at both ends."""
+    dev = graph.device
+    rng = np.random.default_rng((seed << 20) ^ step)
+    seeds = rng.integers(0, graph.n_nodes, batch_nodes)
+    trees = sample_fanout_trees(graph, seeds, fanouts, rng)
+    feat_rng = np.random.default_rng(seed)
+    base = feat_rng.normal(size=(n_classes, d_feat)).astype(np.float32)
+    labels_all = feat_rng.integers(0, n_classes, graph.n_nodes)
+    ids = trees["node_ids"]
+    b, v_t = ids.shape
+    e_t = trees["edge_src"].shape[1]
+    feat = base[labels_all[ids]] + 0.5 * rng.normal(
+        size=(b, v_t, d_feat)).astype(np.float32)
+    valid = trees["edge_valid"]
+    return {
+        "node_feat": _on(feat, dev),
+        "labels": _on(labels_all[ids], dev, torch.int32),
+        "edge_src": _on(np.where(valid, trees["edge_src"], v_t), dev,
+                        torch.int32),
+        "edge_dst": _on(np.where(valid, trees["edge_dst"], v_t), dev,
+                        torch.int32),
+        "coords": _on(rng.normal(size=(b, v_t, 3)).astype(np.float32), dev),
+        "edge_feat": _on(rng.normal(size=(b, e_t, 4)).astype(np.float32),
+                         dev),
     }

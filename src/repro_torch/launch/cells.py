@@ -1,23 +1,54 @@
-"""Per-architecture dispatch of the GNN cells.
+"""Per-architecture cells: the GNN dispatch and the cells' step functions.
 
 A copy of the GNN dispatch of ``repro.launch.cells`` (``_gnn_apply``,
-``_gnn_init``, ``_gnn_cell_config``). The rest of the reference's module
-builds XLA shardings for the dry-run cells and is not part of the port.
+``_gnn_init``, ``_gnn_cell_config``) and of its GNN and recsys cell
+builders. A ``CellPlan`` here holds the cell's step function, the model
+config it runs at and ``init(generator, device=None) -> model``. The
+reference's plans also carry abstract inputs and XLA shardings for its
+dry runs; one card holds everything, so those are not ported.
+
+- ``build_gnn_cell``: the full-graph train step (mean cross-entropy,
+  weighted by ``seed_mask`` when the batch has one);
+- ``build_gnn_sampled_cell``: the ``minibatch_lg`` train step on the tree
+  layout ([B, v_t, ...], ``data.synthetic.gnn_tree_batch``): the
+  cross-entropy at each tree's node 0, averaged over the trees. The
+  reference maps the model over the trees (``jax.vmap``); here the trees
+  run as one block-diagonal graph whose tree t takes ids [t v_t, (t+1)
+  v_t), and an edge at a tree's dump row v_t goes to the flat batch's
+  dump row B v_t (not t v_t + v_t, the next tree's seed);
+- ``build_recsys_cell``: DCN-v2's train step, its serving forward, and
+  the retrieval scores of one query against the candidates.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any, Callable, Dict, Optional
 
-from repro_torch.configs.registry import ArchSpec
+import torch
+
+from repro_torch.configs.registry import ArchSpec, ShapeCell
+from repro_torch.graphs.sampler import tree_shape
 from repro_torch.models.gnn import (init_egnn, init_equiformer, init_mgn,
                                     init_pna)
+from repro_torch.train.steps import make_train_step
 
-__all__ = ["_gnn_apply", "_gnn_init", "_gnn_cell_config"]
+__all__ = ["CellPlan", "_gnn_apply", "_gnn_init", "_gnn_cell_config",
+           "build_gnn_cell", "build_gnn_sampled_cell", "flatten_trees",
+           "build_recsys_cell", "build_cell"]
 
 #: ``init_*(generator, cfg, device=None)`` by arch id
 _INIT = {"pna": init_pna, "meshgraphnet": init_mgn, "egnn": init_egnn,
          "equiformer-v2": init_equiformer}
+
+
+@dataclasses.dataclass
+class CellPlan:
+    fn: Callable       # the cell's step: train step or forward
+    config: Any        # the model config the cell runs at
+    init: Callable     # init(generator, device=None) -> model
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    loss: Optional[Callable] = None  # a train cell's loss(model, batch)
 
 
 def _gnn_apply(spec: ArchSpec, cfg):
@@ -46,3 +77,121 @@ def _gnn_cell_config(spec: ArchSpec, d_feat: int, n_out: int):
         return dataclasses.replace(spec.config, d_node_in=d_feat,
                                    d_edge_in=4, d_out=n_out)
     return dataclasses.replace(spec.config, d_in=d_feat, d_out=n_out)
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-row logsumexp(logits) - logits[label], in float32."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def build_gnn_cell(spec: ArchSpec, cell: ShapeCell,
+                   n_classes: int = 16) -> CellPlan:
+    """The full-graph train step of ``spec.config`` at the cell's width
+    (a ``gnn_sampled`` cell goes to ``build_gnn_sampled_cell``)."""
+    if cell.kind == "gnn_sampled":
+        return build_gnn_sampled_cell(spec, cell, n_classes)
+    cfg = _gnn_cell_config(spec, cell.params["d_feat"], n_classes)
+    apply_fn = _gnn_apply(spec, cfg)
+
+    def loss(model, batch):
+        ce = _cross_entropy(apply_fn(model, batch), batch["labels"])
+        if "seed_mask" in batch:
+            w = batch["seed_mask"].to(torch.float32)
+            return torch.sum(ce * w) / torch.clamp_min(torch.sum(w), 1.0)
+        return torch.mean(ce)
+
+    _, step = make_train_step(loss)
+    return CellPlan(fn=step, config=cfg, init=_gnn_init(spec, cfg),
+                    meta={"kind": "gnn_train",
+                          "n_nodes": cell.params["n_nodes"],
+                          "n_edges": cell.params["n_edges"]}, loss=loss)
+
+
+def flatten_trees(batch: dict) -> dict:
+    """A tree-layout batch ([B, v_t, ...] nodes, [B, e_t] local edges) as
+    one block-diagonal graph of B v_t nodes; edges at a tree's dump row
+    v_t go to the flat dump row B v_t."""
+    b, v_t = batch["labels"].shape
+    n = b * v_t
+    offset = (torch.arange(b, device=batch["labels"].device) * v_t)[:, None]
+
+    def edges(local):
+        local = local.long()
+        return torch.where(local >= v_t, n, local + offset).reshape(-1)
+
+    flat = {"node_feat": batch["node_feat"].reshape(n, -1),
+            "labels": batch["labels"].reshape(n),
+            "edge_src": edges(batch["edge_src"]),
+            "edge_dst": edges(batch["edge_dst"])}
+    if "coords" in batch:
+        flat["coords"] = batch["coords"].reshape(n, 3)
+    if "edge_feat" in batch:
+        flat["edge_feat"] = batch["edge_feat"].reshape(
+            -1, batch["edge_feat"].shape[-1])
+    return flat
+
+
+def build_gnn_sampled_cell(spec: ArchSpec, cell: ShapeCell,
+                           n_classes: int = 16) -> CellPlan:
+    """``minibatch_lg`` in the tree layout: the train step of
+    ``spec.config`` on [B, v_t, ...] tree batches."""
+    b = cell.params["batch_nodes"]
+    v_t, e_t = tree_shape(cell.params["fanouts"])
+    cfg = _gnn_cell_config(spec, cell.params.get("d_feat", 602), n_classes)
+    apply_fn = _gnn_apply(spec, cfg)
+
+    def loss(model, batch):
+        trees, v = batch["labels"].shape
+        out = apply_fn(model, flatten_trees(batch))
+        seed_logits = out.reshape(trees, v, -1)[:, 0]  # seed: local index 0
+        return torch.mean(_cross_entropy(seed_logits, batch["labels"][:, 0]))
+
+    _, step = make_train_step(loss)
+    return CellPlan(fn=step, config=cfg, init=_gnn_init(spec, cfg),
+                    meta={"kind": "gnn_train", "n_nodes": b * v_t,
+                          "n_edges": b * e_t, "layout": "tree"}, loss=loss)
+
+
+def build_recsys_cell(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+    """DCN-v2 at ``spec.config``: ``recsys_train`` -> step(model, opt,
+    batch); ``recsys_serve`` -> fn(model, dense, sparse) logits;
+    ``retrieval`` -> fn(model, dense, sparse, cand_emb) scores."""
+    from repro_torch.models.recsys.dcn_v2 import (dcn_forward, dcn_loss,
+                                                  dcn_retrieval_scores,
+                                                  init_dcn)
+    cfg = spec.config
+    init = functools.partial(init_dcn, cfg=cfg)
+    meta = {"kind": cell.kind, "batch": cell.params["batch"]}
+    if cell.kind == "recsys_train":
+        def loss(model, batch):
+            return dcn_loss(model, batch["dense"], batch["sparse"],
+                            batch["labels"], cfg)
+
+        _, step = make_train_step(loss)
+        return CellPlan(fn=step, config=cfg, init=init, meta=meta, loss=loss)
+    if cell.kind == "recsys_serve":
+        def serve(model, dense, sparse):
+            return dcn_forward(model, dense, sparse, cfg)
+
+        return CellPlan(fn=serve, config=cfg, init=init, meta=meta)
+
+    def retrieve(model, dense, sparse, cand_emb):
+        return dcn_retrieval_scores(model, dense, sparse, cand_emb, cfg)
+
+    meta["candidates"] = cell.params["n_candidates"]
+    return CellPlan(fn=retrieve, config=cfg, init=init, meta=meta)
+
+
+BUILDERS = {
+    "gnn_full": build_gnn_cell,
+    "gnn_sampled": build_gnn_cell,
+    "recsys_train": build_recsys_cell,
+    "recsys_serve": build_recsys_cell,
+    "retrieval": build_recsys_cell,
+}
+
+
+def build_cell(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+    return BUILDERS[cell.kind](spec, cell)

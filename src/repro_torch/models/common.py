@@ -1,10 +1,12 @@
 """Shared model building blocks: initializers, norms, RoPE, FFN, loss.
 
 A torch copy of ``repro.models.common``. ``dense_init`` draws from an
-explicit CPU ``torch.Generator`` and then moves the weight to its device,
-so one seed gives the same weights on the CPU and on the card. The law is
-the reference's (a standard normal truncated to [-2, 2], times the fan-in
-scale); the bits are not, as JAX's PRNG is another generator.
+explicit ``torch.Generator`` on the generator's device and then moves the
+weight to its own: from a CPU generator, one seed gives the same weights
+on the CPU and on the card; a CUDA generator draws large tables on the
+card (other bits). The law is the reference's (a standard normal
+truncated to [-2, 2], times the fan-in scale); the bits are not, as
+JAX's PRNG is another generator.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ def dense_init(generator: torch.Generator, shape, scale: float | None = None,
     """Truncated-normal fan-in init (params stay f32; compute may cast)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / max(fan_in, 1) ** 0.5
-    w = torch.empty(tuple(shape), dtype=torch.float32)
+    w = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * scale).to(device=device, dtype=dtype)
 

@@ -13,7 +13,8 @@ from repro.launch import cells as jcells
 from repro_torch.configs import registry
 from repro_torch.launch import cells
 
-PORTED = ["egnn", "equiformer-v2", "lpa-mg8", "meshgraphnet", "pna"]
+PORTED = ["dcn-v2", "egnn", "equiformer-v2", "lpa-mg8", "meshgraphnet",
+          "pna"]
 
 
 def _fields(obj):

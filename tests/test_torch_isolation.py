@@ -41,9 +41,15 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_repro_import_in_the_port():
+    """The package, ``chip_smoke.py`` (run where JAX is not installed)
+    and the port's examples import neither JAX nor the JAX package."""
+    root = SRC.parent
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 10
-    bad = [(str(f.relative_to(SRC)), name) for f in files
+    scripts = [root / "chip_smoke.py"] + sorted(
+        (root / "examples").glob("*_torch.py"))
+    assert len(scripts) >= 2
+    bad = [(str(f.relative_to(root)), name) for f in files + scripts
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
@@ -64,7 +70,15 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs.pna, repro_torch.configs.meshgraphnet, "
             "repro_torch.configs.egnn, repro_torch.configs.equiformer_v2, "
             "repro_torch.configs.lpa_graphs, repro_torch.launch.cells, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.tree, "
+            "repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.optim.schedule, repro_torch.optim.compression, "
+            "repro_torch.checkpoint, repro_torch.checkpoint.manager, "
+            "repro_torch.train, repro_torch.train.steps, "
+            "repro_torch.train.loop, repro_torch.models.recsys, "
+            "repro_torch.models.recsys.embedding, "
+            "repro_torch.models.recsys.dcn_v2, repro_torch.configs.dcn_v2, "
+            "repro_torch.launch.train, repro_torch.launch.train_cells; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
