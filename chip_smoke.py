@@ -41,7 +41,12 @@ the kernel launch counts set to 0 just before it:
     MeshGraphNet on ``minibatch_lg`` trees, of the four archs on
     ``molecule`` and ``full_graph_sm``, and of DCN-v2 FULL (46.88 M
     table rows); its checkpoints, the launcher's crash and resume, and
-    data-parallel steps over 4 gloo ranks (no kernel but K1/K2).
+    data-parallel steps over 4 gloo ranks (no kernel but K1/K2);
+  * the LM family — the five transformer LMs (GQA, MQA, qk-norm, MLA,
+    MoE) served and trained through ``repro_torch.launch.cells``'
+    prefill, decode and train cells at full width (plain torch: the
+    reference's attention, MoE dispatch and loss have no TPU kernel to
+    port).
 
 Phases:
 
@@ -140,15 +145,39 @@ Phases:
      5 train steps of 65,536 rows, a ``CheckpointManager`` save and
      restore of the whole state bit for bit (bytes, seconds), forwards at
      512 and 262,144 rows, one query against 1,000,000 candidates; (f)
-     ``python -m repro_torch.launch.train --arch dcn-v2`` uninterrupted,
-     with ``--fail-at 6``, and relaunched: the resumed losses and last
-     checkpoint equal the uninterrupted run's bit for bit; (g)
+     ``python -m repro_torch.launch.train --arch dcn-v2`` uninterrupted
+     and, beside it, with ``--fail-at 6``, then relaunched: the resumed
+     losses and last checkpoint equal the uninterrupted run's bit for
+     bit; (g)
      ``make_dp_train_step`` over 4 gloo ranks on the card, PNA FULL on
      256 trees a rank, int8 and plain: every rank's parameters equal bit
      for bit, step and all-reduce ms and bytes per rank. Every train
      step: ms between CUDA events (median after the first), peak device
      memory, loss;
-  9. one JSON line describing every kernel (K1 and K2 also list the
+  9. the LM family (``repro_torch.launch.serve``'s ``LM_CELLS``), TF32
+     off (asserted) in the float32 parts, parameters drawn on a CUDA
+     generator: (a) each arch at SMOKE, one state dict on the card and
+     on the CPU, in float32: forward, ``loss_fn`` and a 12-token
+     decode's logits within rtol = atol = 1e-4, and 3 train steps'
+     losses and parameters too; then the configs' bfloat16 on both, the
+     largest difference printed; (b) each FULL config cut to 2 layers,
+     float32: 12 one-token decode steps' logits against the forward's
+     (2e-4 dense, 5e-4 MLA; MoE capacity raised so nothing drops); (c)
+     qwen3-1.7b FULL, 28 layers, bf16: ``prefill_32k`` (batch 2),
+     ``decode_32k`` (batch 16 against a 32,768 cache), ``long_500k``
+     (batch 1, a 524,288 cache), ``train_4k`` (batch 8, 5 steps, remat);
+     (d) glm4-9b FULL, 40 layers: prefill (batch 1) and decode (16); (e)
+     deepseek-v2-lite (27 layers), granite-34b (40 of 88) and
+     qwen3-moe-235b (4 of 94): prefill at seq 4,096 (batch 2) and decode
+     against a 32,768 cache; (f) ``python -m repro_torch.launch.train
+     --arch qwen3-1.7b`` (SMOKE) as 8f runs DCN-v2: the resumed losses
+     and last checkpoint equal the uninterrupted run's bit for bit. Each
+     timed cell: ms (median between CUDA events after a warm-up; a 32k
+     prefill warms up on its first 4,096 tokens), tokens/s, peak device
+     memory and the
+     bound (bytes at 3.35 TB/s or bf16 FLOPs at 989 TFLOP/s,
+     ``launch.serve.lm_cost``);
+  10. one JSON line describing every kernel (K1 and K2 also list the
      partitions of phases 7 and 8 as ``gnn_partition`` and
      ``train_partition``).
 
@@ -2453,24 +2482,31 @@ def _train_dcn(tag: str) -> dict:
     return report
 
 
-def _launch_train(root: Path, ckpt: Path, *extra: str):
-    """``python -m repro_torch.launch.train --arch dcn-v2`` on the card
-    (SMOKE) with 8f's steps; returns the finished process."""
+def _launch_train(root: Path, ckpt: Path, arch: str, *extra: str):
+    """Start ``python -m repro_torch.launch.train --arch <arch>`` on the
+    card (SMOKE) with the resume runs' steps; ``_finished`` waits."""
     import os
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "dcn-v2", "--steps", str(RESUME_STEPS), "--ckpt-every",
+           arch, "--steps", str(RESUME_STEPS), "--ckpt-every",
            str(RESUME_EVERY), "--ckpt-dir", str(ckpt), *extra]
-    return subprocess.run(cmd, env=env, capture_output=True, text=True,
-                          timeout=600)
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
-def _train_resume(root: Path, tag: str) -> dict:
-    """8f: crash and resume on the card. The launcher's run of
-    ``RESUME_STEPS`` steps uninterrupted; then with ``--fail-at`` into a
-    fresh directory (it must fail there), then relaunched: the resumed
-    run's losses equal the tail of the uninterrupted run's bit for bit,
-    and so does the last checkpoint (the launcher runs under
+def _finished(proc) -> subprocess.CompletedProcess:
+    out, err = proc.communicate(timeout=600)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _train_resume(root: Path, tag: str, arch: str = "dcn-v2",
+                  phase: str = "8f") -> dict:
+    """8f (DCN-v2) and 9f (qwen3-1.7b): crash and resume on the card. The
+    launcher's run of ``RESUME_STEPS`` steps uninterrupted and, beside it
+    (two processes on the card), one with ``--fail-at`` into a fresh
+    directory (it must fail there); then that one relaunched: the
+    resumed run's losses equal the tail of the uninterrupted run's bit
+    for bit, and so does the last checkpoint (the launcher runs under
     ``torch.use_deterministic_algorithms(True)``)."""
     import tempfile
     import numpy as np
@@ -2478,19 +2514,21 @@ def _train_resume(root: Path, tag: str) -> dict:
     report = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
         t0 = time.perf_counter()
-        ref = _launch_train(root, Path(tmp, "ref"))
-        crash = _launch_train(root, Path(tmp, "crash"), "--fail-at",
-                              str(RESUME_FAIL_AT))
-        resumed = _launch_train(root, Path(tmp, "crash"))
+        procs = (_launch_train(root, Path(tmp, "ref"), arch),
+                 _launch_train(root, Path(tmp, "crash"), arch, "--fail-at",
+                               str(RESUME_FAIL_AT)))
+        ref, crash = (_finished(p) for p in procs)
+        resumed = _finished(_launch_train(root, Path(tmp, "crash"), arch))
         report["seconds"] = time.perf_counter() - t0
         if ref.returncode or resumed.returncode:
-            raise AssertionError(f"phase 8f: the launcher failed:\n"
+            raise AssertionError(f"phase {phase}: the launcher failed:\n"
                                  f"{ref.stderr[-2000:]}\n"
                                  f"{resumed.stderr[-2000:]}")
         if (crash.returncode == 0 or "injected failure at step "
                 f"{RESUME_FAIL_AT}" not in crash.stderr):
-            raise AssertionError(f"phase 8f: the run with --fail-at did not "
-                                 f"fail as injected:\n{crash.stderr[-2000:]}")
+            raise AssertionError(f"phase {phase}: the run with --fail-at did "
+                                 f"not fail as injected:\n"
+                                 f"{crash.stderr[-2000:]}")
         hist = json.loads(ref.stdout.strip().splitlines()[-1])
         tail = json.loads(resumed.stdout.strip().splitlines()[-1])
         start = tail["start"]
@@ -2501,17 +2539,18 @@ def _train_resume(root: Path, tag: str) -> dict:
                 a[k].tobytes() == b[k].tobytes() for k in a.files)
     if (start != (RESUME_FAIL_AT // RESUME_EVERY) * RESUME_EVERY
             or tail["history"] != hist["history"][start:] or not same_ckpt):
-        raise AssertionError(f"phase 8f: the resumed run (from step "
+        raise AssertionError(f"phase {phase}: the resumed run (from step "
                              f"{start}) differs from the uninterrupted one: "
                              f"{tail['history']} vs "
                              f"{hist['history'][start:]}; last checkpoint "
                              f"equal: {same_ckpt}")
     report.update(history=hist["history"], resumed_from=start,
                   tail=tail["history"])
-    print(f"{tag} phase 8f: python -m repro_torch.launch.train --arch dcn-v2 "
-          f"--steps {RESUME_STEPS} --ckpt-every {RESUME_EVERY} on the card: "
-          f"uninterrupted, then --fail-at {RESUME_FAIL_AT} (failed as "
-          f"injected) and relaunched from step {start}: the resumed losses "
+    print(f"{tag} phase {phase}: python -m repro_torch.launch.train --arch "
+          f"{arch} --steps {RESUME_STEPS} --ckpt-every {RESUME_EVERY} on the "
+          f"card: uninterrupted and, beside it, --fail-at {RESUME_FAIL_AT} "
+          f"(failed as injected), then relaunched from step {start}: the "
+          f"resumed losses "
           f"{tail['history']} equal the uninterrupted run's tail bit for "
           f"bit, and so does the step-{RESUME_STEPS} checkpoint; three "
           f"launches in {report['seconds']:.1f} s", flush=True)
@@ -2645,6 +2684,326 @@ def _train_path(graph, lpa_cfg, root: Path, tag: str) -> dict:
           + ", ".join(f"{key} {report[key + '_s']:.1f}" for key in
                       ("example", "minibatch_lg", "small_cells", "dcn",
                        "resume", "data_parallel")), flush=True)
+    return report
+
+
+# -- phase 9: the LM family -------------------------------------------------
+
+#: bf16 tensor-core rate of one H100 SXM (dense, NVIDIA data sheet), FLOP/s
+BF16_FLOPS_PER_S = 989e12
+#: the LM archs, and the card-vs-CPU (9a) and decode-vs-forward (9b)
+#: tolerances (rtol = atol): float32 sums on the card add in another
+#: order; a forward and one-token decodes sum in other orders too
+LM_ARCHS = ("qwen3-1.7b", "glm4-9b", "deepseek-v2-lite-16b", "granite-34b",
+            "qwen3-moe-235b-a22b")
+LM_CPU_TOL = 1e-4
+LM_DECODE_TOL = {"dense": 2e-4, "mla": 5e-4}
+#: tokens a row of 9a's and 9b's decodes; 9b's rows
+LM_DECODE_TOKENS, LM_FULL_ROWS = 12, 2
+#: warm-up calls of each timed LM cell, its timed calls by kind (a
+#: 32k-token prefill takes seconds: it warms up on its first
+#: ``LM_WARMUP_SEQ`` tokens), and train_4k's steps
+LM_WARMUP, LM_WARMUP_SEQ, LM_TRAIN_STEPS = 1, 4096, 5
+LM_REPS = {"prefill": 2, "decode": 3}
+#: the registry cell each timed LM cell kind is
+LM_KIND = {"prefill_32k": "prefill", "decode_32k": "decode",
+           "long_500k": "decode", "train_4k": "train"}
+#: the card, as phase 9 names it to the models' entry points
+LM_DEVICE = "cuda"
+
+
+def _no_drops(cfg):
+    """``cfg`` with an MoE capacity every assignment fits (capacity factor
+    max(8, E / k)), so a forward of S tokens and S one-token decodes
+    route alike."""
+    if cfg.moe is None:
+        return cfg
+    cf = max(8.0, cfg.moe.n_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def _lm_pair(cfg):
+    """(card model, CPU model) with one state dict, drawn on a CUDA
+    generator."""
+    from repro_torch.launch.serve import lm_model
+    from repro_torch.models.transformer import init_params
+    import torch
+    card = lm_model(cfg)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return card, cpu
+
+
+def _lm_outputs(model, cfg, batch, dev):
+    """forward's hidden states, loss_fn and the last of ``LM_DECODE_TOKENS``
+    decode steps' logits of ``batch`` on ``dev``."""
+    import torch
+    from repro_torch.models import transformer as tr
+    b = {k: v.to(dev) for k, v in batch.items()}
+    rows = b["tokens"].shape[0]
+    with torch.no_grad():
+        h = tr.forward(model, b["tokens"], cfg)
+        loss = tr.loss_fn(model, b["tokens"], b["targets"], cfg)
+    cache = tr.init_cache(cfg, rows, LM_DECODE_TOKENS, device=dev)
+    for i in range(LM_DECODE_TOKENS):
+        logits, cache = tr.decode_step(
+            model, cache, b["tokens"][:, i],
+            torch.full((rows,), i, dtype=torch.int32, device=dev), cfg)
+    return {"forward": h, "loss": loss, "decode": logits}
+
+
+def _lm_card_vs_cpu(tag: str) -> dict:
+    """9a: each LM arch at SMOKE, one state dict on the card and on the
+    CPU: in float32, forward, loss and a 12-token decode within
+    ``LM_CPU_TOL``, and 3 train steps' losses and parameters too; then in
+    the configs' bfloat16, the largest difference (printed, no gate: a
+    bf16 router may pick another expert for a token on a near tie)."""
+    import torch
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.cells import build_lm_train
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    report = {}
+    for arch in LM_ARCHS:
+        spec = get_arch(arch)
+        cfg = dataclasses.replace(spec.smoke, dtype=torch.float32)
+        card, cpu = _lm_pair(cfg)
+        batch = token_batch(0, 0, 3, 16, cfg.vocab, device="cpu")
+        got = _lm_outputs(card, cfg, batch, LM_DEVICE)
+        ref = _lm_outputs(cpu, cfg, batch, "cpu")
+        errs = {k: _max_abs_err(ref[k], got[k].cpu()) for k in ref}
+        for k in ref:
+            if not torch.allclose(got[k].cpu(), ref[k], rtol=LM_CPU_TOL,
+                                  atol=LM_CPU_TOL):
+                raise AssertionError(f"phase 9a, {arch}: the card's {k} is "
+                                     f"{errs[k]:.3g} off the CPU's")
+        plan = build_lm_train(dataclasses.replace(spec, config=cfg),
+                              ShapeCell("t", "train", {"seq": 16,
+                                                       "batch": 2}))
+        states = {"card": [card, adamw_init(card), LM_DEVICE],
+                  "cpu": [cpu, adamw_init(cpu), "cpu"]}
+        loss_err = 0.0
+        for step in range(SMOKE_TRAIN_STEPS):
+            losses = {}
+            for name, st in states.items():
+                b = token_batch(0, step, 2, 16, cfg.vocab, device=st[2])
+                st[0], st[1], m = plan.fn(st[0], st[1], b)
+                losses[name] = float(m["loss"])
+            loss_err = max(loss_err, abs(losses["card"] - losses["cpu"]))
+            if abs(losses["card"] - losses["cpu"]) > LM_CPU_TOL * (
+                    1 + abs(losses["cpu"])):
+                raise AssertionError(f"phase 9a, {arch}: step {step}'s loss "
+                                     f"{losses['card']} on the card, "
+                                     f"{losses['cpu']} on the CPU")
+        param_err = 0.0
+        for a, b in zip(tree_leaves(states["card"][0]),
+                        tree_leaves(states["cpu"][0])):
+            a = a.detach().cpu()
+            param_err = max(param_err, _max_abs_err(a, b.detach()))
+            if not torch.allclose(a, b.detach(), rtol=LM_CPU_TOL,
+                                  atol=LM_CPU_TOL):
+                raise AssertionError(f"phase 9a, {arch}: the parameters after"
+                                     f" {SMOKE_TRAIN_STEPS} steps differ by "
+                                     f"{param_err:.3g}")
+        # the configs' own dtype, bfloat16, on both
+        bcfg = spec.smoke
+        with torch.no_grad():
+            card.load_state_dict(cpu.state_dict())
+        bf = {name: _lm_outputs(m, bcfg, batch, dev)
+              for name, m, dev in (("card", card, LM_DEVICE),
+                                   ("cpu", cpu, "cpu"))}
+        bf_errs = {k: _max_abs_err(bf["cpu"][k].float(),
+                                   bf["card"][k].float().cpu())
+                   for k in bf["cpu"]}
+        report[arch] = {"f32_max_abs_err": errs, "train_loss_err": loss_err,
+                        "train_param_err": param_err,
+                        "bf16_max_abs_err": bf_errs,
+                        "bf16_loss": {d: float(bf[d]["loss"]) for d in bf}}
+        print(f"{tag} phase 9a: {arch} SMOKE, card vs CPU, float32: forward "
+              f"{errs['forward']:.3g}, loss {errs['loss']:.3g}, "
+              f"{LM_DECODE_TOKENS}-token decode logits {errs['decode']:.3g}; "
+              f"{SMOKE_TRAIN_STEPS} train steps: losses {loss_err:.3g}, "
+              f"parameters {param_err:.3g} (tolerance {LM_CPU_TOL}); "
+              f"bfloat16: forward {bf_errs['forward']:.3g}, loss "
+              f"{bf_errs['loss']:.3g} ({report[arch]['bf16_loss']['card']:.6f}"
+              f" vs {report[arch]['bf16_loss']['cpu']:.6f}), decode "
+              f"{bf_errs['decode']:.3g}", flush=True)
+        del card, cpu, states
+    return report
+
+
+def _lm_decode_vs_forward(tag: str) -> dict:
+    """9b: each FULL config cut to 2 layers, float32, on the card: the
+    logits of ``LM_DECODE_TOKENS`` one-token decode steps against the
+    forward's next-token logits (MoE capacity raised so nothing drops)."""
+    import torch
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.serve import lm_config, lm_model
+    from repro_torch.models import transformer as tr
+
+    report = {}
+    for arch in LM_ARCHS:
+        cfg = _no_drops(lm_config(arch, layers=2, dtype=torch.float32))
+        model = lm_model(cfg)
+        b = token_batch(0, 0, LM_FULL_ROWS, LM_DECODE_TOKENS, cfg.vocab)
+        out = _lm_outputs(model, cfg, b, LM_DEVICE)
+        with torch.no_grad():
+            ref = out["forward"][:, -1] @ model.lm_head
+        tol = LM_DECODE_TOL["mla" if cfg.mla is not None else "dense"]
+        err = _max_abs_err(ref, out["decode"])
+        if not torch.allclose(out["decode"], ref, rtol=tol, atol=tol):
+            raise AssertionError(f"phase 9b, {arch}: decode is {err:.3g} off "
+                                 f"the forward (tolerance {tol})")
+        report[arch] = {"max_abs_err": err, "tol": tol,
+                        "max_abs_logit": float(ref.abs().max())}
+        print(f"{tag} phase 9b: {arch} FULL widths, 2 layers, float32: "
+              f"{LM_DECODE_TOKENS} decode steps' logits within {err:.3g} of "
+              f"the forward's (tolerance {tol}; largest |logit| "
+              f"{report[arch]['max_abs_logit']:.3f})", flush=True)
+        del model, out
+        torch.cuda.empty_cache()
+    return report
+
+
+def _lm_cell(tag: str, phase: str, arch: str, cell: str, model, cfg
+             ) -> dict:
+    """One timed LM cell at ``LM_CELLS``' (batch, seq): prefill (the last
+    position's logits), decode (one token a row at position seq - 1 of a
+    zero cache of seq entries) or train (``LM_TRAIN_STEPS`` steps, the
+    median after the first); ms, tokens/s, peak memory, the bound."""
+    import math
+    import torch
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.serve import LM_CELLS, lm_cost, lm_plan, time_calls
+    from repro_torch.launch.train_cells import train_steps
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.optim.adamw import adamw_init
+
+    kind = LM_KIND[cell]
+    b, s = LM_CELLS[arch]["cells"][cell]
+    plan = lm_plan(arch, cell, cfg)
+    t0 = time.perf_counter()
+    if kind == "train":
+        batches = [token_batch(0, i, b, s, cfg.vocab)
+                   for i in range(LM_TRAIN_STEPS)]
+        out = train_steps(plan.fn, model, adamw_init(model), batches)
+        ms, out["out"] = out["median_ms"], torch.tensor(out["losses"])
+        del out["model"], out["opt"]
+        tokens = b * s
+    elif kind == "prefill":
+        tokens = token_batch(0, 0, b, s, cfg.vocab)["tokens"]
+        out = time_calls(plan.fn, model, tokens, warmup=LM_WARMUP,
+                         reps=LM_REPS[kind], warmup_args=(
+                             model, tokens[:, :LM_WARMUP_SEQ]))
+        ms, tokens = out["ms"], b * s
+    else:
+        cache = init_cache(cfg, b, s)
+        tok = token_batch(0, 0, b, 1, cfg.vocab)["tokens"][:, 0]
+        cur = torch.full((b,), s - 1, dtype=torch.int32, device=tok.device)
+        out = time_calls(plan.fn, model, cache, tok, cur, warmup=LM_WARMUP,
+                         reps=LM_REPS[kind])
+        out["out"] = out["out"][0]
+        del cache
+        ms, tokens = out["ms"], b
+    wall = time.perf_counter() - t0
+    res = out.pop("out")
+    if not bool(torch.isfinite(res.float()).all()):
+        raise AssertionError(f"phase {phase}, {arch} {cell}: a non-finite "
+                             f"output")
+    want = {"train": (LM_TRAIN_STEPS,), "prefill": (b, cfg.vocab),
+            "decode": (b, cfg.vocab)}[kind]
+    if tuple(res.shape) != want:
+        raise AssertionError(f"phase {phase}, {arch} {cell}: output "
+                             f"{tuple(res.shape)}, expected {want}")
+    cost = lm_cost(cfg, kind, b, s)
+    t_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = cost["flops"] / BF16_FLOPS_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                              "operations")
+    report = {"batch": b, "seq": s, "layers": cfg.n_layers, "ms": ms,
+              "ms_all": out.get("ms_all", out["ms"]),
+              "tokens_per_s": tokens / ms * 1e3, "bound_ms": bound,
+              "bound_by": by, "bound_share": bound / ms, "wall_s": wall,
+              "peak_bytes": out["peak_bytes"],
+              "resident_bytes": out["resident_bytes"],
+              "working_bytes": out["working_bytes"], **cost}
+    if kind == "train":
+        report["losses"] = res.tolist()
+        if not math.isfinite(report["losses"][-1]):
+            raise AssertionError(f"phase {phase}: non-finite loss")
+    print(f"{tag} phase {phase}: {arch} {cell} ({cfg.n_layers} layers, "
+          f"batch {b} x seq {s}, {cfg.dtype}): {ms:.3f} ms a "
+          f"{'step' if kind == 'train' else 'call'} (median of "
+          f"{LM_TRAIN_STEPS - 1 if kind == 'train' else LM_REPS[kind]} after "
+          f"warm-up), {report['tokens_per_s']:.1f} tokens/s; peak device "
+          f"memory {report['peak_bytes']} B ({report['peak_bytes'] / 2**30:.3f}"
+          f" GiB; {report['working_bytes']} B above resident); bound "
+          f"{bound:.3f} ms by {by} ({cost['flops']:.4g} FLOP, "
+          f"{cost['bytes']:.4g} B): {report['bound_share']:.1%} of it"
+          + (f"; losses {[round(x, 4) for x in report['losses']]}"
+             if kind == "train" else ""), flush=True)
+    del res, out
+    torch.cuda.empty_cache()
+    return report
+
+
+def _lm_full(tag: str, phase: str, arch: str) -> dict:
+    """The arch at FULL widths and ``LM_CELLS``' depth, drawn on a CUDA
+    generator (bf16 compute): each of its cells, train last (it updates
+    the parameters)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import LM_CELLS, lm_config, lm_model
+    cfg = lm_config(arch)
+    t0 = time.perf_counter()
+    model = lm_model(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    print(f"{tag} phase {phase}: {arch} FULL widths at {cfg.n_layers} of "
+          f"{get_arch(arch).config.n_layers} layers: {n} parameters "
+          f"({4 * n / 1e9:.2f} GB float32) drawn on the card in "
+          f"{init_s:.2f} s", flush=True)
+    report = {"n_params": n, "init_s": init_s, "layers": cfg.n_layers}
+    cells = sorted(LM_CELLS[arch]["cells"], key=lambda c: c == "train_4k")
+    for cell in cells:
+        report[cell] = _lm_cell(tag, phase, arch, cell, model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return report
+
+
+def _lm_path(root: Path, tag: str) -> dict:
+    """Phase 9: the LM family (9a-9f), TF32 off in the float32 parts."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("phase 9: TF32 is on")
+    report = {}
+    parts = (("card_vs_cpu", "a", lambda: _lm_card_vs_cpu(tag)),
+             ("decode_vs_forward", "b", lambda: _lm_decode_vs_forward(tag)),
+             ("qwen3-1.7b", "c", lambda: _lm_full(tag, "9c", "qwen3-1.7b")),
+             ("glm4-9b", "d", lambda: _lm_full(tag, "9d", "glm4-9b")),
+             ("deepseek-v2-lite-16b", "e",
+              lambda: _lm_full(tag, "9e", "deepseek-v2-lite-16b")),
+             ("granite-34b", "e", lambda: _lm_full(tag, "9e", "granite-34b")),
+             ("qwen3-moe-235b-a22b", "e",
+              lambda: _lm_full(tag, "9e", "qwen3-moe-235b-a22b")),
+             ("resume", "f", lambda: _train_resume(root, tag, "qwen3-1.7b",
+                                                   "9f")))
+    for key, _, fn in parts:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        report[key] = fn()
+        report[key + "_s"] = time.perf_counter() - t0
+    print(f"{tag} phase 9: seconds by part: "
+          + ", ".join(f"9{part} {key} {report[key + '_s']:.1f}"
+                      for key, part, _ in parts), flush=True)
     return report
 
 
@@ -3204,7 +3563,13 @@ def main(argv=None) -> int:
     report["train"] = _train_path(graph, cfg, root, tag)
     _phase_took(tag, 8, t_phase, report)
 
-    # -- phase 9: the kernels line --------------------------------------------
+    # -- phase 9: the LM family ---------------------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report["lm"] = _lm_path(root, tag)
+    _phase_took(tag, 9, t_phase, report)
+
+    # -- phase 10: the kernels line -------------------------------------------
     main = report["main"]
     gnn_launches = report["gnn"]["example"]["partition"]["launches"]
     train_launches = report["train"]["example"]["partition"]["launches"]

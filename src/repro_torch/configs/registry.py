@@ -1,10 +1,9 @@
 """Architecture registry: each ported architecture with its exact full
 config, a reduced smoke config, and its assigned input-shape cells.
 
-A copy of ``repro.configs.registry`` over the architectures the port has:
-the four GNNs, DCN-v2 and the paper's own LPA workload. The LM ids of
-the reference come with their model family; until then ``get_arch``
-raises ``KeyError`` for them, naming the ids it knows.
+A copy of ``repro.configs.registry``: the reference's eleven ids, the
+five LMs, the four GNNs, DCN-v2 and the paper's own LPA workload. An
+unknown id raises ``KeyError``, naming the ids it knows.
 """
 from __future__ import annotations
 
@@ -16,8 +15,10 @@ __all__ = ["ShapeCell", "ArchSpec", "ARCHS", "register", "get_arch",
            "all_arch_ids"]
 
 #: the config modules of the ported architectures, imported on first use
-CONFIG_MODULES = ("pna", "meshgraphnet", "egnn", "equiformer_v2",
-                  "dcn_v2", "lpa_graphs")
+CONFIG_MODULES = ("qwen3_moe_235b_a22b", "deepseek_v2_lite_16b",
+                  "granite_34b", "qwen3_1p7b", "glm4_9b", "pna",
+                  "meshgraphnet", "egnn", "equiformer_v2", "dcn_v2",
+                  "lpa_graphs")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,7 @@
 """Deterministic synthetic batches with skip-ahead resume.
 
-A copy of ``repro.data.synthetic`` but for ``token_batch`` (it comes
-with the LM family): every batch is a pure function of (seed, step), so a
-restarted job resumes exactly where it left off. The GNN batches are
+A copy of ``repro.data.synthetic``: every batch is a pure function of
+(seed, step), so a restarted job resumes exactly where it left off. The GNN batches are
 drawn with numpy in the reference's order, so the arrays equal the
 reference's exactly; they then go to the graph's device.
 ``molecule_batch`` builds the registry's ``molecule`` cell as the
@@ -10,7 +9,7 @@ reference's tests do, and ``gnn_tree_batch`` the tree layout of the
 ``minibatch_lg`` train step. ``dcn_batch`` draws from JAX's PRNG in the
 reference, whose bits torch cannot reproduce: here it draws the same law
 from ``torch.Generator``s seeded from (seed, step), the planted rule from
-the seed alone.
+the seed alone; ``token_batch`` likewise.
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.graphs.sampler import sample_fanout_trees
 
-__all__ = ["dcn_batch", "gnn_full_batch", "gnn_sampled_batch",
+__all__ = ["token_batch", "dcn_batch", "gnn_full_batch", "gnn_sampled_batch",
            "gnn_tree_batch", "molecule_batch"]
 
 
@@ -32,6 +31,24 @@ def _generator(seed: int, *key: int) -> torch.Generator:
     state = np.random.SeedSequence(seed, spawn_key=key).generate_state(
         1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state) & ((1 << 63) - 1))
+
+
+def token_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+                device=None) -> dict:
+    """LM batch ``step``: noisy arithmetic progressions, so a model can
+    learn next-token structure. Each row starts uniform in [0, vocab)
+    with a stride uniform in [1, 7), mod ``vocab``; 5% of the tokens
+    move by +13 mod ``vocab``; ``targets`` are the tokens shifted by one
+    (int32 [batch, seq] each). ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    gen = _generator(seed, step)
+    start = torch.randint(0, vocab, (batch, 1), generator=gen)
+    stride = torch.randint(1, 7, (batch, 1), generator=gen)
+    toks = (start + stride * torch.arange(seq + 1)[None]) % vocab
+    noise = torch.rand(toks.shape, generator=gen) < 0.05
+    toks = torch.where(noise, (toks + 13) % vocab, toks)
+    return {"tokens": toks[:, :-1].to(dev, torch.int32),
+            "targets": toks[:, 1:].to(dev, torch.int32)}
 
 
 def dcn_batch(seed: int, step: int, batch: int, n_dense: int, n_sparse: int,

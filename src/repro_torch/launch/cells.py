@@ -1,11 +1,19 @@
-"""Per-architecture cells: the GNN dispatch and the cells' step functions.
+"""Per-architecture cells: the LM, GNN and recsys cells' step functions.
 
-A copy of the GNN dispatch of ``repro.launch.cells`` (``_gnn_apply``,
-``_gnn_init``, ``_gnn_cell_config``) and of its GNN and recsys cell
-builders. A ``CellPlan`` here holds the cell's step function, the model
-config it runs at and ``init(generator, device=None) -> model``. The
-reference's plans also carry abstract inputs and XLA shardings for its
-dry runs; one card holds everything, so those are not ported.
+A copy of the cell builders of ``repro.launch.cells`` (the LM family's,
+the GNN dispatch ``_gnn_apply``, ``_gnn_init``, ``_gnn_cell_config`` and
+the GNN and recsys builders). A ``CellPlan`` here holds the cell's step
+function, the model config it runs at and ``init(generator,
+device=None) -> model``. The reference's plans also carry abstract
+inputs, XLA shardings and the context-parallel hints of its dry runs;
+one card holds everything, so those are not ported.
+
+- ``build_lm_train``: the loss-and-AdamW train step of the arch's config
+  on ``{"tokens", "targets"}`` batches;
+- ``build_lm_prefill``: the forward, then the logits of the last
+  position only (next-token sampling);
+- ``build_lm_decode``: ``decode_step`` against a cache of the cell's
+  length (``models.transformer.init_cache``), which it updates in place;
 
 - ``build_gnn_cell``: the full-graph train step (mean cross-entropy,
   weighted by ``seed_mask`` when the batch has one);
@@ -33,7 +41,8 @@ from repro_torch.models.gnn import (init_egnn, init_equiformer, init_mgn,
                                     init_pna)
 from repro_torch.train.steps import make_train_step
 
-__all__ = ["CellPlan", "_gnn_apply", "_gnn_init", "_gnn_cell_config",
+__all__ = ["CellPlan", "build_lm_train", "build_lm_prefill",
+           "build_lm_decode", "_gnn_apply", "_gnn_init", "_gnn_cell_config",
            "build_gnn_cell", "build_gnn_sampled_cell", "flatten_trees",
            "build_recsys_cell", "build_cell"]
 
@@ -49,6 +58,58 @@ class CellPlan:
     init: Callable     # init(generator, device=None) -> model
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     loss: Optional[Callable] = None  # a train cell's loss(model, batch)
+
+
+def _lm_meta(cfg, cell: ShapeCell, kind: str) -> dict:
+    b, s = cell.params["batch"], cell.params["seq"]
+    return {"kind": kind, "tokens": b if kind == "decode" else b * s,
+            "layers": cfg.n_layers, "batch": b, "seq": s}
+
+
+def build_lm_train(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+    """Train-step cell: step(model, opt_state, batch) -> (model,
+    opt_state, metrics) on ``{"tokens", "targets"}`` [B, S] batches."""
+    from repro_torch.models.transformer import init_params, loss_fn
+    cfg = spec.config
+
+    def loss(params, batch):
+        return loss_fn(params, batch["tokens"], batch["targets"], cfg)
+
+    _, step = make_train_step(loss)
+    return CellPlan(fn=step, config=cfg,
+                    init=functools.partial(init_params, cfg=cfg),
+                    meta=_lm_meta(cfg, cell, "train"), loss=loss)
+
+
+def build_lm_prefill(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+    """Prefill cell: fn(model, tokens [B, S]) -> logits [B, V] of the
+    last position."""
+    from repro_torch.models.transformer import forward, init_params
+    cfg = spec.config
+
+    def prefill(params, tokens):
+        h = forward(params, tokens, cfg)
+        return torch.einsum("bd,dv->bv", h[:, -1],
+                            params["lm_head"].to(h.dtype))
+
+    return CellPlan(fn=prefill, config=cfg,
+                    init=functools.partial(init_params, cfg=cfg),
+                    meta=_lm_meta(cfg, cell, "prefill"))
+
+
+def build_lm_decode(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+    """Decode cell: fn(model, cache, tokens [B], cur_len [B]) ->
+    (logits [B, V], cache), the cache ``init_cache(cfg, B, S)``."""
+    from repro_torch.models.transformer import decode_step, init_params
+    cfg = spec.config
+
+    def serve_step(params, cache, tokens, cur_len):
+        return decode_step(params, cache, tokens, cur_len, cfg)
+
+    meta = _lm_meta(cfg, cell, "decode")
+    meta["kv_len"] = cell.params["seq"]
+    return CellPlan(fn=serve_step, config=cfg,
+                    init=functools.partial(init_params, cfg=cfg), meta=meta)
 
 
 def _gnn_apply(spec: ArchSpec, cfg):
@@ -185,6 +246,9 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
 
 
 BUILDERS = {
+    "train": build_lm_train,
+    "prefill": build_lm_prefill,
+    "decode": build_lm_decode,
     "gnn_full": build_gnn_cell,
     "gnn_sampled": build_gnn_cell,
     "recsys_train": build_recsys_cell,

@@ -1,6 +1,6 @@
 """Fault-tolerant training launcher.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --steps 50 --ckpt-dir DIR [--full] [--device cpu] [--fail-at 30]
 
 A torch copy of ``repro.launch.train``. The arch's reduced (smoke) config
@@ -14,8 +14,8 @@ results. For that the launcher turns on
 starts. The last line it prints is JSON: the losses of the steps this
 run took, and the step it started from.
 
-The recsys family (DCN-v2) runs. The LM family is not ported yet
-(ROADMAP, Queue 1 item 3), and GNN training is driven from
+The LM family (on ``token_batch`` batches of ``--batch`` x ``--seq``)
+and the recsys family (DCN-v2) run; GNN training is driven from
 ``repro_torch.launch.cells`` (``chip_smoke.py``), as the reference points
 its GNN users to examples/.
 """
@@ -26,9 +26,23 @@ import json
 import os
 import tempfile
 
-#: the reference's LM arch ids, whose family the port does not have yet
-LM_ARCHS = ("deepseek-v2-lite-16b", "glm4-9b", "granite-34b", "qwen3-1.7b",
-            "qwen3-moe-235b-a22b")
+
+def build_lm(cfg, batch, seq, seed=0, device=None):
+    """(model, opt_state, step, batch_fn) of a transformer LM at ``cfg``."""
+    import torch
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.steps import make_train_step
+
+    def loss(params, b):
+        return loss_fn(params, b["tokens"], b["targets"], cfg)
+
+    init, step = make_train_step(loss, peak_lr=3e-3, warmup=20, total=2000)
+    model = init_params(torch.Generator().manual_seed(seed), cfg,
+                        device=device)
+    return (model, init(model), step,
+            lambda s: token_batch(seed, s, batch, seq, cfg.vocab,
+                                  device=device))
 
 
 def build_recsys(cfg, batch, seed=0, device=None):
@@ -50,9 +64,10 @@ def build_recsys(cfg, batch, seed=0, device=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dcn-v2")
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=10)
@@ -64,9 +79,6 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.arch in LM_ARCHS:
-        raise SystemExit(f"--arch {args.arch}: the LM family is not ported "
-                         f"yet (ROADMAP.md, Queue 1 item 3)")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     from repro_torch.configs.registry import get_arch
@@ -75,15 +87,19 @@ def main(argv=None):
 
     spec = get_arch(args.arch)
     cfg = spec.config if args.full else spec.smoke
-    if spec.family != "recsys":
+    if spec.family not in ("lm", "recsys"):
         raise SystemExit(f"--arch {args.arch}: use repro_torch.launch.cells "
                          f"for {spec.family} training drivers")
     device = resolve_device(args.device)
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        params, opt, step, batch_fn = build_recsys(cfg, args.batch,
-                                                   device=device)
+        if spec.family == "lm":
+            params, opt, step, batch_fn = build_lm(cfg, args.batch,
+                                                   args.seq, device=device)
+        else:
+            params, opt, step, batch_fn = build_recsys(cfg, args.batch,
+                                                       device=device)
         loop = LoopConfig(total_steps=args.steps,
                           ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
                           log_every=5, fail_at_step=args.fail_at)

@@ -14,9 +14,37 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-__all__ = ["dense_init", "rms_norm", "rope_angles", "apply_rope", "swiglu",
-           "cross_entropy"]
+__all__ = ["Params", "dense_init", "rms_norm", "rope_angles", "apply_rope",
+           "swiglu", "cross_entropy", "hint"]
+
+
+class Params(nn.Module):
+    """Named parameters and sub-trees built from a nested dict, read as
+    the reference reads its parameter dicts (``p["wq"]``, ``"k" in p``):
+    ``tree["layers"]["moe"]["router"]`` becomes the state-dict key
+    ``layers.moe.router``, the reference's parameter path."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            elif isinstance(value, dict):
+                self.add_module(name, Params(value))
+            else:
+                self.register_parameter(name, nn.Parameter(value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def items(self):
+        """(name, parameter or sub-module) pairs, this level only."""
+        return [*self._parameters.items(), *self._modules.items()]
 
 
 def dense_init(generator: torch.Generator, shape, scale: float | None = None,
@@ -27,7 +55,7 @@ def dense_init(generator: torch.Generator, shape, scale: float | None = None,
     w = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * scale).to(device=device, dtype=dtype)
+    return w.mul_(scale).to(device=device, dtype=dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
@@ -85,3 +113,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     hit = vocab == labels[..., None]
     gold = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
     return torch.mean(lse - gold)
+
+
+def hint(x, *spec):
+    """The reference's sharding hint: entries are ``None``, an axis name
+    or a tuple of names. One card has no mesh to place ``x`` on, so every
+    spec is the identity, as the reference's all-empty spec is."""
+    return x

@@ -1,33 +1,48 @@
-"""The port's architecture registry against the JAX package's: for every
-ported arch id, ``FULL`` (``config``), ``SMOKE``, ``family``, ``notes``
-and ``cells`` equal the reference's field for field (``PNAConfig``'s
-class-level ``aggregators`` too, which ``dataclasses.asdict`` does not
-see), and the lpa-mg8 ``LPAConfig`` equals the reference's. Exact
-equality throughout: these are shapes, not numbers computed."""
+"""The port's architecture registry against the JAX package's: the
+reference's eleven arch ids, and for each of them ``FULL`` (``config``),
+``SMOKE``, ``family``, ``notes`` and ``cells`` equal the reference's
+field for field (``PNAConfig``'s class-level ``aggregators`` too, which
+``dataclasses.asdict`` does not see; a transformer's ``dtype`` by name,
+``torch.bfloat16`` for ``jnp.bfloat16``), and the lpa-mg8 ``LPAConfig``
+equals the reference's. Exact equality throughout: these are shapes,
+not numbers computed."""
 import dataclasses
 
+import numpy as np
 import pytest
+import torch
 
 from repro.configs import registry as jregistry
 from repro.launch import cells as jcells
 from repro_torch.configs import registry
 from repro_torch.launch import cells
 
-PORTED = ["dcn-v2", "egnn", "equiformer-v2", "lpa-mg8", "meshgraphnet",
-          "pna"]
+PORTED = ["dcn-v2", "deepseek-v2-lite-16b", "egnn", "equiformer-v2",
+          "glm4-9b", "granite-34b", "lpa-mg8", "meshgraphnet", "pna",
+          "qwen3-1.7b", "qwen3-moe-235b-a22b"]
+
+
+def _dtype_name(value):
+    """A dtype field as a name: ``torch.bfloat16`` and ``jnp.bfloat16``
+    are both ``"bfloat16"``."""
+    if isinstance(value, torch.dtype):
+        return str(value).removeprefix("torch.")
+    return np.dtype(value).name
 
 
 def _fields(obj):
-    """(class name, asdict) of a config dataclass."""
-    return type(obj).__name__, dataclasses.asdict(obj)
+    """(class name, asdict) of a config dataclass, its dtype by name."""
+    fields = dataclasses.asdict(obj)
+    if "dtype" in fields:
+        fields["dtype"] = _dtype_name(fields["dtype"])
+    return type(obj).__name__, fields
 
 
 def test_ported_ids_and_unported_ones_raise():
-    assert registry.all_arch_ids() == PORTED
-    assert set(PORTED) < set(jregistry.all_arch_ids())
-    for arch in sorted(set(jregistry.all_arch_ids()) - set(PORTED)):
-        with pytest.raises(KeyError, match="known: "):
-            registry.get_arch(arch)
+    """Every id of the reference is ported; an unknown id raises."""
+    assert registry.all_arch_ids() == PORTED == jregistry.all_arch_ids()
+    with pytest.raises(KeyError, match="known: "):
+        registry.get_arch("gpt-5")
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -78,7 +78,12 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.train.loop, repro_torch.models.recsys, "
             "repro_torch.models.recsys.embedding, "
             "repro_torch.models.recsys.dcn_v2, repro_torch.configs.dcn_v2, "
-            "repro_torch.launch.train, repro_torch.launch.train_cells; "
+            "repro_torch.launch.train, repro_torch.launch.train_cells, "
+            "repro_torch.train.elastic, repro_torch.models.moe, "
+            "repro_torch.models.transformer, repro_torch.configs.qwen3_1p7b, "
+            "repro_torch.configs.qwen3_moe_235b_a22b, "
+            "repro_torch.configs.deepseek_v2_lite_16b, "
+            "repro_torch.configs.granite_34b, repro_torch.configs.glm4_9b; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -80,8 +80,14 @@ def test_adamw_update_equals_the_reference(cfg):
                 _close(a, b.numpy(), what=f"{name}, step {i}")
 
 
-def test_batched_update_equals_the_leaf_by_leaf_form():
-    """One multi-tensor launch per operation changes no rounding."""
+def test_batched_update_equals_the_leaf_by_leaf_form(monkeypatch):
+    """One multi-tensor launch per operation changes no rounding, over
+    all the leaves at once or in groups of leaves (a leaf larger than a
+    group alone)."""
+    check_batched_update("cpu")
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(adamw, "GROUP_ELEMS", 32)
+    assert adamw._groups([3, 4, 296, 30]) == [(0, 2), (2, 3), (3, 4)]
     check_batched_update("cpu")
 
 
@@ -197,9 +203,11 @@ def test_error_feedback_accumulates_small_gradients():
     assert abs(sent[1] - 3.0) < 1.1  # within one quantization step
 
 
-def test_a_module_is_updated_in_place_and_its_state_is_its_tree():
+def test_a_module_is_updated_in_place_and_its_state_is_its_tree(
+        monkeypatch):
     """A module's state is shaped like its parameter tree (the reference's
-    paths), and the update writes the module's own parameters."""
+    paths), and the update writes the module's own parameters, group by
+    group, to the values a tree of the same leaves gets."""
     from repro_torch.models.recsys.dcn_v2 import init_dcn
     from repro_torch.configs.registry import get_arch
     model = init_dcn(torch.Generator().manual_seed(0),
@@ -209,7 +217,14 @@ def test_a_module_is_updated_in_place_and_its_state_is_its_tree():
     assert state["m"]["cross"][1]["w"].shape == model.cross[1].w.shape
     before = model.head.detach().clone()
     grads = {k: v for k, v in state["m"].items()}
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    monkeypatch.setattr(adamw, "GROUP_ELEMS", 64)
+    tree = tree_map(lambda x: x.detach().clone(), model)
+    want, _, _ = adamw_update(grads, state, tree, 0.1)
     new, state, _ = adamw_update(grads, state, model, 0.1)
     assert new is model
     assert not torch.equal(model.head, before)  # decayed in place
     assert int(state["step"]) == 1
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(want),
+                                                 tree_leaves(model)))

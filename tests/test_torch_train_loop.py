@@ -127,11 +127,14 @@ def test_launcher_resumes_bitwise_identical(tmp_path, capsys):
     assert '"start": 4' in capsys.readouterr().out
 
 
-def test_launcher_families():
-    """The LM family names the queue item that ports it; a GNN arch points
-    to the cells; without a card the default device raises."""
-    with pytest.raises(SystemExit, match="Queue 1 item 3"):
-        launch_train.main(["--arch", "qwen3-1.7b"])
+def test_launcher_families(tmp_path, capsys):
+    """The LM family trains (the default arch, qwen3-1.7b SMOKE, one step
+    on the CPU at ``--seq``); a GNN arch points to the cells; without a
+    card the default device raises."""
+    hist = launch_train.main(["--steps", "1", "--seq", "16", "--ckpt-dir",
+                              str(tmp_path), "--device", "cpu"])
+    assert len(hist) == 1 and np.isfinite(hist[0])
+    assert '"start": 0' in capsys.readouterr().out
     with pytest.raises(SystemExit, match="launch.cells"):
         launch_train.main(["--arch", "pna", "--device", "cpu"])
     if not torch.cuda.is_available():
