@@ -46,7 +46,12 @@ the kernel launch counts set to 0 just before it:
     MoE) served and trained through ``repro_torch.launch.cells``'
     prefill, decode and train cells at full width (plain torch: the
     reference's attention, MoE dispatch and loss have no TPU kernel to
-    port).
+    port);
+  * the paper's own cells — ``lpa-mg8``'s ``web_560m`` at its size
+    (18.5 M vertices, ~562 M directed slots) run to convergence through
+    ``launch.cells.build_lpa_cell``'s step on a one-rank NCCL group, on
+    the fused layout (K1 every round), and the cell's own bucketed step
+    (K9 every round) at 2^20 and 2^16 vertices.
 
 Phases:
 
@@ -177,9 +182,36 @@ Phases:
      memory and the
      bound (bytes at 3.35 TB/s or bf16 FLOPs at 989 TFLOP/s,
      ``launch.serve.lm_cost``);
-  10. one JSON line describing every kernel (K1 and K2 also list the
+  10. the paper's LPA cells (``configs/lpa_graphs.py``, the LPA half of
+     ``repro_torch.launch``): (a) ``launch.dryrun`` of ``web_4b``,
+     ``web_560m`` and ``web_4b_halo`` on 1, 256 and 512 ranks, host
+     arithmetic on meta workspaces: per-rank workspace bytes, the step's
+     temporaries (``lpa_step_temp_bytes``), peak and fit in 80 GB, bytes
+     moved, collectives, roofline terms and bottleneck, and
+     ``launch.report``'s table (the 3.4 B-slot cells cannot run on one
+     rank: int32 positions); (b) ``web_560m`` at its size:
+     ``powerlaw_communities(18_500_000, p_in=0.79, mix=0.02, seed=1)``
+     within 1% of the cell's 567 M slots, the fused workspace
+     (``build_dist_workspace(graph, 1, k=8, chunk=128, fused=True)``;
+     the cell's bucketed layout needs more than 80 GB on one rank), both
+     built on the host by a process of this script's own
+     (``--write-web-cell``) started at phase 7 and waited for here, run
+     to convergence by ``dist_lpa`` through ``build_lpa_cell``'s step on
+     a one-rank NCCL group, every K1 launch held to its plain version
+     (int32 bits, 2^22 rows at a time); the run again with each step
+     between CUDA events (median), resident and peak memory; one step's
+     ``ShardComm.bytes_by_op`` equal to ``lpa_collective_bytes``, its
+     temporaries within 5% of ``lpa_step_temp_bytes`` and the roofline's
+     t_lb (``lpa_step_bytes``) not above the measured step; a
+     ``torch.profiler`` table of 3 steps; modularity and communities;
+     (c) the cell's own bucketed step (``engine="pallas"``, K9) at 2^20
+     vertices: its temporaries within 5% of ``lpa_step_temp_bytes``,
+     each K9 launch equal to its plain version; at 2^16, the cell's step
+     to convergence on both layouts equal to single-host ``lpa()`` on
+     the same engine, label for label;
+  11. one JSON line describing every kernel (K1 and K2 also list the
      partitions of phases 7 and 8 as ``gnn_partition`` and
-     ``train_partition``).
+     ``train_partition``; K1 and K9 the cells of phase 10).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a
@@ -188,13 +220,17 @@ CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3007,11 +3043,535 @@ def _lm_path(root: Path, tag: str) -> dict:
     return report
 
 
+# -- phase 10: the paper's own LPA cells ------------------------------------
+
+#: the web_560m cell at its size: the generator's arguments. The vertex
+#: count is the cell's, the seed and mix those of every graph here; p_in
+#: sets the directed slot count, which must come within WEB_SLOT_TOL of
+#: the cell's (the hub overlay's heavy-tailed draws make the count move
+#: by a few percent, not monotonically, with p_in)
+WEB_560M = {"n": 18_500_000, "p_in": 0.79, "mix": 0.02, "seed": 1}
+WEB_SLOT_TOL = 0.01
+#: rows of a K1 launch held to its plain version at a time
+PLAIN_ROWS = 1 << 22
+#: 10c: log2 vertices of the bucketed step's graph; its measured
+#: temporaries must come within CELL_TEMP_TOL of the byte model's
+CELL_SCALE = 20
+CELL_TEMP_TOL = 0.05
+#: 10a: the dry run's rank counts (one card, the reference's two meshes)
+DRYRUN_RANKS = (1, 256, 512)
+#: 10b: steps under torch.profiler
+PROFILE_STEPS = 3
+
+
+#: the longest phase 10 waits for the web_560m writer (it starts at
+#: phase 7 and takes ~2 min of host numpy)
+WEB_CELL_WAIT_S = 900
+
+
+def _write_web_cell(out: Path) -> int:
+    """``--write-web-cell``: build ``web_560m``'s graph and fused workspace
+    on the host (``cfg`` of ``lpa-mg8``) and save them to ``out`` for
+    phase 10b. It runs as a process of its own, started at phase 7, so
+    its minutes of host numpy overlap phases 7-9 instead of adding to the
+    run; it touches no device."""
+    os.nice(10)
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.distributed import build_dist_workspace
+    from repro_torch.graphs.generators import powerlaw_communities
+    cfg = get_arch("lpa-mg8").config.lpa
+    t0 = time.perf_counter()
+    graph, _ = powerlaw_communities(WEB_560M["n"], p_in=WEB_560M["p_in"],
+                                    mix=WEB_560M["mix"],
+                                    seed=WEB_560M["seed"], device="cpu")
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ws = build_dist_workspace(graph, 1, k=cfg.k, chunk=cfg.chunk, fused=True)
+    build_s = time.perf_counter() - t0
+    part = out / "web_560m.part"
+    torch.save({"graph": graph, "ws": ws, "generate_s": gen_s,
+                "workspace_s": build_s}, part)
+    os.replace(part, out / "web_560m.pt")
+    return 0
+
+
+def _stop_web_cell(proc, out: Path) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def _start_web_cell() -> tuple:
+    """Start the ``web_560m`` writer (``_write_web_cell``) in a temporary
+    directory; at exit it is stopped and the directory removed."""
+    out = Path(tempfile.mkdtemp(prefix="web_560m_"))
+    with open(out / "writer.log", "w") as log:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--write-web-cell", str(out)],
+                                stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(_stop_web_cell, proc, out)
+    return proc, out
+
+
+def _load_web_cell(web: tuple) -> dict:
+    """Wait for the writer and load what it saved (then drop the file)."""
+    import torch
+    proc, out = web
+    rc = proc.wait(timeout=WEB_CELL_WAIT_S)
+    if rc != 0:
+        raise AssertionError(f"phase 10b: the web_560m writer exited {rc}: "
+                             f"{(out / 'writer.log').read_text()[-3000:]}")
+    t0 = time.perf_counter()
+    data = torch.load(out / "web_560m.pt", weights_only=False)
+    data["load_s"] = time.perf_counter() - t0
+    (out / "web_560m.pt").unlink()
+    return data
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _cells_dryrun(tag: str) -> dict:
+    """10a: ``launch.dryrun`` of the three ``lpa-mg8`` cells at 1, 256
+    and 512 ranks (a host computation on meta workspaces), with the
+    report's summary and table per rank count. Only the 3.4-billion-slot
+    cells on one rank may be not ok, for int32 positions."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    spec = get_arch("lpa-mg8")
+    meshes = {1: ("ranks_1", make_mesh((1,), ("shard",))),
+              256: ("single_pod_16x16", make_production_mesh()),
+              512: ("multi_pod_2x16x16",
+                    make_production_mesh(multi_pod=True))}
+    out: dict = {}
+    for p in DRYRUN_RANKS:
+        name, mesh = meshes[p]
+        recs = {}
+        for cell in spec.cells:
+            rec = dryrun.run_cell(spec, cell, mesh, name)
+            want_ok = p > 1 or cell.name == "web_560m"
+            if rec["ok"] != want_ok or (
+                    not rec["ok"] and "int32" not in rec.get("error", "")):
+                raise AssertionError(f"phase 10a: {cell.name} on {p} "
+                                     f"rank(s): {rec}")
+            recs[(spec.arch_id, cell.name)] = rec
+            mem, r = rec["memory"], rec["roofline"]
+            print(f"{tag} phase 10a: {cell.name} on {p} rank(s) "
+                  f"({rec['engine']}, {rec['n_rounds']} spec rounds): "
+                  f"workspace {mem['argument_bytes']} B a rank, step "
+                  f"temporaries {mem['temp_bytes']} B "
+                  f"(lpa_step_temp_bytes), peak "
+                  f"{mem['peak_bytes_per_device']} B "
+                  f"({mem['peak_bytes_per_device'] / 1e9:.2f} GB): fits 80 "
+                  f"GB {mem['fits_80g_hbm']}; {rec['bytes_per_chip']:.6g} "
+                  f"B moved (lpa_step_bytes), {rec['flops_per_chip']:.6g} "
+                  f"FLOP, collectives {rec['collectives']}; roofline "
+                  f"compute {r['compute_s'] * 1e3:.4f} ms, memory "
+                  f"{r['memory_s'] * 1e3:.4f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.4f} ms: bottleneck "
+                  f"{r['bottleneck']}, t_lb {r['step_time_lb_s'] * 1e3:.4f} "
+                  f"ms" + ("" if rec["ok"] else f"; not ok: {rec['error']}"),
+                  flush=True)
+        print(f"{tag} phase 10a: {p} rank(s) ({name}): "
+              f"{report.summary(recs)}\n{report.roofline_table(recs)}",
+              flush=True)
+        out[p] = {cell: rec for (_, cell), rec in recs.items()}
+    return out
+
+
+def _k1_vs_plain_blocks(rnd, el, ew, out_k, out_v, k: int, chunk: int,
+                        where: str) -> float:
+    """One K1 launch's outputs against its plain version, PLAIN_ROWS
+    rows at a time (float32 as int32 bits); the largest difference."""
+    from repro_torch.graphs.csr import FusedRound
+    from repro_torch.kernels.mg_sketch import fused
+    per_block = max(PLAIN_ROWS // rnd.tile_r, 1)
+    err = 0.0
+    for s0 in range(0, rnd.n_steps, per_block):
+        s1 = min(s0 + per_block, rnd.n_steps)
+        sub = FusedRound(row_start=rnd.row_start[s0:s1],
+                         row_count=rnd.row_count[s0:s1],
+                         step_dmax=rnd.step_dmax[s0:s1],
+                         n_entries_in=rnd.n_entries_in)
+        pk, pv = fused.fused_fold_round_plain(sub, el, ew, k=k, chunk=chunk)
+        r0, r1 = s0 * rnd.tile_r, s1 * rnd.tile_r
+        if not (_same_bits(out_k[r0:r1], pk) and _same_bits(out_v[r0:r1],
+                                                             pv)):
+            raise AssertionError(f"{where}: K1 rows [{r0}, {r1}) differ "
+                                 f"from the plain version")
+        err = max(err, _max_abs_err(out_k[r0:r1], pk),
+                  _max_abs_err(out_v[r0:r1], pv))
+    return err
+
+
+def _profile_steps(step, labels, n_steps: int, rho: int) -> dict:
+    """``torch.profiler`` over the first ``n_steps`` steps of a run from
+    ``labels`` (Pick-Less every ``rho``-th): device time a step, wall a
+    step, busy share and the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(n_steps):
+            labels, delta = step(labels, it % rho == 0, it + 1)
+            int(delta)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [(e.key, e.self_device_time_total / 1e3 / n_steps, e.count)
+               for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0]
+    device_ms = sum(ms for _, ms, _ in kernels)
+    if device_ms <= 0:
+        raise AssertionError("phase 10b: the profiler saw no device time")
+    return {"device_ms": device_ms, "wall_ms": wall_ms,
+            "busy_share": device_ms / wall_ms,
+            "top": [(name[:80], ms, n) for name, ms, n in
+                    sorted(kernels, key=lambda k: -k[1])[:10]]}
+
+
+def _web_560m(comm, dry: dict, web: tuple, tag: str) -> dict:
+    """10b: ``web_560m`` at its size on one NCCL rank, through
+    ``build_lpa_cell``'s step on the fused workspace (K1 every round),
+    graph and workspace from the writer process ``web``."""
+    import torch
+    from unittest import mock
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import distributed
+    from repro_torch.core.distributed import dist_lpa, lpa_collective_bytes
+    from repro_torch.core.modularity import modularity
+    from repro_torch.kernels.launches import (LAUNCH_COUNTS,
+                                              reset_launch_counts)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import build_lpa_cell, lpa_cell_engine
+    from repro_torch.launch.roofline import roofline
+    spec = get_arch("lpa-mg8")
+    cell = next(c for c in spec.cells if c.name == "web_560m")
+    cfg = spec.config.lpa
+    run = {"rho": cfg.rho, "tau": cfg.tau, "max_iters": cfg.max_iters}
+    t0 = time.perf_counter()
+    saved = _load_web_cell(web)
+    wait_s = time.perf_counter() - t0 - saved["load_s"]
+    graph, ws = saved["graph"], saved["ws"]
+    gen_s, build_s = saved["generate_s"], saved["workspace_s"]
+    want = cell.params["n_edges"]
+    off = graph.n_edges / want - 1
+    if graph.n_nodes != cell.params["n_nodes"] or abs(off) > WEB_SLOT_TOL:
+        raise AssertionError(f"phase 10b: {graph.n_nodes} vertices, "
+                             f"{graph.n_edges} slots; the cell "
+                             f"{cell.params}")
+    plan = build_lpa_cell(spec, cell, 1)
+    engine = lpa_cell_engine(ws)
+    spec_mem = dry[1]["web_560m"]["memory"]
+    if engine != "pallas_fused" or spec_mem["fits_80g_hbm"]:
+        raise AssertionError(f"phase 10b: engine {engine}, the spec's "
+                             f"memory {spec_mem}")
+    print(f"{tag} phase 10b: web_560m: powerlaw_communities("
+          f"{WEB_560M['n']}, p_in={WEB_560M['p_in']}, mix={WEB_560M['mix']}"
+          f", seed={WEB_560M['seed']}): {graph.n_edges} directed slots "
+          f"({graph.n_edges / graph.n_nodes:.2f} a vertex; the cell "
+          f"{want}, {off:+.2%}), generated on the host in {gen_s:.1f} s; "
+          f"build_dist_workspace(graph, 1, k={cfg.k}, chunk={cfg.chunk}, "
+          f"fused=True) in {build_s:.1f} s (both in the writer process, "
+          f"beside phases 7-9; waited {wait_s:.1f} s, loaded in "
+          f"{saved['load_s']:.1f} s): {ws.n_rounds} rounds (the "
+          f"spec's estimate {plan.meta['n_rounds']}), "
+          f"{dryrun.workspace_bytes(ws)} B; the cell's bucketed layout "
+          f"(lpa_dist_spec, engine pallas) needs "
+          f"{spec_mem['peak_bytes_per_device']} B with its step's "
+          f"temporaries on one rank, more than the card's 80 GB, so the "
+          f"cell runs on the fused layout ({engine}, K1)", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    step = plan.fn(comm, ws)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    # (1) the run to convergence, every K1 launch held to its plain version
+    real_k1 = distributed.fused_fold_round
+    checks = []
+
+    def checked_k1(rnd, el, ew, *, k, chunk):
+        out_k, out_v = real_k1(rnd, el, ew, k=k, chunk=chunk)
+        err = _k1_vs_plain_blocks(rnd, el, ew, out_k, out_v, k, chunk,
+                                  f"phase 10b, K1 launch {len(checks)}")
+        checks.append((rnd.row_start.numel(), int(rnd.row_count.sum()),
+                       err))
+        return out_k, out_v
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with mock.patch.object(distributed, "fused_fold_round", checked_k1):
+        labels, iters = dist_lpa(comm, ws, step=step, **run)
+    launches = {key: n for key, n in LAUNCH_COUNTS.items() if n}
+    checked_s = time.perf_counter() - t0
+    if launches != {"fused_fold": iters * ws.n_rounds} or \
+            len(checks) != launches["fused_fold"]:
+        raise AssertionError(f"phase 10b: launches {launches}, {len(checks)} "
+                             f"checked, {iters} iterations x {ws.n_rounds} "
+                             f"rounds")
+    # (2) the same run, each step between CUDA events
+    events = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    labels2, iters2 = dist_lpa(comm, ws, step=timed, **run)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    if iters2 != iters or not torch.equal(labels2, labels):
+        raise AssertionError("phase 10b: the timed run differs from the "
+                             "checked run")
+    median_ms = statistics.median(step_ms)
+    # (3) one step: its collectives, its temporaries, its roofline
+    first = ws.init_labels[0].to(comm.device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_counts()
+    step(first, True, 1)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - before
+    model_temp = dryrun.lpa_step_temp_bytes(ws, engine)
+    coll = lpa_collective_bytes(ws)
+    step_bytes, step_calls = dict(comm.bytes_by_op), dict(comm.calls_by_op)
+    if step_bytes != {op: b for op, b in coll.items() if op != "total"}:
+        raise AssertionError(f"phase 10b: one step's collectives "
+                             f"{step_bytes}, lpa_collective_bytes {coll}")
+    if abs(temp / model_temp - 1) > CELL_TEMP_TOL:
+        raise AssertionError(f"phase 10b: one step held {temp} B, the "
+                             f"model {model_temp} B")
+    moved = dryrun.lpa_step_bytes(ws, engine)
+    terms = roofline(graph.n_edges * 6 * cfg.k, moved, coll["total"])
+    t_lb_ms = terms.step_time_s * 1e3
+    if t_lb_ms > median_ms:
+        raise AssertionError(f"phase 10b: t_lb {t_lb_ms} ms above the "
+                             f"measured step {median_ms} ms")
+    # (4) where a step's time goes
+    prof = _profile_steps(step, first, PROFILE_STEPS, cfg.rho)
+    del step, first
+    torch.cuda.empty_cache()
+    # (5) quality, on the card
+    t0 = time.perf_counter()
+    g_card = dataclasses.replace(graph, offsets=graph.offsets.cuda(),
+                                 indices=graph.indices.cuda(),
+                                 weights=graph.weights.cuda())
+    q = float(modularity(g_card, labels))
+    torch.cuda.synchronize()
+    mod_s = time.perf_counter() - t0
+    communities = int(torch.unique(labels).numel())
+    del g_card
+    torch.cuda.empty_cache()
+    print(f"{tag} phase 10b: web_560m on one NCCL rank (P = 1) through "
+          f"build_lpa_cell's step: {iters} iterations, {communities} "
+          f"communities, modularity {q:.6f}; launches {launches}, every K1 "
+          f"launch equal to its plain version (int32 bits, {PLAIN_ROWS} "
+          f"rows at a time; max abs err "
+          f"{max(e for _, _, e in checks)}; rounds (rows, entries): "
+          + "; ".join(f"{r}, {e}" for r, e, _ in checks[:ws.n_rounds])
+          + f"); step median {median_ms:.3f} ms (CUDA events; all "
+          f"{[round(t, 3) for t in step_ms]}); resident {resident} B, peak "
+          f"{peak} B over the run; one step held {temp} B above its "
+          f"inputs, lpa_step_temp_bytes {model_temp} B (measured / model "
+          f"{temp / model_temp:.4f}); one step's collectives "
+          f"{step_bytes} (calls {step_calls}) == "
+          f"lpa_collective_bytes; roofline {terms.to_dict()} "
+          f"({moved} B moved by lpa_step_bytes): t_lb {t_lb_ms:.3f} ms = "
+          f"{t_lb_ms / median_ms:.1%} of the step; host seconds: generate "
+          f"{gen_s:.1f}, workspace {build_s:.1f}, checked run "
+          f"{checked_s:.1f}, timed run {run_s:.2f}, modularity "
+          f"{mod_s:.2f}", flush=True)
+    print(f"{tag} phase 10b: torch.profiler over {PROFILE_STEPS} steps: "
+          f"device {prof['device_ms']:.3f} ms a step of {prof['wall_ms']:.3f}"
+          f" ms wall (busy {prof['busy_share']:.1%}); top kernels (ms a "
+          f"step, calls over the {PROFILE_STEPS} steps): "
+          + "; ".join(f"{name} {ms:.3f} ({n})"
+                      for name, ms, n in prof["top"]), flush=True)
+    return {"n_nodes": graph.n_nodes, "n_edges": graph.n_edges,
+            "slots_off": off, "generator": WEB_560M, "generate_s": gen_s,
+            "workspace_build_s": build_s, "writer_wait_s": wait_s,
+            "load_s": saved["load_s"], "n_rounds": ws.n_rounds,
+            "spec_rounds": plan.meta["n_rounds"],
+            "workspace_bytes": dryrun.workspace_bytes(ws),
+            "iterations": iters, "communities": communities,
+            "modularity": q, "launches": launches,
+            "k1_vs_plain": checks,
+            "max_abs_err": max(e for _, _, e in checks),
+            "step_ms": step_ms, "step_median_ms": median_ms,
+            "resident_bytes": resident, "peak_bytes": peak,
+            "step_temp_bytes": temp, "model_temp_bytes": model_temp,
+            "collectives": step_bytes, "calls": step_calls,
+            "step_bytes_model": moved,
+            "roofline": terms.to_dict(), "profile": prof,
+            "checked_run_s": checked_s, "modularity_s": mod_s}
+
+
+def _cell_layout(comm, tag: str) -> dict:
+    """10c: the cell's own (bucketed) step, K9 every round: one step at
+    2^CELL_SCALE vertices, its temporaries against the byte model and
+    each K9 launch against its plain version; at 2^PARITY_SCALE the
+    cell's step run to convergence on both layouts against single-host
+    ``lpa()`` on the same engine."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.distributed import build_dist_workspace, dist_lpa
+    from repro_torch.core.lpa import lpa
+    from repro_torch.graphs.generators import powerlaw_communities
+    from repro_torch.kernels.launches import (LAUNCH_COUNTS,
+                                              reset_launch_counts)
+    from repro_torch.kernels.mg_sketch import ops, ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import build_lpa_cell, lpa_cell_engine
+    spec = get_arch("lpa-mg8")
+    cell = next(c for c in spec.cells if c.name == "web_560m")
+    cfg = spec.config.lpa
+    plan = build_lpa_cell(spec, cell, 1)
+    graph, _ = powerlaw_communities(1 << CELL_SCALE, p_in=0.5, mix=0.02,
+                                    seed=1, device="cpu")
+    ws = build_dist_workspace(graph, 1, k=cfg.k, chunk=cfg.chunk)
+    if lpa_cell_engine(ws) != "pallas":
+        raise AssertionError(f"phase 10c: engine {lpa_cell_engine(ws)}")
+    step = plan.fn(comm, ws)
+    labels = ws.init_labels[0].to(comm.device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    new, delta = step(labels, True, 1)
+    torch.cuda.synchronize()
+    launches = {key: n for key, n in LAUNCH_COUNTS.items() if n}
+    temp = torch.cuda.max_memory_allocated() - before
+    model = dryrun.lpa_step_temp_bytes(ws, "pallas")
+    if launches != {"tile_mg_fold": ws.n_rounds}:
+        raise AssertionError(f"phase 10c: launches {launches}")
+    if abs(temp / model - 1) > CELL_TEMP_TOL:
+        raise AssertionError(f"phase 10c: the bucketed step held {temp} B, "
+                             f"lpa_step_temp_bytes {model} B")
+    # each K9 launch of the same step against its plain version
+    errs = []
+
+    def checked_k9(gl, gw, k):
+        got = ops.mg_fold_tile_pallas(gl, gw, k)
+        want = ref.mg_fold_ref(gl, gw, k)
+        if not all(_same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase 10c: K9 on round {len(errs)}'s "
+                                 f"{tuple(gl.shape)} tile differs from "
+                                 f"its plain version")
+        errs.append((tuple(gl.shape), max(_max_abs_err(a, b)
+                                          for a, b in zip(got, want))))
+        return got
+
+    new2, delta2 = plan.fn(comm, ws, fold_tile=checked_k9)(labels, True, 1)
+    if not (torch.equal(new, new2) and int(delta) == int(delta2)):
+        raise AssertionError("phase 10c: the checked step differs")
+    tiles = [g.shape[1] * g.shape[2] for g in ws.round_gathers]
+    print(f"{tag} phase 10c: the cell's bucketed step (engine pallas) at "
+          f"2^{CELL_SCALE} vertices ({graph.n_edges} slots, round tiles "
+          f"{tiles} entries): launches {launches}, each K9 launch equal to "
+          f"its plain version (int32 bits; tiles and max abs err "
+          f"{errs}); {temp} B held above its inputs, lpa_step_temp_bytes "
+          f"{model} B (measured / model {temp / model:.4f})", flush=True)
+    del step, ws, new, new2, labels
+    torch.cuda.empty_cache()
+    # the cell's step to convergence == single-host lpa() on its engine
+    g16, _ = powerlaw_communities(1 << PARITY_SCALE, p_in=0.5, mix=0.02,
+                                  seed=1, device="cpu")
+    g16_card = dataclasses.replace(g16, offsets=g16.offsets.cuda(),
+                                   indices=g16.indices.cuda(),
+                                   weights=g16.weights.cuda())
+    parity = {}
+    for fused in (False, True):
+        ws16 = build_dist_workspace(g16, 1, k=cfg.k, chunk=cfg.chunk,
+                                    fused=fused)
+        engine = lpa_cell_engine(ws16)
+        reset_launch_counts()
+        got, iters = dist_lpa(comm, ws16, rho=cfg.rho, tau=cfg.tau,
+                              max_iters=cfg.max_iters,
+                              step=plan.fn(comm, ws16))
+        runs = {key: n for key, n in LAUNCH_COUNTS.items() if n}
+        key = "fused_fold" if fused else "tile_mg_fold"
+        if runs != {key: iters * ws16.n_rounds}:
+            raise AssertionError(f"phase 10c: 2^{PARITY_SCALE} {engine}: "
+                                 f"launches {runs}")
+        want = lpa(g16_card, dataclasses.replace(cfg, fold_backend=engine))
+        if iters != want.iterations or not torch.equal(got, want.labels):
+            raise AssertionError(f"phase 10c: 2^{PARITY_SCALE} {engine}: "
+                                 f"the cell's step differs from lpa()")
+        parity[engine] = {"iterations": iters, "launches": runs}
+    print(f"{tag} phase 10c: 2^{PARITY_SCALE} vertices, one NCCL rank: "
+          f"dist_lpa through the cell's step == single-host lpa() on the "
+          f"same engine, label for label: "
+          + "; ".join(f"{e} {r['iterations']} iterations, launches "
+                      f"{r['launches']}" for e, r in parity.items()),
+          flush=True)
+    return {"scale": CELL_SCALE, "n_edges": graph.n_edges,
+            "round_tiles": tiles, "launches": launches,
+            "step_temp_bytes": temp, "model_temp_bytes": model,
+            "k9_vs_plain": errs, "max_abs_err": max(e for _, e in errs),
+            "parity": parity}
+
+
+def _lpa_cells(web: tuple, tag: str) -> dict:
+    """Phase 10: the dry run of the paper's cells (10a), then on a
+    one-rank NCCL group web_560m at its size (10b; its graph and
+    workspace from the writer ``web``) and the cell's own layout
+    (10c)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import ShardComm
+    report: dict = {}
+    t0 = time.perf_counter()
+    report["dryrun"] = _cells_dryrun(tag)
+    report["10a_s"] = time.perf_counter() - t0
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        comm = ShardComm("cuda:0")
+        t0 = time.perf_counter()
+        report["web_560m"] = _web_560m(comm, report["dryrun"], web, tag)
+        report["10b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["cell_layout"] = _cell_layout(comm, tag)
+        report["10c_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    print(f"{tag} phase 10: seconds by part: "
+          + ", ".join(f"{part} {report[part + '_s']:.1f}"
+                      for part in ("10a", "10b", "10c")), flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
                         help="also write the full report as JSON here")
+    parser.add_argument("--write-web-cell", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.write_web_cell:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        return _write_web_cell(Path(args.write_web_cell))
 
     import torch
     if not torch.cuda.is_available():
@@ -3552,6 +4112,8 @@ def main(argv=None) -> int:
     _phase_took(tag, 6, t_phase, report)
 
     # -- phase 7: the GNN serving path ---------------------------------------
+    # phase 10's web_560m graph and workspace, built on the host meanwhile
+    web_cell = _start_web_cell()
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     report["gnn"] = _gnn_path(graph, cfg, tag)
@@ -3569,7 +4131,13 @@ def main(argv=None) -> int:
     report["lm"] = _lm_path(root, tag)
     _phase_took(tag, 9, t_phase, report)
 
-    # -- phase 10: the kernels line -------------------------------------------
+    # -- phase 10: the paper's own LPA cells ---------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report["lpa_cells"] = _lpa_cells(web_cell, tag)
+    _phase_took(tag, 10, t_phase, report)
+
+    # -- phase 11: the kernels line -------------------------------------------
     main = report["main"]
     gnn_launches = report["gnn"]["example"]["partition"]["launches"]
     train_launches = report["train"]["example"]["partition"]["launches"]
@@ -3581,6 +4149,16 @@ def main(argv=None) -> int:
     dist_launches = {}
     for path, run in report["distributed"]["main"].items():
         dist_launches[path] = run["ranks"]
+    # the paper's cells (phase 10): web_560m's run, the bucketed step
+    cells = report["lpa_cells"]
+    cell_launches = {
+        "web_560m": cells["web_560m"]["launches"],
+        f"cell_bucketed_2^{CELL_SCALE}": cells["cell_layout"]["launches"]}
+    cell_launches.update({f"cell_{engine}_2^{PARITY_SCALE}": run["launches"]
+                          for engine, run in
+                          cells["cell_layout"]["parity"].items()})
+    cell_errs = {"K1": cells["web_560m"]["max_abs_err"],
+                 "K9": cells["cell_layout"]["max_abs_err"]}
     dist_ranks = report["distributed"]["ranks"]
     for name in dist_ranks[0]["matrix"]["runs"]:
         dist_launches[f"dist16_{name}"] = [
@@ -3596,6 +4174,9 @@ def main(argv=None) -> int:
             out["gnn_partition"] = gnn_launches[key]
         if key in train_launches:
             out["train_partition"] = train_launches[key]
+        for path, launched in cell_launches.items():
+            if key in launched:
+                out[path] = launched[key]
         return out
     rows = (("K1", "mg_fused_fold", "mg_fused",
              "src/repro/kernels/mg_sketch/fused.py:173", "mg",
@@ -3646,6 +4227,7 @@ def main(argv=None) -> int:
         for vs_plain in partitions_vs_plain:
             if key in vs_plain:
                 err = max(err, vs_plain[key]["max_abs_err"])
+        err = max(err, cell_errs.get(key, 0.0))
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[lib],
             "replaces": replaces,

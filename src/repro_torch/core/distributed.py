@@ -65,7 +65,8 @@ from repro_torch.kernels.mg_sketch.streaming import (bm_fold_round_stream,
                                                      stream_fold_round)
 
 __all__ = ["DistLPAWorkspace", "ShardComm", "build_dist_workspace",
-           "dist_lpa_step", "dist_lpa", "spawn_ranks"]
+           "dist_lpa_step", "dist_lpa", "lpa_collective_bytes",
+           "spawn_ranks"]
 
 PAD = -1
 
@@ -385,6 +386,15 @@ class ShardComm:
     back (the folds stay on the card). ``staged_bytes`` counts the bytes
     those copies move (both directions), ``exchanged_bytes`` the bytes the
     collectives deliver to this rank, and ``calls`` the collectives made.
+
+    ``bytes_by_op`` and ``calls_by_op`` split the collectives by op, under
+    their HLO names ("all-gather", "all-to-all", "all-reduce"; an op not
+    yet called has no key), in the convention of the reference's roofline
+    (``repro.launch.roofline.collective_bytes``, which parses them out of
+    a compiled step): the bytes of each op's result on this rank, an
+    all-reduce counted twice (a ring moves a reduce-scatter and an
+    all-gather of it). One ``dist_lpa_step`` adds
+    :func:`lpa_collective_bytes` of its workspace.
     """
 
     def __init__(self, device=None):
@@ -399,12 +409,12 @@ class ShardComm:
             raise ValueError("an nccl group exchanges CUDA tensors; got "
                              f"device {self.device}")
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
-        self.staged_bytes = 0
-        self.exchanged_bytes = 0
-        self.calls = 0
+        self.reset_counts()
 
     def reset_counts(self) -> None:
         self.staged_bytes = self.exchanged_bytes = self.calls = 0
+        self.bytes_by_op: dict = {}
+        self.calls_by_op: dict = {}
 
     def _to_wire(self, t: torch.Tensor) -> torch.Tensor:
         if not self.staged:
@@ -412,10 +422,13 @@ class ShardComm:
         self.staged_bytes += t.numel() * t.element_size()
         return t.cpu()
 
-    def _from_wire(self, t: torch.Tensor) -> torch.Tensor:
+    def _from_wire(self, t: torch.Tensor, op: str) -> torch.Tensor:
         n_bytes = t.numel() * t.element_size()
         self.exchanged_bytes += n_bytes
         self.calls += 1
+        ring = 2 if op == "all-reduce" else 1
+        self.bytes_by_op[op] = self.bytes_by_op.get(op, 0) + ring * n_bytes
+        self.calls_by_op[op] = self.calls_by_op.get(op, 0) + 1
         if not self.staged:
             return t
         self.staged_bytes += n_bytes
@@ -427,7 +440,7 @@ class ShardComm:
         src = self._to_wire(vec)
         out = src.new_empty((self.world_size * src.shape[0],))
         dist.all_gather_into_tensor(out, src)
-        return self._from_wire(out)
+        return self._from_wire(out, "all-gather")
 
     def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
         """[P, H] -> [P, H]: row q goes to rank q, and row q of the result
@@ -439,13 +452,13 @@ class ShardComm:
         src = self._to_wire(buf)
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src)
-        return self._from_wire(out)
+        return self._from_wire(out, "all-to-all")
 
     def psum(self, value: torch.Tensor) -> torch.Tensor:
         """The sum of an int32 scalar over the ranks."""
         src = self._to_wire(value.to(torch.int32).reshape(1)).clone()
         dist.all_reduce(src, op=dist.ReduceOp.SUM)
-        return self._from_wire(src).reshape(())
+        return self._from_wire(src, "all-reduce").reshape(())
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The elementwise ``"sum"`` or ``"max"`` of ``t`` (any shape and
@@ -455,7 +468,7 @@ class ShardComm:
             raise ValueError(f"all_reduce op {op!r}; expected sum or max")
         src = self._to_wire(t).clone()
         dist.all_reduce(src, op=ops[op])
-        return self._from_wire(src)
+        return self._from_wire(src, "all-reduce")
 
 
 def _exchange(comm: ShardComm, sh: DistLPAWorkspace, vec: torch.Tensor,
@@ -746,10 +759,35 @@ def dist_lpa_step(comm: ShardComm, ws: DistLPAWorkspace, *,
     return step
 
 
+def lpa_collective_bytes(ws: DistLPAWorkspace) -> dict:
+    """The collective bytes one ``dist_lpa_step`` (ungated) moves on each
+    rank of ``ws``, by op, with their ``"total"``.
+
+    The counterpart of what ``repro.launch.dryrun`` parses out of the
+    reference's compiled step (``repro.launch.roofline.collective_bytes``
+    of its HLO), in that convention: the bytes of each op's result on a
+    rank, an all-reduce counted twice. The full gather moves one
+    all-gather of the [P · V_pad] int32 label table; the halo exchange an
+    all-gather of the [P · HUB_pad] hub labels and an all-to-all of the
+    [P, H_pad] halo labels; both sum the changed count, an int32 psum
+    (4 B, twice). ``ShardComm.bytes_by_op`` records the same per step.
+    """
+    p = ws.n_shards
+    if ws.send_idx is None:
+        out = {"all-gather": 4 * p * ws.v_pad}
+    else:
+        out = {"all-gather": 4 * p * ws.hub_pad,
+               "all-to-all": 4 * p * ws.h_pad}
+    out["all-reduce"] = 2 * 4
+    out["total"] = sum(out.values())
+    return out
+
+
 def dist_lpa(comm: ShardComm, ws: DistLPAWorkspace, rho: int = 8,
              tau: float = 0.05, max_iters: int = 20,
              engine: str | None = None, method: str = "mg",
-             rescan: bool = False, frontier_gate: bool = False):
+             rescan: bool = False, frontier_gate: bool = False,
+             step: Optional[Callable] = None):
     """Run distributed LPA to convergence on every rank of ``comm``'s group.
 
     ``ws`` is the stacked workspace (see :func:`dist_lpa_step`). Returns
@@ -760,9 +798,13 @@ def dist_lpa(comm: ShardComm, ws: DistLPAWorkspace, rho: int = 8,
     single-host driver. ``frontier_gate`` turns on per-shard dense frontier
     gating: settled vertices keep their label, and Pick-Less iterations
     union the previous frontier into the marks so deferred vertices stay
-    queued."""
-    step = dist_lpa_step(comm, ws, engine=engine, method=method,
-                         rescan=rescan, frontier_gate=frontier_gate)
+    queued. ``step`` runs a step already built for this rank over ``ws``
+    (a cell's, ``repro_torch.launch.cells.build_lpa_cell(...).fn``) in
+    place of the one ``engine``, ``method`` and ``rescan`` would build;
+    ``frontier_gate`` must say whether it is gated."""
+    if step is None:
+        step = dist_lpa_step(comm, ws, engine=engine, method=method,
+                             rescan=rescan, frontier_gate=frontier_gate)
     labels = slots0 = ws.init_labels[comm.rank].to(comm.device)
     n = ws.n_nodes
     frontier = torch.ones(labels.shape, dtype=torch.bool,

@@ -25,17 +25,24 @@ one card holds everything, so those are not ported.
   v_t), and an edge at a tree's dump row v_t goes to the flat batch's
   dump row B v_t (not t v_t + v_t, the next tree's seed);
 - ``build_recsys_cell``: DCN-v2's train step, its serving forward, and
-  the retrieval scores of one query against the candidates.
+  the retrieval scores of one query against the candidates;
+- ``build_lpa_cell``: the paper's own cells (``configs/lpa_graphs.py``),
+  distributed LPA on ``n_shards`` ranks: the workspace of
+  ``lpa_dist_spec`` as meta tensors (shapes and dtypes, nothing
+  allocated: the counterpart of the reference's ``ShapeDtypeStruct`` values)
+  and the step builder of ``core.distributed``.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.registry import ArchSpec, ShapeCell
+from repro_torch.core.distributed import DistLPAWorkspace, dist_lpa_step
 from repro_torch.graphs.sampler import tree_shape
 from repro_torch.models.gnn import (init_egnn, init_equiformer, init_mgn,
                                     init_pna)
@@ -44,7 +51,8 @@ from repro_torch.train.steps import make_train_step
 __all__ = ["CellPlan", "build_lm_train", "build_lm_prefill",
            "build_lm_decode", "_gnn_apply", "_gnn_init", "_gnn_cell_config",
            "build_gnn_cell", "build_gnn_sampled_cell", "flatten_trees",
-           "build_recsys_cell", "build_cell"]
+           "build_recsys_cell", "lpa_dist_spec", "lpa_cell_engine",
+           "build_lpa_cell", "build_cell"]
 
 #: ``init_*(generator, cfg, device=None)`` by arch id
 _INIT = {"pna": init_pna, "meshgraphnet": init_mgn, "egnn": init_egnn,
@@ -53,11 +61,13 @@ _INIT = {"pna": init_pna, "meshgraphnet": init_mgn, "egnn": init_egnn,
 
 @dataclasses.dataclass
 class CellPlan:
-    fn: Callable       # the cell's step: train step or forward
+    fn: Callable       # the cell's step: train step, forward or LPA step
     config: Any        # the model config the cell runs at
-    init: Callable     # init(generator, device=None) -> model
+    init: Optional[Callable]  # init(generator, device=None) -> model
+                              # (None: an LPA cell has no model)
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     loss: Optional[Callable] = None  # a train cell's loss(model, batch)
+    workspace: Optional[DistLPAWorkspace] = None  # an LPA cell's, on meta
 
 
 def _lm_meta(cfg, cell: ShapeCell, kind: str) -> dict:
@@ -245,6 +255,92 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
     return CellPlan(fn=retrieve, config=cfg, init=init, meta=meta)
 
 
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lpa_dist_spec(n_nodes: int, n_edges: int, n_shards: int, k: int,
+                  chunk: int, frac_high: float = 0.3) -> DistLPAWorkspace:
+    """Analytic workspace for a production-scale graph, every array a
+    meta tensor (plan shapes depend only on the degree structure; we
+    assume a power-law with ``frac_high`` of edges on high-degree rows).
+    The reference's round loop line for line: its shapes and dtypes, the
+    bucketed layout (``round_gathers``) of the reference's cell step."""
+    v_pad = math.ceil(n_nodes / n_shards)
+    m_pad = math.ceil(n_edges / n_shards)
+    rounds = []
+    rows = v_pad + math.ceil(m_pad * frac_high / chunk)
+    entries = m_pad
+    while True:
+        rounds.append((rows, chunk))
+        nxt_entries = rows * k
+        nxt_rows = v_pad + math.ceil(nxt_entries * frac_high / chunk)
+        if nxt_entries <= v_pad * k * 1.05 or len(rounds) > 6:
+            break
+        rows, entries = nxt_rows, nxt_entries
+    return DistLPAWorkspace(
+        nbr_pos=_meta((n_shards, m_pad), torch.int32),
+        weights=_meta((n_shards, m_pad), torch.float32),
+        n_rounds=len(rounds),
+        round_gathers=tuple(_meta((n_shards, r, chunk), torch.int32)
+                            for r, _ in rounds),
+        final_row_vertex=_meta((n_shards, rounds[-1][0]), torch.int32),
+        init_labels=_meta((n_shards, v_pad), torch.int32),
+        n_nodes=n_nodes, v_pad=v_pad, k=k, chunk=chunk)
+
+
+def lpa_cell_engine(ws: DistLPAWorkspace) -> str:
+    """The fold engine an LPA cell's step runs on ``ws``: the fused
+    kernel (K1) where the fused layout is built, else the tile kernel
+    (K9) on the bucketed round gathers."""
+    return "pallas_fused" if ws.fused_starts is not None else "pallas"
+
+
+def build_lpa_cell(spec: ArchSpec, cell: ShapeCell,
+                   n_shards: int = 1) -> CellPlan:
+    """The paper's cell on ``n_shards`` ranks.
+
+    ``workspace`` is ``lpa_dist_spec``'s at the cell's sizes, with the
+    halo exchange's tables where the cell asks for them (the reference's
+    boundary fraction and hub density, per cell). ``fn(comm, ws, **kw)``
+    builds a rank's step over a workspace of that layout (the spec's, or
+    one ``build_dist_workspace`` builds from a graph): ``dist_lpa_step``
+    with the config's method. The reference's cell step folds with the
+    plain fold (``dist_lpa_step(mesh, ws)``'s default engine); here the
+    step runs a hand-written kernel on the card, never the plain fold:
+    ``engine="pallas"`` (K9) on the bucketed layout the spec gives, and
+    ``engine="pallas_fused"`` (K1) where the fused layout is built
+    (``lpa_cell_engine``). ``kw`` goes to ``dist_lpa_step`` (a
+    ``fold_tile`` that records K9's launches, say).
+    """
+    cfg = spec.config
+    halo = bool(cell.params.get("halo", False))
+    ws = lpa_dist_spec(cell.params["n_nodes"], cell.params["n_edges"],
+                       n_shards, cfg.lpa.k, cfg.lpa.chunk,
+                       cfg.frac_high_degree_edges)
+    if halo:
+        # beyond-paper label exchange: boundary fraction and hub density
+        # parameterised per cell, as the reference's cells give them
+        h_pad = math.ceil(ws.v_pad * cell.params.get("halo_frac", 0.25)
+                          / n_shards) * 8
+        hub_pad = max(1, math.ceil(cell.params.get("hub_frac", 0.002)
+                                   * ws.v_pad))
+        ws = dataclasses.replace(
+            ws, send_idx=_meta((n_shards, n_shards, h_pad), torch.int32),
+            h_pad=h_pad, hub_idx=_meta((n_shards, hub_pad), torch.int32),
+            hub_pad=hub_pad)
+
+    def step(comm, rank_ws: DistLPAWorkspace, **kw):
+        return dist_lpa_step(comm, rank_ws, engine=lpa_cell_engine(rank_ws),
+                             method=cfg.lpa.method, rescan=cfg.lpa.rescan,
+                             **kw)
+
+    return CellPlan(fn=step, config=cfg, init=None, workspace=ws,
+                    meta={"kind": "lpa", "n_nodes": cell.params["n_nodes"],
+                          "n_edges": cell.params["n_edges"],
+                          "n_rounds": ws.n_rounds, "halo": halo})
+
+
 BUILDERS = {
     "train": build_lm_train,
     "prefill": build_lm_prefill,
@@ -254,8 +350,10 @@ BUILDERS = {
     "recsys_train": build_recsys_cell,
     "recsys_serve": build_recsys_cell,
     "retrieval": build_recsys_cell,
+    "lpa": build_lpa_cell,
 }
 
 
-def build_cell(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
-    return BUILDERS[cell.kind](spec, cell)
+def build_cell(spec: ArchSpec, cell: ShapeCell, *args) -> CellPlan:
+    """The cell's plan; an LPA cell takes its rank count after ``cell``."""
+    return BUILDERS[cell.kind](spec, cell, *args)

@@ -48,14 +48,17 @@ def test_paper_suite_matches_reference():
         _assert_same_graph(ref[key], got[key])
 
 
-@pytest.mark.parametrize("symmetrize,dedupe", [(True, True), (False, True),
-                                               (True, False)])
-def test_build_csr_matches_reference(symmetrize, dedupe):
-    """Weighted, duplicated, self-looped edges go through the same
-    symmetrize/sort/dedupe arithmetic."""
+@pytest.mark.parametrize("symmetrize,dedupe,weighted", [
+    (True, True, True), (False, True, True), (True, False, True),
+    (True, True, False), (False, True, False), (True, False, False)])
+def test_build_csr_matches_reference(symmetrize, dedupe, weighted):
+    """Weighted or unweighted (the generators' graphs: summed multiplicities
+    from the sorted keys), duplicated, self-looped edges go through the
+    same symmetrize/sort/dedupe arithmetic."""
     rng = np.random.default_rng(11)
     edges = rng.integers(0, 40, (300, 2))
-    weights = (rng.random(300) * 2).astype(np.float32)
+    weights = ((rng.random(300) * 2).astype(np.float32) if weighted
+               else None)
     ref = jcsr.build_csr(edges, 45, weights, symmetrize=symmetrize,
                          dedupe=dedupe)
     got = tcsr.build_csr(edges, 45, weights, symmetrize=symmetrize,

@@ -83,7 +83,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.transformer, repro_torch.configs.qwen3_1p7b, "
             "repro_torch.configs.qwen3_moe_235b_a22b, "
             "repro_torch.configs.deepseek_v2_lite_16b, "
-            "repro_torch.configs.granite_34b, repro_torch.configs.glm4_9b; "
+            "repro_torch.configs.granite_34b, repro_torch.configs.glm4_9b, "
+            "repro_torch.launch.mesh, repro_torch.launch.roofline, "
+            "repro_torch.launch.dryrun, repro_torch.launch.report; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

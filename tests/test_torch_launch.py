@@ -1,0 +1,433 @@
+"""The LPA half of the port's ``launch/`` (``repro_torch.launch``: mesh,
+roofline, the LPA cells of ``cells``, ``dryrun`` and ``report``) against
+the reference's ``repro.launch``.
+
+The reference's cells are built, and two of them compiled, in one
+subprocess on 512 forced XLA host devices (``ref_cells``): the
+workspace shapes of every cell at 1, 4, 256 and 512 ranks, the meta, the
+production meshes, and, at the SMOKE sizes on 4 devices, the collective
+bytes ``repro.launch.roofline.collective_bytes`` parses out of the
+compiled step's HLO and XLA's argument size. The port's counts must give
+the same numbers. The collectives are also held to what ``ShardComm``
+records over 4 gloo ranks, and the step byte model to the bytes the
+port's step holds (``_torch_live_bytes.LiveBytes``).
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs.registry import get_arch as ref_get_arch
+from repro.launch.cells import lpa_dist_spec as ref_lpa_dist_spec
+from repro.launch import report as ref_report
+from repro.launch.roofline import roofline as ref_roofline
+from repro_torch.configs.registry import ShapeCell, get_arch
+from repro_torch.core import distributed
+from repro_torch.core.distributed import (ShardComm, build_dist_workspace,
+                                          dist_lpa, lpa_collective_bytes,
+                                          spawn_ranks)
+from repro_torch.core.lpa import lpa
+from repro_torch.graphs.generators import powerlaw_communities
+from repro_torch.kernels.mg_sketch.fused import fused_fold_round_plain
+from repro_torch.kernels.mg_sketch.ref import mg_fold_ref
+from repro_torch.launch import dryrun, mesh, report
+from repro_torch.launch.cells import (build_cell, build_lpa_cell,
+                                      lpa_cell_engine, lpa_dist_spec)
+from repro_torch.launch.roofline import (HBM_BW, NVLINK_BW, PEAK_FLOPS,
+                                         collective_bytes, roofline)
+from repro_torch.train.elastic import check_divisibility
+import _torch_launch_ranks as ranks
+from _torch_live_bytes import LiveBytes, kernel_outputs
+from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+SPEC = get_arch("lpa-mg8")
+RANKS = (1, 4, 256, 512)
+
+_REF_CELLS = """
+    import dataclasses, json
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    from repro.configs.registry import ShapeCell, get_arch
+    from repro.launch.cells import build_lpa_cell
+    from repro.launch.mesh import batch_axes, make_production_mesh
+    from repro.launch.roofline import collective_bytes
+
+    def shapes(v):
+        if isinstance(v, tuple):
+            return [shapes(x) for x in v]
+        return [list(v.shape), str(v.dtype)]
+
+    spec = get_arch("lpa-mg8")
+    out = {"cells": {}, "meshes": {}, "smoke": {}}
+    for name, m in (("single", make_production_mesh()),
+                    ("multi", make_production_mesh(multi_pod=True))):
+        out["meshes"][name] = {"axis_names": list(m.axis_names),
+                               "devices_shape": list(m.devices.shape),
+                               "batch_axes": list(batch_axes(m))}
+    for p in RANKS:
+        m = Mesh(np.array(jax.devices()[:p]), ("shard",))
+        for cell in spec.cells:
+            plan = build_lpa_cell(spec, cell, m)
+            out["cells"][f"{cell.name}/{p}"] = {"meta": plan.meta,
+                                                "args": shapes(plan.args)}
+    smoke = dataclasses.replace(spec, config=spec.smoke)
+    m = Mesh(np.array(jax.devices()[:4]), ("shard",))
+    for tag, extra in (("full", {}), ("halo", {"halo": True})):
+        cell = ShapeCell("smoke", "lpa", {"n_nodes": spec.smoke.n_nodes,
+                                          "n_edges": spec.smoke.n_edges,
+                                          **extra})
+        plan = build_lpa_cell(smoke, cell, m)
+        with m:
+            compiled = jax.jit(plan.fn, in_shardings=plan.in_shardings
+                               ).lower(*plan.args).compile()
+        out["smoke"][tag] = {
+            "collectives": collective_bytes(compiled.as_text()),
+            "argument_bytes":
+                int(compiled.memory_analysis().argument_size_in_bytes),
+            "meta": plan.meta}
+    with open(OUT, "w") as f:
+        json.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_cells(tmp_path_factory):
+    """The reference's LPA cells, built (and at SMOKE compiled) on 512
+    forced host devices in a subprocess."""
+    out = tmp_path_factory.mktemp("ref_cells") / "cells.json"
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=512")
+    code = (f"OUT = {str(out)!r}\nRANKS = {RANKS!r}\n"
+            + textwrap.dedent(_REF_CELLS))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(out.read_text())
+
+
+def _shape(t):
+    return [list(t.shape), str(t.dtype).replace("torch.", "")]
+
+
+def _smoke_cell(**extra):
+    return ShapeCell("smoke", "lpa", {"n_nodes": SPEC.smoke.n_nodes,
+                                      "n_edges": SPEC.smoke.n_edges, **extra})
+
+
+def _smoke_plan(n_shards, **extra):
+    return build_lpa_cell(dataclasses.replace(SPEC, config=SPEC.smoke),
+                          _smoke_cell(**extra), n_shards)
+
+
+# ---------------------------------------------------------------------------
+# lpa_dist_spec and build_lpa_cell against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("p", RANKS)
+def test_lpa_dist_spec_equals_the_reference(p):
+    """Shapes, dtypes and sizes of every cell's spec (and SMOKE's)."""
+    sizes = [(c.params["n_nodes"], c.params["n_edges"], SPEC.config)
+             for c in SPEC.cells]
+    sizes.append((SPEC.smoke.n_nodes, SPEC.smoke.n_edges, SPEC.smoke))
+    for n, e, cfg in sizes:
+        args = (n, e, p, cfg.lpa.k, cfg.lpa.chunk,
+                cfg.frac_high_degree_edges)
+        ref, got = ref_lpa_dist_spec(*args), lpa_dist_spec(*args)
+        for name in ("nbr_pos", "weights", "final_row_vertex",
+                     "init_labels"):
+            r, g = getattr(ref, name), getattr(got, name)
+            assert g.is_meta, name
+            assert _shape(g) == [list(r.shape), str(r.dtype)], (name, n, p)
+        assert [_shape(g) for g in got.round_gathers] == \
+            [[list(r.shape), str(r.dtype)] for r in ref.round_gathers]
+        assert got.n_rounds == len(ref.round_gathers)
+        assert (got.n_nodes, got.v_pad, got.k, got.chunk) == \
+            (ref.n_nodes, ref.v_pad, ref.k, ref.chunk)
+        assert got.n_shards == p
+
+
+@pytest.mark.parametrize("p", RANKS)
+def test_build_lpa_cell_equals_the_reference(ref_cells, p):
+    """Meta, and the step's workspace arrays in the reference's argument
+    order (halo tables included), at every rank count."""
+    for cell in SPEC.cells:
+        ref = ref_cells["cells"][f"{cell.name}/{p}"]
+        plan = build_cell(SPEC, cell, p)
+        assert plan.meta == ref["meta"]
+        ws = plan.workspace
+        args = [_shape(ws.nbr_pos), _shape(ws.weights),
+                [_shape(g) for g in ws.round_gathers],
+                _shape(ws.final_row_vertex), _shape(ws.init_labels)]
+        if ws.send_idx is not None:
+            args += [_shape(ws.send_idx), _shape(ws.hub_idx)]
+        want = ref["args"][:5] + ref["args"][7:]  # less the two scalars
+        assert args == want, cell.name
+        assert ws.h_pad == (ref["args"][7][0][2] if ref["meta"]["halo"]
+                            else 0)
+
+
+def test_collective_bytes_equal_the_reference_hlo(ref_cells):
+    """Per op, ``lpa_collective_bytes`` equals what the reference's
+    roofline parses out of its compiled SMOKE cell on 4 devices (full
+    gather and halo), and the workspace's bytes equal XLA's argument
+    size less the step's two scalars (a bool and an int32)."""
+    for tag, extra in (("full", {}), ("halo", {"halo": True})):
+        ref = ref_cells["smoke"][tag]
+        plan = _smoke_plan(4, **extra)
+        assert plan.meta == ref["meta"]
+        assert lpa_collective_bytes(plan.workspace) == ref["collectives"]
+        assert dryrun.workspace_bytes(plan.workspace) == \
+            ref["argument_bytes"] - 5
+
+
+def test_shard_comm_counts_equal_lpa_collective_bytes():
+    """4 gloo ranks, one step of the cell's step on each exchange's
+    workspace of a real graph: ``ShardComm.bytes_by_op`` equals
+    ``lpa_collective_bytes``, and the step holds what the byte model
+    says (the rank function asserts both)."""
+    g, _ = powerlaw_communities(512, p_in=0.5, mix=0.02, seed=5,
+                                device="cpu")
+    arrays = (g.offsets.numpy(), g.indices.numpy(), g.weights.numpy(),
+              g.n_nodes)
+    spawn_ranks(ranks.collectives_of_one_step, 4, (arrays, 4, 16),
+                device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the cell's step on one rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank(tmp_path):
+    """A one-rank gloo group in this process, destroyed afterwards."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield ShardComm("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def g12():
+    return powerlaw_communities(1 << 12, p_in=0.5, mix=0.02, seed=1,
+                                device="cpu")[0]
+
+
+@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
+def test_cell_step_runs_to_single_host_lpa(one_rank, g12, engine):
+    """``dist_lpa`` through the cell's step (SMOKE config) on one rank
+    equals the single-host ``lpa()`` on the engine the cell picks."""
+    cfg = SPEC.smoke.lpa
+    plan = _smoke_plan(1)
+    ws = build_dist_workspace(g12, 1, k=cfg.k, chunk=cfg.chunk,
+                              fused=engine == "pallas_fused")
+    assert lpa_cell_engine(ws) == engine
+    assert lpa_cell_engine(plan.workspace) == "pallas"
+    labels, iters = dist_lpa(one_rank, ws, rho=cfg.rho, tau=cfg.tau,
+                             max_iters=cfg.max_iters,
+                             step=plan.fn(one_rank, ws))
+    ref = lpa(g12, dataclasses.replace(cfg, fold_backend=engine),
+              device="cpu")
+    assert torch.equal(labels, ref.labels)
+    assert iters == ref.iterations
+
+
+@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
+def test_step_temp_bytes_model_equals_the_step(one_rank, g12, engine,
+                                               monkeypatch):
+    """``lpa_step_temp_bytes`` equals the most bytes the port's step
+    holds at once (its kernels standing in as allocations of their
+    outputs), within the CPU's 512 B wrapped scalars; one step moves
+    ``lpa_collective_bytes``."""
+    fused = engine == "pallas_fused"
+    ws = build_dist_workspace(g12, 1, k=8, chunk=128, fused=fused)
+    kw = {}
+    if fused:
+        monkeypatch.setattr(distributed, "fused_fold_round",
+                            kernel_outputs(fused_fold_round_plain))
+    else:
+        kw["fold_tile"] = kernel_outputs(mg_fold_ref)
+    step = build_lpa_cell(SPEC, SPEC.cells[1], 1).fn(one_rank, ws, **kw)
+    labels = ws.init_labels[0].clone()
+    for it in range(2):
+        one_rank.reset_counts()
+        with LiveBytes() as live:
+            labels, _ = step(labels, it == 0, it + 1)
+        model = dryrun.lpa_step_temp_bytes(ws, engine)
+        assert model <= live.peak <= model + 1024, (it, live.peak, model)
+        assert collective_bytes(one_rank.bytes_by_op) == \
+            lpa_collective_bytes(ws)
+
+
+def test_step_models_refuse_what_they_do_not_cover(g12):
+    ws = build_dist_workspace(g12, 1, k=8, chunk=128)
+    with pytest.raises(ValueError, match="pallas and pallas_fused"):
+        dryrun.lpa_step_temp_bytes(ws, "jnp")
+    with pytest.raises(ValueError, match="does not fold"):
+        dryrun.lpa_step_bytes(ws, "pallas_fused")
+
+
+# ---------------------------------------------------------------------------
+# mesh, roofline, dry run and report
+# ---------------------------------------------------------------------------
+
+def test_mesh_descriptors_equal_the_reference(ref_cells):
+    """The production meshes' axes and shapes, and check_divisibility
+    takes them; importing the module touches no device."""
+    import importlib
+    importlib.reload(mesh)
+    for name, multi in (("single", False), ("multi", True)):
+        m = mesh.make_production_mesh(multi_pod=multi)
+        ref = ref_cells["meshes"][name]
+        assert list(m.axis_names) == ref["axis_names"]
+        assert list(m.devices.shape) == ref["devices_shape"]
+        assert list(mesh.batch_axes(m)) == ref["batch_axes"]
+        assert mesh.all_axes(m) == tuple(ref["axis_names"])
+        assert m.size == int(np.prod(ref["devices_shape"]))
+        assert m.shape == dict(zip(ref["axis_names"], ref["devices_shape"]))
+    m = mesh.make_production_mesh()
+    check_divisibility({"w": np.zeros((32, 48))}, {"w": ("data", "model")},
+                       m)
+    with pytest.raises(ValueError, match="not divisible by mesh extent 256"):
+        check_divisibility({"w": np.zeros((32, 48))},
+                           {"w": (("data", "model"), None)}, m)
+    with pytest.raises(ValueError):
+        mesh.make_mesh((2, 2), ("data",))
+
+
+def test_roofline_terms_and_bottleneck():
+    """The reference's test of the terms, at the card's rates, and the
+    same arithmetic as the reference's roofline at its own."""
+    t = roofline(flops_chip=PEAK_FLOPS, bytes_chip=HBM_BW / 2,
+                 coll_bytes_chip=NVLINK_BW / 4)
+    assert t.compute_s == pytest.approx(1.0)
+    assert t.memory_s == pytest.approx(0.5)
+    assert t.collective_s == pytest.approx(0.25)
+    assert t.bottleneck == "compute"
+    assert t.step_time_s == pytest.approx(1.0)
+    r = ref_roofline(197e12, 819e9 / 2, 50e9 / 4)
+    assert t.to_dict().keys() == r.to_dict().keys()
+    assert t.to_dict()["bottleneck"] == r.to_dict()["bottleneck"]
+    assert collective_bytes({"all-gather": 16, "all-reduce": 8,
+                             "total": 1}) == \
+        {"all-gather": 16.0, "all-reduce": 8.0, "total": 24.0}
+
+
+def test_hardware_constants_are_h100():
+    assert PEAK_FLOPS == 989e12
+    assert HBM_BW == 3.35e12
+    assert NVLINK_BW == 450e9
+    assert dryrun.HBM_PER_CHIP == 80e9
+
+
+def _records():
+    """Hand-made records: two cells that fit, one that does not, one
+    failed; both fit keys, so either package's report reads them."""
+    def rec(shape, peak, fits, t):
+        return {"arch": "lpa-mg8", "shape": shape, "ok": True,
+                "memory": {"peak_bytes_per_device": peak,
+                           "fits_16g_hbm": fits, "fits_80g_hbm": fits},
+                "useful_flops_ratio": 1.0,
+                "roofline": {"compute_s": t / 10, "memory_s": t,
+                             "collective_s": t / 3, "bottleneck": "memory",
+                             "step_time_lb_s": t}}
+    recs = {("lpa-mg8", "a"): rec("a", 4.2e9, True, 2e-3),
+            ("lpa-mg8", "b"): rec("b", 1.1e11, False, 1.5),
+            ("lpa-mg8", "c"): rec("c", 3e8, True, 4e-4),
+            ("lpa-mg8", "d"): {"arch": "lpa-mg8", "shape": "d", "ok": False,
+                               "error": "int32 positions cannot index"}}
+    base = {("lpa-mg8", "a"): rec("a", 4.2e9, True, 5e-3)}
+    return recs, base
+
+
+def test_report_gives_the_reference_text():
+    recs, base = _records()
+    assert report.roofline_table(recs, base) == \
+        ref_report.roofline_table(recs, base)
+    assert report.summary(recs) == ref_report.summary(recs).replace(
+        "compile", "built").replace("16 GB", "80 GB")
+    assert report.summary(recs) == "3/4 cells built; 2/3 fit 80 GB HBM/chip"
+    assert report.fmt_s(None) == ref_report.fmt_s(None) == "-"
+
+
+#: (cell, ranks) -> (per-rank workspace bytes, spec rounds)
+WORKED = {("web_560m", 1): (24_500_245_572, 2),
+          ("web_560m", 256): (95_705_316, 2),
+          ("web_4b", 1): (164_431_875_000, 1),
+          ("web_4b", 512): (321_156_024, 1)}
+
+
+def test_dryrun_records_hold_the_worked_numbers(tmp_path, capsys):
+    """The dry run at 256, 512 and 1 rank writes one record per cell and
+    mesh, from meta workspaces, with the worked per-rank bytes; web_4b
+    on one rank is not ok (int32 positions); the report says built."""
+    rc = dryrun.main(["--arch", "lpa-mg8", "--mesh", "both", "--ranks", "1",
+                      "--out", str(tmp_path)])
+    assert rc == 1  # web_4b and web_4b_halo cannot run on one rank
+    meshes = {"single_pod_16x16": 256, "multi_pod_2x16x16": 512,
+              "ranks_1": 1}
+    assert sorted(os.listdir(tmp_path)) == sorted(meshes)
+    for mesh_name, p in meshes.items():
+        recs = report.load(str(tmp_path), mesh_name)
+        assert sorted(s for _, s in recs) == sorted(c.name
+                                                    for c in SPEC.cells)
+        for (_, shape), d in recs.items():
+            cell = next(c for c in SPEC.cells if c.name == shape)
+            assert d["n_devices"] == p and d["engine"] == "pallas"
+            assert d["ok"] == (p > 1 or shape == "web_560m"), shape
+            if (shape, p) in WORKED:
+                nbytes, rounds = WORKED[(shape, p)]
+                assert d["memory"]["argument_bytes"] == nbytes
+                assert d["n_rounds"] == rounds
+            if not d["ok"]:
+                assert "int32 positions" in d["error"]
+            mem = d["memory"]
+            assert mem["peak_bytes_per_device"] == (
+                mem["argument_bytes"] + mem["output_bytes"]
+                + mem["temp_bytes"])
+            assert mem["fits_80g_hbm"] == (mem["peak_bytes_per_device"]
+                                           < 80e9)
+            e = cell.params["n_edges"]
+            assert d["flops_per_chip"] == pytest.approx(e / p * 48)
+            assert d["useful_flops_ratio"] == pytest.approx(1.0)
+            ws = build_lpa_cell(SPEC, cell, p).workspace
+            assert d["collectives"] == lpa_collective_bytes(ws)
+            r = d["roofline"]
+            assert r["memory_s"] == pytest.approx(d["bytes_per_chip"]
+                                                  / 3.35e12)
+            assert r["collective_s"] == pytest.approx(
+                d["collectives"]["total"] / 450e9)
+    # web_560m at 256 ranks: 4 · 72,266 B of labels gathered, 8 B summed
+    rec = report.load(str(tmp_path), "single_pod_16x16")[("lpa-mg8",
+                                                          "web_560m")]
+    assert rec["collectives"] == {"all-gather": 4.0 * 256 * 72_266,
+                                  "all-reduce": 8.0,
+                                  "total": 4.0 * 256 * 72_266 + 8}
+    capsys.readouterr()
+    report.main(["--results", str(tmp_path), "--mesh", "ranks_1"])
+    out = capsys.readouterr().out
+    assert out.startswith("1/3 cells built; 0/1 fit 80 GB HBM/chip")
+    assert "compile" not in out
+
+
+def test_dryrun_refuses_another_family(tmp_path, capsys):
+    rc = dryrun.main(["--arch", "qwen3-1.7b", "--out", str(tmp_path)])
+    assert rc == 2
+    assert "ROADMAP" in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
+
+
+def test_ref_registry_has_the_same_lpa_cells():
+    ref = ref_get_arch("lpa-mg8")
+    assert [(c.name, c.kind, c.params) for c in ref.cells] == \
+        [(c.name, c.kind, c.params) for c in SPEC.cells]

@@ -1,0 +1,107 @@
+"""The LPA cells' step on the card (``repro_torch.launch``).
+
+Marked ``gpu``: without a CUDA device every test here skips (the decision
+is taken inside the ``nccl_rank`` fixture, never at import). On a
+machine with one: ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_launch_cuda.py``. Imports torch and numpy only (the
+card's machine has no JAX).
+
+On a one-rank NCCL group: the bytes one step of the cell's step holds
+above its inputs (``torch.cuda.max_memory_allocated``) within 5% of
+``launch.dryrun.lpa_step_temp_bytes`` at 2^18 vertices, on the bucketed
+(K9) and the fused (K1) layout; K9 on the cell's bucketed rounds equal
+to its plain version (int32 bits); the step's collectives equal to
+``lpa_collective_bytes``.
+"""
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.registry import get_arch
+from repro_torch.core.distributed import (ShardComm, build_dist_workspace,
+                                          lpa_collective_bytes)
+from repro_torch.graphs.generators import powerlaw_communities
+from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
+from repro_torch.kernels.mg_sketch import ops, ref
+from repro_torch.launch import dryrun
+from repro_torch.launch.cells import build_lpa_cell
+
+pytestmark = pytest.mark.gpu
+
+SPEC = get_arch("lpa-mg8")
+SCALE = 18
+TEMP_TOL = 0.05
+
+
+@pytest.fixture(scope="module")
+def nccl_rank(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: these tests run the LPA cell's "
+                    "step on the card")
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield ShardComm("cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return powerlaw_communities(1 << SCALE, p_in=0.5, mix=0.02, seed=1,
+                                device="cpu")[0]
+
+
+def _cell_step(comm, ws, **kw):
+    return build_lpa_cell(SPEC, SPEC.cells[1], 1).fn(comm, ws, **kw)
+
+
+@pytest.mark.parametrize("engine", ["pallas", "pallas_fused"])
+def test_step_temporaries_match_the_byte_model(nccl_rank, graph, engine):
+    cfg = SPEC.config.lpa
+    ws = build_dist_workspace(graph, 1, k=cfg.k, chunk=cfg.chunk,
+                              fused=engine == "pallas_fused")
+    step = _cell_step(nccl_rank, ws)
+    labels = ws.init_labels[0].cuda()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    nccl_rank.reset_counts()
+    step(labels, True, 1)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - before
+    model = dryrun.lpa_step_temp_bytes(ws, engine)
+    assert abs(held / model - 1) <= TEMP_TOL, (held, model)
+    key = "fused_fold" if engine == "pallas_fused" else "tile_mg_fold"
+    assert {k: n for k, n in LAUNCH_COUNTS.items() if n} == \
+        {key: ws.n_rounds}
+    want = lpa_collective_bytes(ws)
+    assert nccl_rank.bytes_by_op == {op: b for op, b in want.items()
+                                     if op != "total"}
+
+
+def test_k9_on_the_cell_rounds_equals_plain(nccl_rank, graph):
+    cfg = SPEC.config.lpa
+    ws = build_dist_workspace(graph, 1, k=cfg.k, chunk=cfg.chunk)
+    tiles = []
+
+    def checked(gl, gw, k):
+        got = ops.mg_fold_tile_pallas(gl, gw, k)
+        want = ref.mg_fold_ref(gl, gw, k)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+        tiles.append(tuple(gl.shape))
+        return got
+
+    labels = ws.init_labels[0].cuda()
+    reset_launch_counts()
+    new, _ = _cell_step(nccl_rank, ws, fold_tile=checked)(labels, True, 1)
+    assert LAUNCH_COUNTS["tile_mg_fold"] == ws.n_rounds == len(tiles)
+    assert tiles == [tuple(g.shape[1:]) for g in ws.round_gathers]
+    plain, _ = _cell_step(nccl_rank, ws, fold_tile=ref.mg_fold_ref)(
+        labels, True, 1)
+    assert torch.equal(new, plain)
