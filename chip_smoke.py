@@ -209,7 +209,28 @@ Phases:
      each K9 launch equal to its plain version; at 2^16, the cell's step
      to convergence on both layouts equal to single-host ``lpa()`` on
      the same engine, label for label;
-  11. one JSON line describing every kernel (K1 and K2 also list the
+  11. the LM half of the dry run (``launch.probes``, ``launch.cost``,
+     the LM branch of ``launch.dryrun``, ``train.elastic.remesh``): (a)
+     the dry run of the five LM archs' four cells on 256 and 512 ranks
+     and on one, host work on meta tensors in processes of this
+     script's own (``--lm-dryrun``) started at phase 7: per-rank peak and
+     fit in 80 GB, the three roofline terms, bottleneck and t_lb, and
+     the report's table; (b) each arch's probe layer at train_4k's local
+     shapes on the 16 x 16 mesh, and qwen3-1.7b's prefill_32k layer (its
+     [2, 1, 32,768, 32,768] float32 score square, unchunked), at the
+     published widths on the card: ``CostCounter``'s totals on the card
+     equal to meta's, the median ms of 5 calls (CUDA events) not below
+     the roofline's t_lb of the counted FLOPs and bytes, ``LiveBytes``'
+     peak on meta within 5% of the allocator's above resident; (c) the
+     dry run of qwen3-1.7b on one rank at phase 9's shapes: argument
+     bytes within 5% of phase 9's resident bytes (less what was
+     allocated before its model), temp bytes within 5% of its working
+     bytes; (d) qwen3-1.7b FULL saved by the checkpoint manager and
+     restored by ``remesh`` on 4 gloo ranks sharing the card under "tp"
+     and "fsdp" on a (2, 2) mesh: every shard equal to its slice, the
+     shards gathered on rank 0 equal to the tree, a (1, 3) mesh raising
+     before anything moves;
+  12. one JSON line describing every kernel (K1 and K2 also list the
      partitions of phases 7 and 8 as ``gnn_partition`` and
      ``train_partition``; K1 and K9 the cells of phase 10).
 
@@ -2994,6 +3015,8 @@ def _lm_full(tag: str, phase: str, arch: str) -> dict:
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import LM_CELLS, lm_config, lm_model
     cfg = lm_config(arch)
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = lm_model(cfg)
     torch.cuda.synchronize()
@@ -3003,7 +3026,10 @@ def _lm_full(tag: str, phase: str, arch: str) -> dict:
           f"{get_arch(arch).config.n_layers} layers: {n} parameters "
           f"({4 * n / 1e9:.2f} GB float32) drawn on the card in "
           f"{init_s:.2f} s", flush=True)
-    report = {"n_params": n, "init_s": init_s, "layers": cfg.n_layers}
+    # what was allocated before the model: phase 11c holds the dry run's
+    # argument bytes to a cell's resident bytes less this
+    report = {"n_params": n, "init_s": init_s, "layers": cfg.n_layers,
+              "baseline_bytes": baseline}
     cells = sorted(LM_CELLS[arch]["cells"], key=lambda c: c == "train_4k")
     for cell in cells:
         report[cell] = _lm_cell(tag, phase, arch, cell, model, cfg)
@@ -3562,16 +3588,440 @@ def _lpa_cells(web: tuple, tag: str) -> dict:
     return report
 
 
+# -- phase 11: the LM half of the dry run -------------------------------------
+
+#: 11a: the dry run's meshes, as the dry run names them
+LM_DRYRUN_MESHES = ("single_pod_16x16", "multi_pod_2x16x16", "ranks_1")
+#: the longest phase 11 waits for the dry-run processes (started at
+#: phase 7; about a minute of host work each)
+LM_DRYRUN_WAIT_S = 900
+#: 11b: the probe layers run on the card: (arch, cell, model extent,
+#: data extent) of the cell's probe on the 16 x 16 mesh (train_4k runs
+#: context parallel: a probe at model 1, data 256)
+PROBE_LAYERS = tuple((arch, "train_4k", 1, 256) for arch in LM_ARCHS) + (
+    ("qwen3-1.7b", "prefill_32k", 16, 16),)
+PROBE_REPS = 5
+#: 11b, 11c: LiveBytes on meta and the dry run's bytes against the card's
+#: allocator
+LM_MEM_TOL = 0.05
+#: 11c: the phase-9 cells of qwen3-1.7b the dry run is held to
+C11_CELLS = ("prefill_32k", "decode_32k", "long_500k", "train_4k")
+#: 11d: gloo ranks sharing the card, their mesh, and a mesh that does not
+#: divide qwen3-1.7b's TP layout
+REMESH_RANKS, REMESH_MESH, REMESH_BAD = 4, (2, 2), (1, 3)
+
+
+def _c11_cells() -> dict:
+    """11c's dry runs: qwen3-1.7b at 28 layers on one rank at phase 9's
+    cut shapes (``launch.serve.LM_CELLS``). Train runs with ``sp_mode =
+    "none"``: on a mesh of one rank that is phase 9's step itself (its
+    ``tp`` layout on one rank rewrites nothing), where the default ``cp``
+    plan would switch the attention to its context-parallel form."""
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import LM_CELLS
+    spec = get_arch("qwen3-1.7b")
+    spec = dataclasses.replace(spec, config=dataclasses.replace(
+        spec.config, sp_mode="none"))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    for name in C11_CELLS:
+        b, s = LM_CELLS["qwen3-1.7b"]["cells"][name]
+        cell = ShapeCell(name, LM_KIND[name], {"batch": b, "seq": s})
+        out[name] = dryrun.run_cell(spec, cell, mesh, "ranks_1")
+    return out
+
+
+def _lm_dryrun(out: Path, arch: str) -> int:
+    """``--lm-dryrun OUT ARCH``: ``launch.dryrun`` of one LM arch on the
+    reference's two meshes and one rank (records under ``OUT``), and for
+    qwen3-1.7b 11c's cells (``OUT/c11.json``). A host computation on meta
+    tensors in a process of its own, started at phase 7 so that it
+    overlaps phases 7-10; it touches no device."""
+    os.nice(10)
+    from repro_torch.launch import dryrun
+    rc = dryrun.main(["--arch", arch, "--mesh", "both", "--ranks", "1",
+                      "--out", str(out)])
+    if arch == "qwen3-1.7b":
+        part = out / "c11.part"
+        part.write_text(json.dumps(_c11_cells()))
+        os.replace(part, out / "c11.json")
+    return rc
+
+
+def _start_lm_dryrun() -> tuple:
+    """Start one ``--lm-dryrun`` process per LM arch, writing to one
+    temporary directory; at exit they are stopped and it is removed."""
+    out = Path(tempfile.mkdtemp(prefix="lm_dryrun_"))
+    procs = {}
+    for arch in LM_ARCHS:
+        with open(out / f"{arch}.log", "w") as log:
+            procs[arch] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--lm-dryrun", str(out), arch],
+                stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(_stop_lm_dryrun, procs, out)
+    return procs, out
+
+
+def _stop_lm_dryrun(procs: dict, out: Path) -> None:
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def _lm_dryrun_records(dry: tuple, tag: str) -> dict:
+    """11a: wait for the dry-run processes; print every LM record (per-rank
+    peak and its fit in 80 GB, the roofline's three terms, bottleneck and
+    t_lb) and each mesh's report; every record must be ok."""
+    from repro_torch.launch import report
+    procs, out = dry
+    t0 = time.perf_counter()
+    for arch, proc in procs.items():
+        rc = proc.wait(timeout=LM_DRYRUN_WAIT_S)
+        if rc != 0:
+            raise AssertionError(
+                f"phase 11a: the dry run of {arch} exited {rc}: "
+                f"{(out / f'{arch}.log').read_text()[-3000:]}")
+    waited = time.perf_counter() - t0
+    recs_by_mesh = {}
+    for mesh_name in LM_DRYRUN_MESHES:
+        recs = report.load(str(out), mesh_name)
+        want = {(a, c) for a in LM_ARCHS for c in LM_KIND}
+        if set(recs) != want:
+            raise AssertionError(f"phase 11a: {mesh_name}: records "
+                                 f"{sorted(recs)}")
+        for (arch, shape), rec in sorted(recs.items()):
+            if not rec["ok"]:
+                raise AssertionError(f"phase 11a: {mesh_name} {arch}/{shape}:"
+                                     f" {rec.get('error')}")
+            mem, r = rec["memory"], rec["roofline"]
+            print(f"{tag} phase 11a: {arch}/{shape} on {mesh_name} "
+                  f"({rec['n_devices']} ranks, {rec['mode']}): peak "
+                  f"{mem['peak_bytes_per_device']} B "
+                  f"({mem['peak_bytes_per_device'] / 1e9:.2f} GB; argument "
+                  f"{mem['argument_bytes']}, temp {mem['temp_bytes']}): "
+                  f"fits 80 GB {mem['fits_80g_hbm']}; compute "
+                  f"{r['compute_s'] * 1e3:.4f} ms, memory "
+                  f"{r['memory_s'] * 1e3:.4f} ms, collective "
+                  f"{r['collective_s'] * 1e3:.4f} ms: bottleneck "
+                  f"{r['bottleneck']}, t_lb {r['step_time_lb_s'] * 1e3:.4f} "
+                  f"ms ({rec['flops_per_chip']:.6g} FLOP, "
+                  f"{rec['bytes_per_chip']:.6g} B, "
+                  f"{rec['collectives']['total']:.6g} collective B"
+                  + ("" if rec["collectives_checked"] else
+                     f", unverified: {rec['collectives_unchecked']}")
+                  + ")", flush=True)
+        print(f"{tag} phase 11a: {mesh_name}: {report.summary(recs)}\n"
+              f"{report.roofline_table(recs)}", flush=True)
+        recs_by_mesh[mesh_name] = {f"{a}/{c}": rec
+                                   for (a, c), rec in recs.items()}
+    c11 = json.loads((out / "c11.json").read_text())
+    return {"records": recs_by_mesh, "c11": c11, "waited_s": waited}
+
+
+def _probe_layer(arch: str, cell: str, mm: int, md: int, tag: str) -> dict:
+    """11b: ``lm_fwd_probe``'s layer of ``arch`` at the cell's local shapes
+    (published widths, attention unchunked) on the card, weights drawn on
+    the card: its ``CostCounter`` totals on the card equal to those on
+    meta; the median ms of ``PROBE_REPS`` calls (CUDA events, after a
+    warm-up, outside the counter) against the roofline's t_lb of the
+    counted FLOPs and bytes; LiveBytes' peak on meta against the
+    allocator's peak above what was resident."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import probes
+    from repro_torch.launch.cost import CostCounter
+    from repro_torch.launch.live_bytes import LiveBytes
+    from repro_torch.launch.roofline import roofline
+    from repro_torch.models.transformer import (_layer, init_params,
+                                                param_structs)
+    from repro_torch.tree import param_tree
+
+    spec = get_arch(arch)
+    c = next(x for x in spec.cells if x.name == cell)
+    cfg = spec.config
+    lcfg = probes._local_cfg(cfg, mm, md)
+    b, s = max(1, c.params["batch"] // md), c.params["seq"]
+    single = dataclasses.replace(lcfg, n_layers=1)
+
+    def layer(layers, x, pos):
+        return _layer(probes._first_layer(layers), x, lcfg, pos)
+
+    # on meta: the count and the bytes held
+    meta_args = (param_structs(single)["layers"],
+                 torch.empty((b, s, cfg.d_model), dtype=cfg.dtype,
+                             device="meta"),
+                 torch.empty((b, s), dtype=torch.int32, device="meta"))
+    with torch.no_grad(), CostCounter() as cc_meta:
+        layer(*meta_args)
+    with torch.no_grad(), LiveBytes() as live:
+        layer(*meta_args)
+    # on the card
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_params(gen, single, device="cuda")
+    layers = param_tree(model)["layers"]
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda"
+                    ).to(cfg.dtype)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(
+        b, s).contiguous()
+    with torch.no_grad():
+        out = layer(layers, x, pos)  # warm-up
+        with CostCounter() as cc_card:
+            layer(layers, x, pos)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        layer(layers, x, pos)
+        torch.cuda.synchronize()
+        held = torch.cuda.max_memory_allocated() - resident
+        ms = _time_ms(lambda: layer(layers, x, pos), warmup=0,
+                      reps=PROBE_REPS)
+    finite = bool(torch.isfinite(out.float()).all())
+    if not finite or tuple(out.shape) != (b, s, cfg.d_model):
+        raise AssertionError(f"phase 11b, {arch} {cell}: output "
+                             f"{tuple(out.shape)}, finite {finite}")
+    meta_t, card_t = cc_meta.totals(), cc_card.totals()
+    if meta_t != card_t:
+        raise AssertionError(f"phase 11b, {arch} {cell}: the card's count "
+                             f"{card_t} differs from meta's {meta_t}")
+    t_lb = roofline(card_t["flops"], card_t["bytes"], 0.0)
+    if t_lb.step_time_s * 1e3 > ms:
+        raise AssertionError(f"phase 11b, {arch} {cell}: t_lb "
+                             f"{t_lb.step_time_s * 1e3:.4f} ms above the "
+                             f"measured {ms:.4f} ms")
+    mem_err = held / live.peak - 1
+    if abs(mem_err) > LM_MEM_TOL:
+        raise AssertionError(f"phase 11b, {arch} {cell}: the card held "
+                             f"{held} B above resident, LiveBytes on meta "
+                             f"{live.peak} B ({mem_err:+.2%})")
+    share = t_lb.step_time_s * 1e3 / ms
+    rep = {"batch": b, "seq": s, "model_extent": mm, "data_extent": md,
+           "ms": ms, "t_lb_ms": t_lb.step_time_s * 1e3,
+           "bound_by": t_lb.bottleneck, "t_lb_share": share,
+           "flops": card_t["flops"], "transcendentals":
+           card_t["transcendentals"], "bytes": card_t["bytes"],
+           "by_class": card_t["by_class"], "held_bytes": held,
+           "live_bytes_meta": live.peak, "held_vs_meta": mem_err}
+    print(f"{tag} phase 11b: {arch} {cell} probe layer (published widths, "
+          f"local extents model {mm} data {md}: batch {b} x seq {s}, "
+          f"{lcfg.n_heads} heads, attention unchunked) on the card: "
+          f"CostCounter equal to meta's ({card_t['flops']:.6g} FLOP, "
+          f"{card_t['transcendentals']:.6g} transcendentals, "
+          f"{card_t['bytes']:.6g} B unfused eager traffic; products "
+          f"{card_t['by_class']['product']['flops']:.6g}, the port's "
+          f"converts {card_t['by_class']['convert']['flops']:.6g}; XLA's "
+          f"CPU converts, not run, "
+          f"{card_t['by_class']['xla_cpu_convert']['flops']:.6g}); "
+          f"{ms:.4f} ms "
+          f"(median of {PROBE_REPS}, CUDA events) against t_lb "
+          f"{t_lb.step_time_s * 1e3:.4f} ms by {t_lb.bottleneck}: "
+          f"{share:.1%} of it; held {held} B above resident against "
+          f"LiveBytes {live.peak} B on meta ({mem_err:+.3%})", flush=True)
+    del model, layers, x, pos, out
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _dryrun_vs_phase9(c11: dict, lm: dict, tag: str) -> dict:
+    """11c: the dry run of qwen3-1.7b on one rank at phase 9's shapes
+    against phase 9's own measurements of those cells (not run again):
+    ``argument_bytes`` against the bytes resident for the cell (resident
+    less what was allocated before the model was drawn), ``temp_bytes``
+    against the working bytes (peak less resident), each within
+    ``LM_MEM_TOL``."""
+    measured = lm["qwen3-1.7b"]
+    base = measured["baseline_bytes"]
+    out = {}
+    for name, rec in c11.items():
+        if not rec["ok"]:
+            raise AssertionError(f"phase 11c: {name}: {rec.get('error')}")
+        m9 = measured[name]
+        mem = rec["memory"]
+        held = m9["resident_bytes"] - base
+        arg_err = mem["argument_bytes"] / held - 1
+        temp_err = mem["temp_bytes"] / m9["working_bytes"] - 1
+        out[name] = {"argument_bytes": mem["argument_bytes"],
+                     "resident_bytes": held, "argument_err": arg_err,
+                     "temp_bytes": mem["temp_bytes"],
+                     "working_bytes": m9["working_bytes"],
+                     "temp_err": temp_err}
+        print(f"{tag} phase 11c: qwen3-1.7b {name} (batch {m9['batch']} x "
+              f"seq {m9['seq']}, 28 layers, one rank, {rec['mode']}): dry "
+              f"run argument {mem['argument_bytes']} B against phase 9's "
+              f"resident {held} B ({arg_err:+.3%}), temp "
+              f"{mem['temp_bytes']} B against phase 9's working "
+              f"{m9['working_bytes']} B ({temp_err:+.3%})", flush=True)
+        if abs(arg_err) > LM_MEM_TOL or abs(temp_err) > LM_MEM_TOL:
+            raise AssertionError(f"phase 11c, {name}: argument "
+                                 f"{arg_err:+.2%}, temp {temp_err:+.2%}")
+    return out
+
+
+def _remesh_rank(comm, ckpt: str, out_dir: str) -> None:
+    """Rank body of 11d: restore qwen3-1.7b FULL from the checkpoint with
+    ``remesh`` under ``lm_param_specs`` "tp" and "fsdp" on a (2, 2) mesh,
+    reading only this rank's slices (memory maps); each shard equal to
+    the logical slice (``torch.equal``), the shards gathered on rank 0
+    equal to the stored tree; a mesh that does not divide raises before
+    anything moves. The report goes to ``out_dir/remesh{r}.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.cells import lm_param_specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import param_structs
+    from repro_torch.train.elastic import (leaves_with_specs, remesh,
+                                           shard_slices)
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = get_arch("qwen3-1.7b").config
+    structs = param_structs(cfg)
+    leaves = CheckpointManager(ckpt).open_leaves()
+    tree = tree_unflatten(structs, leaves)
+    mesh = make_mesh(REMESH_MESH, ("data", "model"))
+    rank, world = comm.rank, comm.world_size
+    out = {"rank": rank}
+    for mode in ("tp", "fsdp"):
+        specs = lm_param_specs(cfg, structs, mesh, mode)
+        torch.cuda.synchronize(comm.device)
+        t0 = time.perf_counter()
+        shards = tree_leaves(remesh(tree, specs, mesh, rank,
+                                    device=comm.device))
+        torch.cuda.synchronize(comm.device)
+        seconds = time.perf_counter() - t0
+        equal = gathered_equal = True
+        for (_, leaf, spec), shard in zip(leaves_with_specs(tree, specs),
+                                          shards):
+            sl = shard_slices(leaf.shape, spec, mesh, rank)
+            host = shard.cpu()
+            equal &= torch.equal(host, torch.from_numpy(np.array(leaf[sl])))
+            parts = ([torch.empty_like(host) for _ in range(world)]
+                     if rank == 0 else None)
+            dist.gather(host, parts, dst=0)
+            if rank == 0:
+                whole = np.empty(leaf.shape, dtype=leaf.dtype)
+                for r, part in enumerate(parts):
+                    whole[shard_slices(leaf.shape, spec, mesh, r)] = \
+                        part.numpy()
+                gathered_equal &= bool(np.array_equal(whole, leaf))
+        out[mode] = {"seconds": seconds, "equal": bool(equal),
+                     "gathered_equal": bool(gathered_equal),
+                     "bytes": sum(t.numel() * t.element_size()
+                                  for t in shards)}
+        del shards
+        torch.cuda.empty_cache()
+    bad = make_mesh(REMESH_BAD, ("data", "model"))
+    before = torch.cuda.memory_allocated(comm.device)
+    try:
+        remesh(tree, lm_param_specs(cfg, structs, bad, "tp"), bad, rank,
+               device=comm.device)
+        out["bad_mesh"] = "did not raise"
+    except ValueError as e:
+        out["bad_mesh"] = str(e)
+    out["bad_mesh_moved"] = torch.cuda.memory_allocated(comm.device) - before
+    Path(out_dir, f"remesh{rank}.json").write_text(json.dumps(out))
+
+
+def _remesh(tag: str) -> dict:
+    """11d: qwen3-1.7b FULL drawn on the card and saved once by the
+    checkpoint manager in the reference's layout (in TMPDIR), then
+    restored by ``REMESH_RANKS`` gloo ranks sharing the card
+    (``_remesh_rank``)."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.distributed import spawn_ranks
+    from repro_torch.launch.serve import lm_config, lm_model
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remesh_") as tmp:
+        cfg = lm_config("qwen3-1.7b")
+        model = lm_model(cfg)
+        t0 = time.perf_counter()
+        CheckpointManager(tmp).save(0, model)
+        save_s = time.perf_counter() - t0
+        n_bytes = 4 * sum(p.numel() for p in model.parameters())
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn_ranks(_remesh_rank, REMESH_RANKS, (tmp, tmp))
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(tmp, f"remesh{r}.json").read_text())
+                 for r in range(REMESH_RANKS)]
+    for rk in ranks:
+        for mode in ("tp", "fsdp"):
+            if not rk[mode]["equal"]:
+                raise AssertionError(f"phase 11d, {mode}, rank {rk['rank']}:"
+                                     f" a shard differs from its slice")
+        if "not divisible" not in rk["bad_mesh"] or rk["bad_mesh_moved"]:
+            raise AssertionError(f"phase 11d, rank {rk['rank']}: the mesh "
+                                 f"{REMESH_BAD} gave {rk['bad_mesh']!r}, "
+                                 f"{rk['bad_mesh_moved']} B moved")
+    for mode in ("tp", "fsdp"):
+        if not ranks[0][mode]["gathered_equal"]:
+            raise AssertionError(f"phase 11d, {mode}: the gathered shards "
+                                 f"differ from the tree")
+        print(f"{tag} phase 11d: remesh of qwen3-1.7b FULL ({n_bytes} B "
+              f"float32, saved in {save_s:.2f} s) under {mode} on a "
+              f"{REMESH_MESH} mesh of {REMESH_RANKS} gloo ranks sharing the "
+              f"card: every shard equal to its slice, the shards gathered on "
+              f"rank 0 equal to the tree; per rank bytes / seconds: "
+              + "; ".join(f"{rk[mode]['bytes']} / {rk[mode]['seconds']:.3f}"
+                          for rk in ranks), flush=True)
+    print(f"{tag} phase 11d: a {REMESH_BAD} mesh raised before anything "
+          f"moved: {ranks[0]['bad_mesh']}; ranks ran in {spawn_s:.1f} s",
+          flush=True)
+    return {"ranks": ranks, "save_s": save_s, "spawn_s": spawn_s,
+            "tree_bytes": n_bytes}
+
+
+def _lm_dryrun_path(dry: tuple, lm: dict, tag: str) -> dict:
+    """Phase 11: the LM dry run (11a), the probe layers on the card (11b),
+    the dry run against phase 9 (11c), remesh over gloo ranks (11d)."""
+    import torch
+    report: dict = {}
+    t0 = time.perf_counter()
+    dr = _lm_dryrun_records(dry, tag)
+    report["dryrun"], report["11a_s"] = dr, time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["probes"] = {f"{a}/{c}": _probe_layer(a, c, mm, md, tag)
+                        for a, c, mm, md in PROBE_LAYERS}
+    report["11b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["vs_phase9"] = _dryrun_vs_phase9(dr["c11"], lm, tag)
+    report["11c_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["remesh"] = _remesh(tag)
+    report["11d_s"] = time.perf_counter() - t0
+    print(f"{tag} phase 11: seconds by part: "
+          + ", ".join(f"{part} {report[part + '_s']:.1f}"
+                      for part in ("11a", "11b", "11c", "11d"))
+          + f" (11a waited {dr['waited_s']:.1f} s for the dry runs)",
+          flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
                         help="also write the full report as JSON here")
     parser.add_argument("--write-web-cell", default=None,
                         help=argparse.SUPPRESS)
+    parser.add_argument("--lm-dryrun", nargs=2, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.write_web_cell:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         return _write_web_cell(Path(args.write_web_cell))
+    if args.lm_dryrun:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        return _lm_dryrun(Path(args.lm_dryrun[0]), args.lm_dryrun[1])
 
     import torch
     if not torch.cuda.is_available():
@@ -4112,8 +4562,10 @@ def main(argv=None) -> int:
     _phase_took(tag, 6, t_phase, report)
 
     # -- phase 7: the GNN serving path ---------------------------------------
-    # phase 10's web_560m graph and workspace, built on the host meanwhile
+    # phase 10's web_560m graph and workspace and phase 11's LM dry runs,
+    # host work in processes of their own meanwhile
     web_cell = _start_web_cell()
+    lm_dry = _start_lm_dryrun()
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     report["gnn"] = _gnn_path(graph, cfg, tag)
@@ -4137,7 +4589,13 @@ def main(argv=None) -> int:
     report["lpa_cells"] = _lpa_cells(web_cell, tag)
     _phase_took(tag, 10, t_phase, report)
 
-    # -- phase 11: the kernels line -------------------------------------------
+    # -- phase 11: the LM half of the dry run --------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report["lm_dryrun"] = _lm_dryrun_path(lm_dry, report["lm"], tag)
+    _phase_took(tag, 11, t_phase, report)
+
+    # -- phase 12: the kernels line -------------------------------------------
     main = report["main"]
     gnn_launches = report["gnn"]["example"]["partition"]["launches"]
     train_launches = report["train"]["example"]["partition"]["launches"]

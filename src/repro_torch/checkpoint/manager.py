@@ -19,6 +19,7 @@ import json
 import os
 import shutil
 import tempfile
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
@@ -139,6 +140,41 @@ class CheckpointManager:
             torch.from_numpy(n).to(device=l.device, dtype=l.dtype)
             for n, l in zip(new, leaves)])
         return restored, step
+
+    def open_leaves(self, step: Optional[int] = None, host: int = 0
+                    ) -> list:
+        """The leaves of a stored step as read-only memory maps of its
+        shard file, in order (nothing is read until a leaf is sliced).
+        ``np.savez`` stores each array uncompressed, so each lies in one
+        run of the file, after its zip entry's header and its ``.npy``
+        header."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = os.path.join(self.dir, f"step_{step:08d}", f"host_{host}.npz")
+        leaves = []
+        with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+            names = sorted(z.namelist(),
+                           key=lambda n: int(n[len("leaf_"):-len(".npy")]))
+            for name in names:
+                info = z.getinfo(name)
+                if info.compress_type != zipfile.ZIP_STORED:
+                    raise ValueError(f"{path}: {name} is compressed")
+                f.seek(info.header_offset)
+                local = f.read(30)
+                start = (info.header_offset + 30
+                         + int.from_bytes(local[26:28], "little")
+                         + int.from_bytes(local[28:30], "little"))
+                f.seek(start)
+                read_header = (np.lib.format.read_array_header_1_0
+                               if np.lib.format.read_magic(f) == (1, 0)
+                               else np.lib.format.read_array_header_2_0)
+                shape, fortran, dtype = read_header(f)
+                if fortran:
+                    raise ValueError(f"{path}: {name} is Fortran-ordered")
+                leaves.append(np.memmap(path, dtype=dtype, mode="r",
+                                        offset=f.tell(), shape=shape))
+        return leaves
 
     def manifest(self, step: int) -> dict:
         with open(os.path.join(self.dir, f"step_{step:08d}",

@@ -1,13 +1,25 @@
 """Per-architecture cells: the LM, GNN and recsys cells' step functions.
 
-A copy of the cell builders of ``repro.launch.cells`` (the LM family's,
-the GNN dispatch ``_gnn_apply``, ``_gnn_init``, ``_gnn_cell_config`` and
-the GNN and recsys builders). A ``CellPlan`` here holds the cell's step
-function, the model config it runs at and ``init(generator,
-device=None) -> model``. The reference's plans also carry abstract
-inputs, XLA shardings and the context-parallel hints of its dry runs;
-one card holds everything, so those are not ported.
+A copy of the cell builders of ``repro.launch.cells`` (the LM family's
+with their mesh layouts, the GNN dispatch ``_gnn_apply``, ``_gnn_init``,
+``_gnn_cell_config`` and the GNN and recsys builders). A ``CellPlan``
+here holds the cell's step function, the model config it runs at and
+``init(generator, device=None) -> model``. The GNN and recsys cells'
+shardings are not ported yet (ROADMAP).
 
+The LM builders take an optional ``mesh`` (``launch.mesh.Mesh`` or
+anything with ``axis_names`` and ``devices.shape``). Without one, the
+plan is the one-card step the serving and training paths run. With one,
+it is the reference's plan on that mesh: the config rewrite of its
+context-parallel train cell, ``meta``'s ``mode``, ``probe_model``,
+``probe_data`` (train) and ``kv_len`` (decode), ``args`` (the step's
+inputs as meta tensors: the counterpart of the reference's
+``ShapeDtypeStruct`` arguments) and ``specs`` (a spec per input leaf, in
+the tuple form ``train.elastic`` takes: per dim ``None``, an axis name
+or a tuple of names; the reference's ``PartitionSpec`` values).
+
+- ``lm_param_specs``: the LM parameter tree's specs in the reference's
+  four layouts, ``tp``, ``fsdp``, ``ep_fsdp`` and ``cp``;
 - ``build_lm_train``: the loss-and-AdamW train step of the arch's config
   on ``{"tokens", "targets"}`` batches;
 - ``build_lm_prefill``: the forward, then the logits of the last
@@ -37,20 +49,25 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.registry import ArchSpec, ShapeCell
 from repro_torch.core.distributed import DistLPAWorkspace, dist_lpa_step
 from repro_torch.graphs.sampler import tree_shape
+from repro_torch.launch.mesh import all_axes, batch_axes
 from repro_torch.models.gnn import (init_egnn, init_equiformer, init_mgn,
                                     init_pna)
+from repro_torch.train.elastic import mesh_sizes
 from repro_torch.train.steps import make_train_step
+from repro_torch.tree import param_tree
 
-__all__ = ["CellPlan", "build_lm_train", "build_lm_prefill",
-           "build_lm_decode", "_gnn_apply", "_gnn_init", "_gnn_cell_config",
-           "build_gnn_cell", "build_gnn_sampled_cell", "flatten_trees",
+__all__ = ["CellPlan", "meta_tensor", "mesh_extents", "lm_param_specs",
+           "build_lm_train", "build_lm_prefill", "decode_layout",
+           "build_lm_decode",
+           "_gnn_apply", "_gnn_init", "_gnn_cell_config", "build_gnn_cell",
+           "build_gnn_sampled_cell", "flatten_trees",
            "build_recsys_cell", "lpa_dist_spec", "lpa_cell_engine",
            "build_lpa_cell", "build_cell"]
 
@@ -68,6 +85,179 @@ class CellPlan:
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     loss: Optional[Callable] = None  # a train cell's loss(model, batch)
     workspace: Optional[DistLPAWorkspace] = None  # an LPA cell's, on meta
+    args: Optional[tuple] = None   # an LM cell's inputs on a mesh, on meta
+    specs: Optional[tuple] = None  # a spec tree per input of ``args``
+
+
+def _data_axes(mesh) -> Tuple[str, ...]:
+    """FSDP axes: everything except 'model'."""
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def _spec(*entries) -> tuple:
+    """A spec in ``PartitionSpec``'s normal form: an entry that is a
+    tuple of one axis is that axis, an empty tuple ``None``."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else
+                 None if e == () else e for e in entries)
+
+
+def _leaves_with_names(tree, fn):
+    """``tree``'s structure with ``fn(name, leaf)`` at each leaf (``name``
+    the leaf's key); a module is read as its ``param_tree``."""
+    if isinstance(tree, torch.nn.Module):
+        tree = param_tree(tree)
+    return {k: _leaves_with_names(v, fn) if isinstance(v, dict)
+            else fn(k, v) for k, v in tree.items()}
+
+
+def lm_param_specs(cfg, params, mesh, mode: str = "tp") -> dict:
+    """Specs for the LM param tree (``models.transformer.init_params``'
+    paths and stacked shapes, or ``param_structs``), the reference's
+    ``PartitionSpec`` of every leaf.
+
+    mode:
+      "tp"      — Megatron tensor parallel on 'model', replicated on data
+                  axes (the paper-faithful baseline layout).
+      "fsdp"    — ZeRO-3: every tensor sharded over ALL mesh axes
+                  flattened, on its largest divisible dim. No TP: per-layer
+                  param all-gathers are the only weight collectives.
+      "ep_fsdp" — MoE: attention/lm_head TP on 'model' + FSDP on the data
+                  axes; routed experts expert-parallel on 'model' with
+                  their ff dim FSDP-sharded on the data axes.
+      "cp"      — context parallel: weights 2-D sharded [data-dims x
+                  model-dim] for storage (gathered per layer),
+                  activations batch->data / sequence->model, experts EP
+                  on 'model'. A single mesh axis per tensor dim
+                  everywhere.
+    """
+    m = "model"
+    sizes = mesh_sizes(mesh)
+    dfs = _data_axes(mesh)
+    dfs_extent = math.prod(sizes[a] for a in dfs)
+    all_ax = tuple(mesh.axis_names)
+    total = int(mesh.devices.size)
+    msize = sizes.get("model", 1)
+    dfs_one = dfs if len(dfs) > 1 else dfs[0] if dfs else ()
+
+    def fsdp_spec(shape):
+        # largest-last dim divisible by the full flatten, else by the data
+        # flatten, else replicate
+        for axes, extent in ((all_ax, total), (dfs, dfs_extent)):
+            dims = sorted(range(len(shape)), key=lambda i: shape[i],
+                          reverse=True)
+            for i in dims:
+                if shape[i] % extent == 0 and shape[i] >= extent:
+                    spec = [None] * len(shape)
+                    spec[i] = axes
+                    return _spec(*spec)
+        return _spec(*([None] * len(shape)))
+
+    def with_dfs(spec_list, free_dim, size):
+        """Add FSDP sharding on ``free_dim`` if it divides."""
+        if dfs and size % dfs_extent == 0:
+            spec_list[free_dim] = dfs_one
+        return _spec(*spec_list)
+
+    def cp_spec(shape):
+        """2-D storage sharding: data axes on the largest divisible dim,
+        'model' on the largest remaining divisible dim."""
+        nd = len(shape)
+        spec = [None] * nd
+        dims = sorted(range(nd), key=lambda i: shape[i], reverse=True)
+        used = -1
+        for i in dims:
+            if shape[i] % dfs_extent == 0 and shape[i] >= dfs_extent:
+                spec[i] = dfs_one
+                used = i
+                break
+        for i in dims:
+            if i != used and shape[i] % msize == 0 and shape[i] >= msize:
+                spec[i] = m
+                break
+        return _spec(*spec)
+
+    def spec_for(name, leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if mode == "fsdp":
+            return fsdp_spec(shape)
+        if mode == "cp":
+            # vocab-carrying tensors: V must land on 'model'
+            if name == "lm_head" and shape[1] % msize == 0:
+                return _spec(None, m)
+            if name == "embed" and shape[0] % msize == 0:
+                return _spec(m, None)
+            # routed experts: the reference's shard_map EP layouts
+            if nd == 4 and name in ("w_gate", "w_up"):
+                return _spec(None, m, None, dfs_one)
+            if nd == 4 and name == "w_down":
+                return _spec(None, m, dfs_one, None)
+            # shared experts: storage on the data axes only
+            if name in ("shared_gate", "shared_up", "shared_down"):
+                spec = [None] * nd
+                dims = sorted(range(nd), key=lambda i: shape[i],
+                              reverse=True)
+                for i in dims:
+                    if shape[i] % dfs_extent == 0:
+                        spec[i] = dfs_one
+                        break
+                return _spec(*spec)
+            return cp_spec(shape)
+        col = {"wq", "wk", "wv", "w_gate", "w_up", "w_uk", "w_uv", "w_dkv"}
+        row = {"wo", "w_down"}
+        fsdp_on = mode == "ep_fsdp"
+        if name in ("shared_gate", "shared_up", "shared_down"):
+            # shared experts: no TP (the model axis is busy with S) — pure
+            # FSDP storage
+            return fsdp_spec(shape) if fsdp_on else (
+                _spec(None, None, m) if name != "shared_down"
+                else _spec(None, m, None))
+        if name == "embed":
+            sl = [m, None]
+            return with_dfs(sl, 1, shape[1]) if fsdp_on else _spec(*sl)
+        if name == "lm_head":
+            sl = [None, m]
+            return with_dfs(sl, 0, shape[0]) if fsdp_on else _spec(*sl)
+        if name in col:
+            # [L, d, out] (dense/stacked) or [L, E, d, f] (moe experts)
+            if nd == 4:
+                sl = [None, m, None, None]  # expert parallel on E
+                return with_dfs(sl, 3, shape[3]) if fsdp_on else _spec(*sl)
+            sl = [None, None, m]
+            return with_dfs(sl, 1, shape[1]) if fsdp_on else _spec(*sl)
+        if name in row:
+            if nd == 4:
+                sl = [None, m, None, None]
+                return with_dfs(sl, 2, shape[2]) if fsdp_on else _spec(*sl)
+            sl = [None, m, None]
+            return with_dfs(sl, 2, shape[2]) if fsdp_on else _spec(*sl)
+        return _spec(*([None] * nd))  # norms, router, small projections
+
+    return _leaves_with_names(params, spec_for)
+
+
+def _best_batch_axes(mesh, b: int) -> Tuple[str, ...]:
+    """Longest prefix-flatten of the mesh axes that divides the batch."""
+    sizes = mesh_sizes(mesh)
+    axes = tuple(mesh.axis_names)
+    for end in range(len(axes), 0, -1):
+        if b % math.prod(sizes[a] for a in axes[:end]) == 0:
+            return axes[:end]
+    return ()
+
+
+def meta_tensor(shape, dtype) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on meta: shapes only, nothing
+    allocated."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def mesh_extents(mesh) -> Tuple[int, int]:
+    """(data extent, model extent): the ranks of the batch axes and of
+    'model' (1 where the mesh has none)."""
+    sizes = mesh_sizes(mesh)
+    return (math.prod(sizes[a] for a in batch_axes(mesh)),
+            sizes.get("model", 1))
 
 
 def _lm_meta(cfg, cell: ShapeCell, kind: str) -> dict:
@@ -76,25 +266,75 @@ def _lm_meta(cfg, cell: ShapeCell, kind: str) -> dict:
             "layers": cfg.n_layers, "batch": b, "seq": s}
 
 
-def build_lm_train(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+def _lm_train_mode(cfg, mesh):
+    """The reference's train layout on ``mesh``: ``(mode, cfg, tok_spec,
+    probe_model, probe_data)``. Dense and MoE LMs both run context
+    parallel (``cp``: tokens batch on the data axes, sequence on 'model';
+    the config rewritten to direct attention over an S-sharded residual
+    stream, MoE dispatch in groups of the model extent) unless
+    ``sp_mode == "none"``, which runs Megatron TP
+    (``tp``). The reference's cp MoE also takes the mesh for its
+    shard_map expert-parallel path (``ep_mesh``); a rank's local step is
+    the same expert einsums, so the port leaves it unset."""
+    data_extent, mext = mesh_extents(mesh)
+    ba = batch_axes(mesh)
+    if cfg.sp_mode == "none":
+        return "tp", cfg, _spec(ba, None), mext, data_extent
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_groups=mext, hint_batch_axes=ba,
+            hint_expert_axis="model"))
+    cfg = dataclasses.replace(
+        cfg, hint_batch_axes=ba, hint_model_axis="model",
+        hint_model_extent=mext, seq_shard=True, attn_mode="direct")
+    # tokens shard over (batch axes x model): per-chip flops match a
+    # probe at (model=1, data = data extent x model extent)
+    return "cp", cfg, _spec(ba, "model"), 1, data_extent * mext
+
+
+def build_lm_train(spec: ArchSpec, cell: ShapeCell, mesh=None) -> CellPlan:
     """Train-step cell: step(model, opt_state, batch) -> (model,
-    opt_state, metrics) on ``{"tokens", "targets"}`` [B, S] batches."""
-    from repro_torch.models.transformer import init_params, loss_fn
+    opt_state, metrics) on ``{"tokens", "targets"}`` [B, S] batches. On
+    a mesh, the reference's layout (``_lm_train_mode``): params and the
+    AdamW moments by ``lm_param_specs`` of the mode, ``step`` replicated,
+    tokens and targets by the mode's token spec."""
+    from repro_torch.models.transformer import (init_params, loss_fn,
+                                                param_structs)
     cfg = spec.config
+    meta = _lm_meta(cfg, cell, "train")
+    if mesh is not None:
+        mode, cfg, tok_spec, probe_model, probe_data = _lm_train_mode(
+            cfg, mesh)
+        meta.update(mode=mode, probe_model=probe_model,
+                    probe_data=probe_data)
 
     def loss(params, batch):
         return loss_fn(params, batch["tokens"], batch["targets"], cfg)
 
     _, step = make_train_step(loss)
-    return CellPlan(fn=step, config=cfg,
+    plan = CellPlan(fn=step, config=cfg,
                     init=functools.partial(init_params, cfg=cfg),
-                    meta=_lm_meta(cfg, cell, "train"), loss=loss)
+                    meta=meta, loss=loss)
+    if mesh is not None:
+        b, s = meta["batch"], meta["seq"]
+        params = param_structs(cfg)
+        opt = {"m": param_structs(cfg), "v": param_structs(cfg),
+               "step": meta_tensor((), torch.int32)}
+        batch = {"tokens": meta_tensor((b, s), torch.int32),
+                 "targets": meta_tensor((b, s), torch.int32)}
+        pspecs = lm_param_specs(cfg, params, mesh, mode)
+        plan.args = (params, opt, batch)
+        plan.specs = (pspecs, {"m": pspecs, "v": pspecs, "step": ()},
+                      {"tokens": tok_spec, "targets": tok_spec})
+    return plan
 
 
-def build_lm_prefill(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+def build_lm_prefill(spec: ArchSpec, cell: ShapeCell, mesh=None
+                     ) -> CellPlan:
     """Prefill cell: fn(model, tokens [B, S]) -> logits [B, V] of the
-    last position."""
-    from repro_torch.models.transformer import forward, init_params
+    last position. On a mesh: TP params, tokens batch on the data axes."""
+    from repro_torch.models.transformer import (forward, init_params,
+                                                param_structs)
     cfg = spec.config
 
     def prefill(params, tokens):
@@ -102,15 +342,39 @@ def build_lm_prefill(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
         return torch.einsum("bd,dv->bv", h[:, -1],
                             params["lm_head"].to(h.dtype))
 
-    return CellPlan(fn=prefill, config=cfg,
+    plan = CellPlan(fn=prefill, config=cfg,
                     init=functools.partial(init_params, cfg=cfg),
                     meta=_lm_meta(cfg, cell, "prefill"))
+    if mesh is not None:
+        b, s = plan.meta["batch"], plan.meta["seq"]
+        params = param_structs(cfg)
+        plan.meta["mode"] = "tp"
+        plan.args = (params, meta_tensor((b, s), torch.int32))
+        plan.specs = (lm_param_specs(cfg, params, mesh, "tp"),
+                      _spec(batch_axes(mesh), None))
+    return plan
 
 
-def build_lm_decode(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+def decode_layout(mesh, batch: int) -> tuple:
+    """The reference's decode layout: ``(batch axes, sequence axes,
+    token spec)`` of the KV cache. The batch on the data axes and the
+    sequence split on 'model' (split-KV, flash-decoding: the softmax
+    partials all-reduce over 'model'); where the batch does not divide
+    the data extent (``long_500k``'s batch of 1), the batch replicates
+    and the KV sequence shards over all mesh axes."""
+    ba = batch_axes(mesh)
+    if batch % mesh_extents(mesh)[0] == 0:
+        return ba, "model", _spec(ba)
+    return None, all_axes(mesh), ()
+
+
+def build_lm_decode(spec: ArchSpec, cell: ShapeCell, mesh=None
+                    ) -> CellPlan:
     """Decode cell: fn(model, cache, tokens [B], cur_len [B]) ->
-    (logits [B, V], cache), the cache ``init_cache(cfg, B, S)``."""
-    from repro_torch.models.transformer import decode_step, init_params
+    (logits [B, V], cache), the cache ``init_cache(cfg, B, S)``. On a
+    mesh: TP params and the split-KV cache of ``decode_layout``."""
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params, param_structs)
     cfg = spec.config
 
     def serve_step(params, cache, tokens, cur_len):
@@ -118,8 +382,22 @@ def build_lm_decode(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
 
     meta = _lm_meta(cfg, cell, "decode")
     meta["kv_len"] = cell.params["seq"]
-    return CellPlan(fn=serve_step, config=cfg,
+    plan = CellPlan(fn=serve_step, config=cfg,
                     init=functools.partial(init_params, cfg=cfg), meta=meta)
+    if mesh is not None:
+        b, s = meta["batch"], meta["seq"]
+        params = param_structs(cfg)
+        cache = init_cache(cfg, b, s, device="meta")
+        b_ax, s_ax, tok_spec = decode_layout(mesh, b)
+        nd = next(iter(cache.values())).dim()
+        cspecs = {name: _spec(None, b_ax, s_ax, *([None] * (nd - 3)))
+                  for name in cache}
+        meta["mode"] = "tp"
+        plan.args = (params, cache, meta_tensor((b,), torch.int32),
+                     meta_tensor((b,), torch.int32))
+        plan.specs = (lm_param_specs(cfg, params, mesh, "tp"), cspecs,
+                      tok_spec, tok_spec)
+    return plan
 
 
 def _gnn_apply(spec: ArchSpec, cfg):
@@ -255,10 +533,6 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
     return CellPlan(fn=retrieve, config=cfg, init=init, meta=meta)
 
 
-def _meta(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device="meta")
-
-
 def lpa_dist_spec(n_nodes: int, n_edges: int, n_shards: int, k: int,
                   chunk: int, frac_high: float = 0.3) -> DistLPAWorkspace:
     """Analytic workspace for a production-scale graph, every array a
@@ -279,13 +553,13 @@ def lpa_dist_spec(n_nodes: int, n_edges: int, n_shards: int, k: int,
             break
         rows, entries = nxt_rows, nxt_entries
     return DistLPAWorkspace(
-        nbr_pos=_meta((n_shards, m_pad), torch.int32),
-        weights=_meta((n_shards, m_pad), torch.float32),
+        nbr_pos=meta_tensor((n_shards, m_pad), torch.int32),
+        weights=meta_tensor((n_shards, m_pad), torch.float32),
         n_rounds=len(rounds),
-        round_gathers=tuple(_meta((n_shards, r, chunk), torch.int32)
+        round_gathers=tuple(meta_tensor((n_shards, r, chunk), torch.int32)
                             for r, _ in rounds),
-        final_row_vertex=_meta((n_shards, rounds[-1][0]), torch.int32),
-        init_labels=_meta((n_shards, v_pad), torch.int32),
+        final_row_vertex=meta_tensor((n_shards, rounds[-1][0]), torch.int32),
+        init_labels=meta_tensor((n_shards, v_pad), torch.int32),
         n_nodes=n_nodes, v_pad=v_pad, k=k, chunk=chunk)
 
 
@@ -326,8 +600,8 @@ def build_lpa_cell(spec: ArchSpec, cell: ShapeCell,
         hub_pad = max(1, math.ceil(cell.params.get("hub_frac", 0.002)
                                    * ws.v_pad))
         ws = dataclasses.replace(
-            ws, send_idx=_meta((n_shards, n_shards, h_pad), torch.int32),
-            h_pad=h_pad, hub_idx=_meta((n_shards, hub_pad), torch.int32),
+            ws, send_idx=meta_tensor((n_shards, n_shards, h_pad), torch.int32),
+            h_pad=h_pad, hub_idx=meta_tensor((n_shards, hub_pad), torch.int32),
             hub_pad=hub_pad)
 
     def step(comm, rank_ws: DistLPAWorkspace, **kw):
@@ -355,5 +629,6 @@ BUILDERS = {
 
 
 def build_cell(spec: ArchSpec, cell: ShapeCell, *args) -> CellPlan:
-    """The cell's plan; an LPA cell takes its rank count after ``cell``."""
+    """The cell's plan; an LPA cell takes its rank count after ``cell``,
+    an LM cell an optional mesh."""
     return BUILDERS[cell.kind](spec, cell, *args)

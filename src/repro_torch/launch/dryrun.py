@@ -1,12 +1,15 @@
-"""Dry run of the paper's LPA cells: per-rank memory, bytes, FLOPs,
-collectives and roofline terms of every cell of ``lpa-mg8`` on a mesh of
-ranks, from shapes alone. A host computation: the workspaces are meta
-tensors and nothing is allocated on any device.
+"""Dry run of the LM and LPA cells: per-rank memory, bytes, FLOPs,
+collectives and roofline terms of every cell of the five LM archs and of
+``lpa-mg8`` on a mesh of ranks, from shapes alone. A host computation:
+inputs and workspaces are meta tensors and nothing is allocated on any
+device.
 
-The port's counterpart of the LPA branch of ``repro.launch.dryrun``,
-which lowers and compiles each cell's step with XLA and reads XLA's
-analyses. The port has no compiler to ask, so each figure has a named
-counterpart here:
+The port's counterpart of the LM and LPA branches of
+``repro.launch.dryrun``, which lowers and compiles each cell's step with
+XLA and reads XLA's analyses. The port has no compiler to ask, so each
+figure has a named counterpart here.
+
+LPA (``run_lpa_cell``):
 
   * ``argument_bytes`` — XLA's argument size: the per-rank bytes of the
     cell's meta workspace (``cells.build_lpa_cell``; the reference's
@@ -25,15 +28,53 @@ counterpart here:
   * ``collectives`` — the bytes the reference parses out of the compiled
     step's HLO: ``core.distributed.lpa_collective_bytes``.
 
+LM (``run_lm_cell``; the plan of ``cells.build_cell`` on the mesh):
+
+  * ``argument_bytes`` — the per-rank bytes of the plan's inputs under
+    their specs (:func:`spec_bytes`: the reference's ``shard_shape``
+    bytes, exactly);
+  * ``output_bytes`` — what the step returns, per rank, under the same
+    specs (train: the parameters and optimizer state; prefill: the
+    [B/D, V/M] logits; decode: the logits and the cache); ``alias_bytes``
+    the same, as each is written in place or made during the step;
+  * ``temp_bytes`` — :func:`lm_local_run`: ``LiveBytes``' peak over the
+    rank's local call on meta tensors (every layer, the cell's own
+    chunking); collective buffers not counted;
+  * ``raw_cost`` — ``CostCounter`` over the same local call. The port has
+    no scan, so nothing is undercounted: this is where it parts from the
+    reference's ``raw_cost``, which counts its layer scan's body once;
+    its bytes are the port's unfused eager traffic;
+  * ``flops_per_chip``, ``bytes_per_chip`` — ``probes.lm_cell_cost`` at
+    the plan's probe extents: the FLOPs of the ops the port runs (the
+    roofline's compute term); ``flops_per_chip_xla_cpu`` the same with
+    the converts XLA's CPU backend adds around every bf16 op, the figure
+    the reference's CPU probe gives (for comparison only: neither the
+    card nor the reference's TPU target runs them); ``model_flops_global``
+    — ``probes.lm_model_flops``;
+  * ``collectives`` — :func:`lm_collective_bytes`, in the reference
+    parser's convention, with ``hlo_collective_loop_factor`` =
+    ``n_layers``. Float payloads are counted in float32, as the
+    reference's CPU HLO carries them (it computes bf16 in float32); the
+    card's collective dtype is taken to be the same, float32, which is an
+    upper bound where a sharded port step sent its bf16 activations (no
+    LM step across cards exists in the port yet).
+    ``collectives_checked`` says whether the cell's layout is one whose
+    count is held to the reference's HLO (tests/test_torch_launch.py);
+    where it is not, ``collectives_unchecked`` says why (deepseek's MLA
+    ``cp`` train; a ``tp`` train of MoE, MLA, or KV heads split along
+    ``dh``).
+
 The ranks: the reference's two production meshes (``--mesh``: 256 and
-512 ranks) and any 1-D count (``--ranks 1``: one card). A cell whose
-int32 positions cannot index its per-rank arrays is recorded ``ok:
-false`` with that reason (``web_4b`` on one rank: 3.4 B entries). The
-LM, GNN and recsys branches of the reference's dry run are not ported
-(ROADMAP, Queue 1): another ``--arch`` exits non-zero and writes nothing.
+512 ranks) and any count (``--ranks N``: a 1-D mesh for LPA, (N, 1)
+("data", "model") for the LMs; 1: one card). An LPA cell whose int32
+positions cannot index its per-rank arrays is recorded ``ok: false``
+with that reason (``web_4b`` on one rank: 3.4 B entries). The GNN and
+recsys branches of the reference's dry run are not ported (ROADMAP,
+Queue 1): their archs exit 2 and write nothing; ``--arch all`` runs
+every LM and LPA arch.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch lpa-mg8 \\
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
       --mesh both --ranks 1
 Results land in launch_results_torch/dryrun/<mesh>/<arch>__<shape>.json;
 ``python -m repro_torch.launch.report`` tabulates them.
@@ -41,32 +82,48 @@ Results land in launch_results_torch/dryrun/<mesh>/<arch>__<shape>.json;
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import sys
+import time
 import traceback
+from typing import Optional
 
 import torch
 
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import all_arch_ids, get_arch
 from repro_torch.core.distributed import (DistLPAWorkspace,
                                           lpa_collective_bytes)
-from repro_torch.launch.cells import build_lpa_cell, lpa_cell_engine
+from repro_torch.launch.cells import (build_cell, build_lpa_cell,
+                                      decode_layout, lpa_cell_engine,
+                                      mesh_extents, meta_tensor)
+from repro_torch.launch.cost import CostCounter
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.launch.probes import (_local_cfg, lm_cell_cost,
+                                       lm_model_flops)
 from repro_torch.launch.roofline import roofline
+from repro_torch.train.elastic import (axes_extent, leaves_with_specs,
+                                       map_with_specs, mesh_sizes,
+                                       shard_shape)
+from repro_torch.tree import tree_leaves
 
 __all__ = ["HBM_PER_CHIP", "ALLOC_GRAIN", "workspace_bytes",
            "lpa_step_temp_bytes", "lpa_step_bytes", "int32_overflow",
-           "run_cell", "main"]
+           "run_lpa_cell", "lm_collective_bytes", "spec_bytes",
+           "lm_local_run", "run_lm_cell", "run_cell", "main"]
 
 HBM_PER_CHIP = 80e9  # NVIDIA H100 80GB
 #: the CUDA caching allocator rounds every block up to a multiple of this
 ALLOC_GRAIN = 512
 INT32_MAX = 2**31 - 1
+#: the families whose branch of the reference's dry run is ported
+PORTED = ("lm", "lpa")
 #: what ports the dry run's other branches
 NOT_PORTED = ("the {family} branch of the dry run (repro.launch.dryrun) "
-              "is not ported: ROADMAP Queue 1, item 2 (launch/), the "
-              "slice after the LPA half")
+              "is not ported: ROADMAP Queue 1, item 1 (the GNN and recsys "
+              "branches of launch/dryrun.py and their cells.py sharding)")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -378,7 +435,8 @@ def int32_overflow(ws: DistLPAWorkspace) -> str | None:
             + f": more than 2^31 - 1 = {INT32_MAX}")
 
 
-def run_cell(spec, cell, mesh, mesh_name: str) -> dict:
+def run_lpa_cell(spec, cell, mesh, mesh_name: str) -> dict:
+    """The LPA branch: the cell's record on ``mesh``."""
     rec = {
         "arch": spec.arch_id, "shape": cell.name, "kind": cell.kind,
         "mesh": mesh_name, "n_devices": int(mesh.devices.size),
@@ -423,7 +481,597 @@ def run_cell(spec, cell, mesh, mesh_name: str) -> dict:
     return rec
 
 
-def _meshes(which: str, ranks) -> list:
+def _lm_dims(cfg, mesh, meta) -> dict:
+    dext, mext = mesh_extents(mesh)
+    b, s = meta["batch"], meta["seq"]
+    return {"sizes": mesh_sizes(mesh), "dext": dext, "mext": mext, "B": b,
+            "S": s, "b_loc": b // dext if b % dext == 0 else b}
+
+
+class _Colls:
+    """Collectives in the parse's convention: ``loop`` ops sit in the
+    layer scan's body (x ``n_layers``), ``entry`` ops in ENTRY (x 1);
+    an all-reduce counts twice; an op over an axis group of extent 1 is
+    no collective and counts 0."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers = n_layers
+        self.out: dict = {}
+        self.ops: dict = {}  # (op, result bytes) -> instances in the HLO
+
+    def add(self, op: str, nbytes: float, extent: int, loop: bool,
+            times: int = 1) -> None:
+        if extent <= 1 or nbytes <= 0:
+            return
+        key = (op, float(nbytes))
+        self.ops[key] = self.ops.get(key, 0) + times
+        nbytes *= times * (2 if op == "all-reduce" else 1)
+        nbytes *= self.n_layers if loop else 1
+        self.out[op] = self.out.get(op, 0.0) + nbytes
+
+    def totals(self) -> dict:
+        out = dict(self.out)
+        out["total"] = sum(out.values())
+        return out
+
+    def op_list(self) -> list:
+        """``[op, result bytes, instances]`` of every collective as the
+        HLO lists them (a loop's op once), largest bytes x instances
+        first: what the reference's ``perf_lab`` tallies from the HLO."""
+        return sorted(([op, b, n] for (op, b), n in self.ops.items()),
+                      key=lambda x: -x[1] * x[2])
+
+
+def _weight_gathers(c: _Colls, shape, spec, sizes) -> None:
+    """A cp weight [n_in, n_out] (one layer's) gathered whole: first over
+    the axis on its output dim (result: the weight over the input dim's
+    extent), then over the axis on its input dim (the whole weight)."""
+    e_in, e_out = (axes_extent(spec[-2], sizes),
+                   axes_extent(spec[-1], sizes))
+    n = 4 * math.prod(shape[-2:])
+    c.add("all-gather", n / e_in, e_out, loop=True)
+    c.add("all-gather", n, e_in, loop=True)
+
+
+def lm_collective_bytes(plan, mesh) -> dict:
+    """``_lm_collectives(plan, mesh)``' bytes by op, with their
+    ``"total"``."""
+    return _lm_collectives(plan, mesh).totals()
+
+
+def _lm_collectives(plan, mesh) -> _Colls:
+    """The collective bytes one call of an LM cell's step moves on each
+    rank of ``mesh``, by op, with their ``"total"``: the counterpart of
+    what ``repro.launch.dryrun`` parses out of the reference's compiled
+    step (``repro.launch.roofline.collective_bytes`` of its HLO, with
+    ``loop_factor = n_layers``), in that parse's convention, quirks
+    included:
+
+      * the bytes of each op's result on a rank; an all-reduce twice;
+      * every op outside ENTRY times ``n_layers`` (the parse scales
+        anything in a non-entry computation: the layer scan's body, and
+        also the attention's inner KV scan, once);
+      * a tuple result of more than five arrays counts 0 (the HLO text
+        puts an ``/*index=5*/`` comment in it, whose ``=`` the parse's
+        result pattern cannot cross), as XLA's combiner gives the data
+        axes' gradient all-reduces;
+      * float32 activations: the reference's CPU compile computes its
+        bf16 products in float32, and the collectives carry those; the
+        dry run assumes the same float32 payloads on the card.
+
+    An op over an axis group of extent 1 is no collective. Symbols: L
+    layers, d model width, H/KV heads, dh head width, V vocab, E experts,
+    k top-k, f expert width, B batch, S sequence, D data extent (the
+    batch axes), M model extent, b = B / D, c the loss chunk, n_c = S / c
+    chunks, g = ``n_groups``, cap the experts' capacity of S/g tokens.
+    The formulas come from the reference's HLO on its SMOKE configs (2
+    layers, d = 64, B = 4, S = 64) on a (2, 2) ("data", "model") mesh:
+
+    ``tp`` prefill (``build_lm_prefill``):
+      * per layer: all-reduce [b, S, d] after ``wo`` (the row-parallel
+        attention output) and after ``w_down`` (the FFN's; dense);
+        MoE: the router's probabilities all-gathered over the data axes
+        ([B, S, E]), a collective-permute of the groups' [b, g] int32
+        starts, an all-reduce of the combine's gathered [b, g, S/g · k,
+        d]; shared experts: an all-reduce [b, S, d];
+      * ENTRY: all-reduce [b, S, d] of the vocab-sharded embedding lookup.
+    ``tp`` decode (``build_lm_decode``, split KV), per layer:
+      * all-gather over 'model' of the new key and value [b, KV, dh]
+        (the cache holds every head) and of the query [b, H, dh]; over
+        the data axes of the new key and value [B, KV, dh] (the
+        scatter's updates);
+      * all-reduce over 'model' of the softmax's max and sum [b, H] and
+        of its weighted values [b, H, dh] (the partials of the split
+        sequence), after ``wo`` [b, d] and the FFN [b, d]; MoE as in
+        prefill at one token a row; ENTRY: all-reduce [b, d] of the
+        embedding lookup, all-gather of the scatter's [B, 2] int32
+        indices for the key and the value. MLA: the same with the latent
+        [b, kv_lora + rope] entry and H heads of kv_lora + rope.
+    ``tp`` train (``sp_mode == "none"``), per layer:
+      * all-reduce [b, S, d] after ``wo`` and ``w_down``, and of the
+        input gradients of the column-parallel products (q, k, v; gate,
+        up): 7 in all; ENTRY: the embedding lookup's, per loss chunk the
+        head's input gradient [b, c, d] and its [b, c] sums, and the
+        head's [V/M, d] weight gradient chunks over the data axes (one
+        tuple of n_c, counted while n_c <= 5).
+    ``cp`` train (``build_lm_train``'s default), per layer:
+      * all-gather of each 2-D layer weight, 2-D sharded for storage, in
+        the forward and again in the backward (``_weight_gathers``), of
+        the norms ln1, ln2, q/k-norm (or kv_ln) over the data axes, and
+        in the forward of K and V [b, S, KV·dh] over 'model' (queries
+        stay sequence-sharded); MoE: the routed experts' [E/M, d, f]
+        all-gathered over the data axes (forward) and reduce-scattered
+        (backward), the router's [b, S, E] over 'model' and [B, S, E]
+        over the data axes, the dispatch and combine all-to-alls of
+        [b, g/M, E, cap, d] in the forward and the backward;
+      * all-reduce over 'model' of dK and dV [b, KV, S, dh] (inside the
+        attention's scan) and of the gradients of ln1, ln2, q_norm (or
+        kv_ln) and every 2-D layer weight; over the data axes: one
+        tuple of more than five, 0;
+      * ENTRY: all-gather of the embedding [V, d] over 'model', of
+        final_ln [d] (forward and backward) and of norms sharded on
+        their L dim, of the targets' [b, c] chunks (forward and remat,
+        2 n_c) and of h [b, S, d] over 'model' for the loss head;
+        collective-permutes of the targets' [b, c/M] slices (n_c); the
+        loss chunks' all-reduces: [b, c] sums and [b, c, d] head input
+        gradients (one tuple of n_c each, counted while n_c <= 5) and
+        the n_c + 1 float32 partial losses.
+    """
+    cfg, meta = plan.config, plan.meta
+    kind, mode = meta["kind"], meta.get("mode", "tp")
+    dm = _lm_dims(cfg, mesh, meta)
+    sizes, dext, mext = dm["sizes"], dm["dext"], dm["mext"]
+    B, S, b = dm["B"], dm["S"], dm["b_loc"]
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    moe, mla = cfg.moe, cfg.mla
+    c = _Colls(L)
+    if kind == "decode":
+        s_tokens, split = 1, B % dext == 0
+        b = b if split else B
+    else:
+        s_tokens, split = S, True
+    if moe is not None:
+        ng = moe.n_groups if s_tokens % max(moe.n_groups, 1) == 0 else 1
+        sg = s_tokens // ng
+        cap = max(1, math.ceil(sg * moe.top_k / moe.n_experts
+                               * moe.capacity_factor))
+    x = 4 * b * s_tokens * d  # one float32 [b, S, d] activation
+    if mode == "tp":
+        # the row-parallel attention output, and the embedding lookup
+        c.add("all-reduce", x, mext, loop=True)
+        c.add("all-reduce", x, mext, loop=False)
+        if moe is None:
+            c.add("all-reduce", x, mext, loop=True)
+        else:
+            e = moe.n_experts
+            c.add("all-gather", 4 * B * s_tokens * e, dext, loop=True)
+            c.add("collective-permute", 4 * b * ng, mext, loop=True)
+            c.add("all-reduce", 4 * b * ng * sg * moe.top_k * d, mext,
+                  loop=True)
+            if moe.n_shared:
+                c.add("all-reduce", x, mext, loop=True)
+        split_kv = mla is None and KV % mext != 0  # MQA: heads split dh
+        rope = mla.qk_rope_dim if mla is not None else dh
+        if kind == "decode":
+            s_ext = mext if split else mesh.devices.size
+            if mla is None:
+                # the new key and value entries (one under MQA), the query
+                c.add("all-gather", 4 * b * KV * dh, mext, loop=True,
+                      times=1 if split_kv else 2)
+                c.add("all-gather", 4 * b * H * dh, mext, loop=True)
+                entries, pv = (KV * dh, KV * dh), H * dh
+            else:
+                # the new latent entry, the rope and absorbed queries
+                r = mla.kv_lora_rank
+                c.add("all-gather", 4 * b * r, mext, loop=True)
+                c.add("all-gather", 4 * b * H * (rope + r), mext, loop=True)
+                entries, pv = (r, rope), H * r
+            if split:
+                for n in entries:
+                    c.add("all-gather", 4 * B * n, dext, loop=True)
+                c.add("all-gather", 4 * B * 2, dext, loop=False, times=2)
+            c.add("all-reduce", 4 * b * H, s_ext, loop=True, times=2)
+            c.add("all-reduce", 4 * b * pv, s_ext, loop=True)
+        if split_kv or mla is not None:
+            # the new key's rope halves (and MLA's latent norm), reduced
+            # over the dh-split (MLA: the latent's split) shards
+            k_heads = 1 if mla is not None else KV  # MLA: one rope head
+            c.add("all-reduce", 4 * b * s_tokens * k_heads * (rope // 2),
+                  mext, loop=True, times=2)
+        if mla is not None:
+            c.add("all-reduce", 4 * b * s_tokens, mext, loop=True)
+            c.add("collective-permute", 4 * b * s_tokens * rope / mext,
+                  mext, loop=True, times=2)
+            if kind != "decode":
+                c.add("all-gather", 4 * b * S * mla.kv_lora_rank, mext,
+                      loop=True)
+        if split_kv and kind != "decode":
+            # the value chunk, inside the attention's KV scan
+            c.add("all-gather", 4 * b * min(cfg.kv_chunk, S) * KV * dh,
+                  mext, loop=True)
+        elif kind == "train":
+            # input gradients of q, k, v and gate, up (dense)
+            c.add("all-reduce", x, mext, loop=True,
+                  times=3 + (2 if moe is None else 0))
+            lc = min(cfg.loss_chunk, S)
+            n_c = S // lc
+            c.add("all-reduce", 4 * b * lc * d + 4 * b * lc, mext,
+                  loop=False, times=n_c)
+            if n_c <= 5:
+                c.add("all-reduce", 4 * (V / mext) * d, dext, loop=False,
+                      times=n_c)
+        return c
+    if mode != "cp":
+        raise ValueError(f"lm_collective_bytes covers the cells' layouts, "
+                         f"tp and cp; got {mode!r}")
+    from repro_torch.launch.cells import lm_param_specs
+    from repro_torch.models.transformer import param_structs
+    params = param_structs(cfg)
+    specs = lm_param_specs(cfg, params, mesh, "cp")
+    layers, lspecs = params["layers"], specs["layers"]
+    if moe is not None:
+        layers = dict(layers, **layers["moe"])
+        lspecs = dict(lspecs, **lspecs["moe"])
+        del layers["moe"], lspecs["moe"]
+    norms = [n for n in ("ln1", "q_norm", "k_norm", "kv_ln", "ln2")
+             if n in layers]
+    mats = [n for n, t in layers.items() if t.dim() == 3 and n not in norms]
+    experts = [n for n, t in layers.items() if t.dim() == 4]
+    for _ in ("forward", "backward"):
+        for n in norms:
+            c.add("all-gather", 4 * layers[n].shape[1],
+                  axes_extent(lspecs[n][1], sizes), loop=True)
+        for n in mats:
+            _weight_gathers(c, layers[n].shape, lspecs[n], sizes)
+    if mla is None:
+        kv_width = (KV * dh, KV * dh)
+    else:
+        kv_width = (H * (mla.qk_nope_dim + mla.qk_rope_dim),
+                    H * mla.v_head_dim)
+    for w in kv_width:
+        c.add("all-gather", 4 * b * S * w, mext, loop=True)
+        c.add("all-reduce", 4 * b * S * w, mext, loop=True)
+    for n in experts:
+        e, f_in, f_out = layers[n].shape[1:]
+        whole = 4 * e * f_in * f_out / mext
+        c.add("all-gather", whole, dext, loop=True)
+        c.add("reduce-scatter", whole / dext, dext, loop=True)
+    if moe is not None:
+        e = moe.n_experts
+        c.add("all-gather", 4 * b * S * e, mext, loop=True)
+        c.add("all-gather", 4 * B * S * e, dext, loop=True)
+        c.add("all-to-all", 4 * b * (ng // mext) * e * cap * d, mext,
+              loop=True, times=4)
+    grads = [n for n in ("ln1", "ln2", "q_norm", "kv_ln") if n in layers]
+    for n in grads + mats:
+        c.add("all-reduce", 4 * math.prod(layers[n].shape[1:]), mext,
+              loop=True)
+    # ENTRY: the embedding, final_ln, norms sharded on L, the loss head
+    c.add("all-gather", 4 * V * d, axes_extent(specs["embed"][0], sizes),
+          loop=False)
+    c.add("all-gather", 4 * d, axes_extent(specs["final_ln"][0], sizes),
+          loop=False, times=2)
+    for n in norms:
+        lead = axes_extent(lspecs[n][0], sizes)
+        c.add("all-gather", 4 * L * layers[n].shape[1]
+              / axes_extent(lspecs[n][1], sizes), lead, loop=False)
+    lc = min(cfg.loss_chunk, S)
+    n_c = S // lc
+    c.add("all-gather", 4 * b * lc, mext, loop=False, times=2 * n_c)
+    c.add("all-gather", 4 * b * S * d, mext, loop=False)
+    c.add("collective-permute", 4 * b * lc / mext, mext, loop=False,
+          times=n_c)
+    if n_c <= 5:
+        c.add("all-reduce", 4 * b * lc, mext, loop=False, times=n_c)
+        c.add("all-reduce", 4 * b * lc * d, mext, loop=False, times=n_c)
+    if n_c + 1 <= 5:
+        c.add("all-reduce", 4, dext, loop=False, times=n_c + 1)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# the LM branch
+# ---------------------------------------------------------------------------
+
+def spec_bytes(tree, specs, mesh) -> int:
+    """The bytes one rank holds of ``tree`` under ``specs`` (the sum of
+    each leaf's shard: ``NamedSharding.shard_shape`` in the reference)."""
+    return sum(math.prod(shard_shape(t.shape, sp, mesh)) * t.element_size()
+               for _, t, sp in leaves_with_specs(tree, specs))
+
+
+def _shards(tree, specs, mesh):
+    """``tree``'s per-rank shards as meta tensors."""
+    return map_with_specs(tree, specs, lambda t, sp: meta_tensor(
+        shard_shape(t.shape, sp, mesh), t.dtype))
+
+
+def _local_lm_cfg(cfg, kind: str, mode: str, mext: int):
+    """The config a rank runs, its weights at the widths it computes
+    with. ``tp`` divides the heads (not in a decode: its query is
+    all-gathered against a cache of every head), the FFN, the experts'
+    capacity and the vocabulary by the model extent, as the probe's
+    ``_local_cfg`` does, with the cell's own chunking and remat; ``cp``
+    keeps every width (each layer's weights are gathered whole) but the
+    vocabulary, and a rank dispatches its own group. A rank's routed
+    experts are E/M of them (expert parallel on 'model'); the local run
+    keeps all E (top-k needs them) at an FFN width of f/M, so the expert
+    weights it casts and holds are a rank's E/M experts' bytes (their
+    products and [.., cap, f] intermediates are then M times below a
+    rank's, in ``tp`` where the capacity is divided too)."""
+    moe = cfg.moe and dataclasses.replace(
+        cfg.moe, d_expert_ff=max(1, cfg.moe.d_expert_ff // mext))
+    if mode == "cp":
+        moe = moe and dataclasses.replace(
+            moe, n_groups=max(1, moe.n_groups // mext))
+        return dataclasses.replace(cfg, moe=moe,
+                                   vocab=max(1, cfg.vocab // mext))
+    local = dataclasses.replace(
+        _local_cfg(dataclasses.replace(cfg, moe=moe), mext, 1),
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, remat=cfg.remat,
+        vocab=max(1, cfg.vocab // mext))
+    if kind == "decode":
+        local = dataclasses.replace(local, n_heads=cfg.n_heads,
+                                    n_kv_heads=cfg.n_kv_heads)
+    return local
+
+
+def _lm_local_shapes(plan, mesh) -> tuple:
+    """(b, s) a rank's step runs: the batch over the data extent; the
+    sequence over 'model' in ``cp``, and in a decode as
+    ``decode_layout`` splits the cache."""
+    meta = plan.meta
+    dext, mext = mesh_extents(mesh)
+    b, s = meta["batch"], meta["seq"]
+    if meta["kind"] == "decode":
+        b_ax, s_ax, _ = decode_layout(mesh, b)
+        sizes = mesh_sizes(mesh)
+        return b // axes_extent(b_ax, sizes), s // axes_extent(s_ax, sizes)
+    return b // dext, s // mext if meta.get("mode") == "cp" else s
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_local_run(spec, cell, plan, mesh) -> dict:
+    """One call of the cell's step as a rank runs it, on meta tensors:
+    ``{"temp_bytes", "raw_cost", "layers_run"}``.
+
+    Prefill and decode: the step at the rank's config
+    (``_local_lm_cfg``) and shapes (``_lm_local_shapes``) under
+    ``LiveBytes`` and ``CostCounter``; the peak above the inputs is the
+    temporaries (the logits included; a decode writes its cache in
+    place).
+
+    Train: the step's parts apart, as a sharded step holds them. Its
+    FLOPs and bytes: ``CostCounter`` over the loss's forward and backward
+    at the rank's config and shapes, and over AdamW on the rank's shards.
+    Its memory, the largest of three moments of the step:
+
+      * ``P_act``: the peak of the loss's forward and backward with
+        gradients taken for the embedding, head and final norm only (the
+        loss head's chunks and the first recomputed layer come before
+        the layers' weight gradients build up);
+      * ``G + S`` at the end of the backward: ``G``, the rank's gradient
+        shards under the plan's specs (every layer's weight gradients
+        reduce-scattered to the storage layout in ``cp``; ``tp``'s are
+        the local shards), and ``S``, the largest layer leaf's shard (the
+        port's backward stacks a stacked leaf's per-layer gradients:
+        slices and stack live together);
+      * ``G + P_opt``: AdamW's peak on the rank's shards (the parameters
+        a module updated in place, as the port's train path holds them),
+        the new moments included;
+
+    and ``cp`` also holds one layer's gathered float32 weights (the
+    reference's per-layer all-gathers carry float32), which the local
+    run takes as inputs.
+
+    Every layer runs the same ops on the same shapes, so the peak and the
+    counts of the layered part are affine in the layer count L: they are
+    measured at 2, 3 and 4 layers and extrapolated to L when both
+    differences agree (else the call runs at L). ``layers_run`` says
+    which.
+
+    Not counted: collective buffers (NCCL's own), and the allocator's
+    rounding of large blocks past 512 B."""
+    from repro_torch.launch.live_bytes import LiveBytes
+    from repro_torch.models.common import Params
+    from repro_torch.models.transformer import (init_cache, loss_fn,
+                                                param_structs)
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.train.steps import value_and_grad
+
+    cfg, meta = plan.config, plan.meta
+    kind, mode = meta["kind"], meta.get("mode", "tp")
+    _, mext = mesh_extents(mesh)
+    lcfg = _local_lm_cfg(cfg, kind, mode, mext)
+    b, s = _lm_local_shapes(plan, mesh)
+    i32 = torch.int32
+
+    def measure(n: int) -> tuple:
+        """(peak, counter) of the layered part at ``n`` layers."""
+        ncfg = dataclasses.replace(lcfg, n_layers=n)
+        params = param_structs(ncfg)
+        cc = CostCounter()
+        if kind == "train":
+            batch = {"tokens": meta_tensor((b, s), i32),
+                     "targets": meta_tensor((b, s), i32)}
+
+            def loss(p, bt):
+                return loss_fn(p, bt["tokens"], bt["targets"], ncfg)
+
+            with cc:
+                value_and_grad(loss, params, batch)
+            top = {k: v.requires_grad_(True) for k, v in params.items()
+                   if k != "layers"}
+            with LiveBytes() as lb:
+                torch.autograd.grad(loss(params, batch), list(top.values()))
+            return lb.peak, cc
+        fn = build_cell(dataclasses.replace(spec, config=ncfg), cell).fn
+        if kind == "prefill":
+            args = (params, meta_tensor((b, s), i32))
+        else:
+            args = (params, init_cache(ncfg, b, s, device="meta"),
+                    meta_tensor((b,), i32), meta_tensor((b,), i32))
+        with torch.no_grad(), LiveBytes() as lb, cc:
+            fn(*args)
+        return lb.peak, cc
+
+    n_layers, points = lcfg.n_layers, (2, 3, 4)
+    layers_run = f"extrapolated from {points}"
+    if n_layers <= points[-1]:
+        peak, cc = measure(n_layers)
+        cost, layers_run = _cost_record(cc), n_layers
+    else:
+        runs = [measure(n) for n in points]
+        recs = [_cost_record(cc) for _, cc in runs]
+        steps = {runs[k + 1][0] - runs[k][0] for k in range(2)}
+        counts = [r["flops"] for r in recs]
+        if len(steps) == 1 and counts[2] - counts[1] == counts[1] - counts[0]:
+            extra = n_layers - points[-1]
+            peak = runs[-1][0] + extra * steps.pop()
+            cost = {k: v + extra * (v - recs[-2][k]) if k != "bytes_are"
+                    else v for k, v in recs[-1].items()}
+        else:
+            peak, cc = measure(n_layers)
+            cost, layers_run = _cost_record(cc), n_layers
+    if kind != "train":
+        return {"temp_bytes": peak, "raw_cost": cost,
+                "layers_run": layers_run}
+    # the parameters as a module, updated in place (as the port's train
+    # path runs them), and the gradients and moments as trees
+    shards = Params(_shards(plan.args[0], plan.specs[0], mesh))
+    grads, m, v = (_shards(plan.args[0], plan.specs[0], mesh)
+                   for _ in range(3))
+    state = {"m": m, "v": v, "step": meta_tensor((), i32)}
+    cc = CostCounter()
+    with LiveBytes() as lb_opt, cc:
+        lr = cosine_schedule(state["step"], 3e-4, 100, 10000)
+        adamw_update(grads, state, shards, lr)
+    opt = _cost_record(cc)
+    cost = {k: v + opt[k] if k != "bytes_are" else v
+            for k, v in cost.items()}
+    g = _tree_bytes(grads)
+    s_max = max(t.numel() * t.element_size()
+                for t in tree_leaves(grads["layers"]))
+    temp = max(peak, g + s_max, g + lb_opt.peak)
+    if mode == "cp":
+        temp += _tree_bytes(param_structs(
+            dataclasses.replace(cfg, n_layers=1))["layers"])
+    return {"temp_bytes": temp, "raw_cost": cost, "layers_run": layers_run}
+
+
+def _cost_record(cc) -> dict:
+    return {"flops": float(cc.flops), "bytes": float(cc.bytes),
+            "transcendentals": float(cc.transcendentals),
+            "bytes_are": "unfused eager traffic of the port's ops"}
+
+
+def lm_collectives_unchecked(plan, mesh) -> Optional[str]:
+    """Why the plan's collective count on ``mesh`` is not held to the
+    reference's HLO, or None where it is: every serving layout and the
+    ``cp`` train are (tests/test_torch_launch.py, 1%), and so is the
+    ``tp`` train of a dense model whose KV heads divide the model
+    extent; one rank runs no collective."""
+    cfg, meta = plan.config, plan.meta
+    if meta["kind"] != "train" or mesh.devices.size == 1:
+        return None
+    if meta["mode"] == "cp" and cfg.mla is not None:
+        return ("MLA under cp: the reference's HLO gathers and exchanges "
+                "MLA's own tensors in the backward and sends its gradient "
+                "all-reduces as one tuple the parser reads as 0; the count "
+                "does not follow it (PERF.md section 7)")
+    if meta["mode"] == "tp" and (cfg.moe is not None or cfg.mla is not None
+                                 or cfg.n_kv_heads
+                                 % mesh_extents(mesh)[1]):
+        return ("tp train of MoE, MLA or KV heads split along dh: not "
+                "derived from the reference's HLO (only the dense layout "
+                "whose KV heads divide the model extent is)")
+    return None
+
+
+def run_lm_cell(spec, cell, mesh, mesh_name: str) -> dict:
+    """The LM branch: the cell's record on ``mesh``, the reference's keys
+    with the port's counterparts (see the module docstring)."""
+    rec = {
+        "arch": spec.arch_id, "shape": cell.name, "kind": cell.kind,
+        "mesh": mesh_name, "n_devices": int(mesh.devices.size),
+        "note": cell.note, "ok": False,
+    }
+    try:
+        t0 = time.perf_counter()
+        plan = build_cell(spec, cell, mesh)
+        meta, cfg = plan.meta, spec.config
+        rec["mode"] = meta["mode"]
+        dext, mext = mesh_extents(mesh)
+        arg = spec_bytes(plan.args, plan.specs, mesh)
+        if meta["kind"] == "train":
+            out = spec_bytes(plan.args[:2], plan.specs[:2], mesh)
+        else:
+            b, _ = _lm_local_shapes(plan, mesh)
+            elem = torch.tensor([], dtype=cfg.dtype).element_size()
+            out = b * -(-cfg.vocab // mext) * elem
+            if meta["kind"] == "decode":
+                out += spec_bytes(plan.args[1], plan.specs[1], mesh)
+        local = lm_local_run(spec, cell, plan, mesh)
+        # every output is written in place over an input (a decode's
+        # cache) or made during the step (counted in temp_bytes)
+        mem = {"argument_bytes": arg, "output_bytes": out,
+               "temp_bytes": local["temp_bytes"], "alias_bytes": out}
+        peak = (mem["argument_bytes"] + mem["output_bytes"]
+                + mem["temp_bytes"] - mem["alias_bytes"])
+        mem["peak_bytes_per_device"] = peak
+        mem["fits_80g_hbm"] = bool(peak < HBM_PER_CHIP)
+        rec["memory"] = mem
+        rec["raw_cost"] = local["raw_cost"]
+        rec["layers_run"] = local["layers_run"]
+        kind, b, s = meta["kind"], meta["batch"], meta["seq"]
+        rec["probe_model"] = meta.get("probe_model", mext)
+        rec["probe_data"] = meta.get("probe_data", dext)
+        corr = lm_cell_cost(cfg, kind, b, s, rec["probe_model"],
+                            rec["probe_data"])
+        rec["flops_per_chip"] = corr["flops"]
+        rec["flops_per_chip_xla_cpu"] = corr["flops_xla_cpu"]
+        rec["bytes_per_chip"] = corr["bytes"]
+        rec["model_flops_global"] = lm_model_flops(cfg, kind, b, s)
+        rec["useful_flops_ratio"] = (
+            rec["model_flops_global"]
+            / (corr["flops"] * mesh.devices.size) if corr["flops"] else None)
+        colls = _lm_collectives(plan, mesh)
+        coll = rec["collectives"] = colls.totals()
+        rec["collective_ops"] = colls.op_list()
+        unchecked = lm_collectives_unchecked(plan, mesh)
+        rec["collectives_checked"] = unchecked is None
+        if unchecked is not None:
+            rec["collectives_unchecked"] = unchecked
+        rec["hlo_collective_loop_factor"] = float(cfg.n_layers)
+        rec["roofline"] = roofline(corr["flops"], corr["bytes"],
+                                   coll["total"]).to_dict()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["ok"] = True
+    except (ValueError, TypeError, KeyError, RuntimeError) as e:
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    return rec
+
+
+def run_cell(spec, cell, mesh, mesh_name: str) -> dict:
+    """The cell's record on ``mesh`` (the LM or the LPA branch)."""
+    if spec.family == "lm":
+        return run_lm_cell(spec, cell, mesh, mesh_name)
+    if spec.family == "lpa":
+        return run_lpa_cell(spec, cell, mesh, mesh_name)
+    raise ValueError(f"{spec.arch_id}: " + NOT_PORTED.format(
+        family=spec.family))
+
+
+def _meshes(which: str, ranks, family: str) -> list:
+    """The meshes of ``--mesh``, and with ``ranks`` one of that many
+    ranks: 1-D ("shard") for the LPA cells, (ranks, 1) ("data",
+    "model") for the LM cells (data parallel: one rank holds a model)."""
     meshes = []
     if which in ("single", "both"):
         meshes.append(("single_pod_16x16", make_production_mesh()))
@@ -431,51 +1079,65 @@ def _meshes(which: str, ranks) -> list:
         meshes.append(("multi_pod_2x16x16",
                        make_production_mesh(multi_pod=True)))
     if ranks is not None:
-        meshes.append((f"ranks_{ranks}", make_mesh((ranks,), ("shard",))))
+        mesh = (make_mesh((ranks, 1), ("data", "model")) if family == "lm"
+                else make_mesh((ranks,), ("shard",)))
+        meshes.append((f"ranks_{ranks}", mesh))
     return meshes
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="lpa-mg8")
+    ap.add_argument("--arch", default="lpa-mg8",
+                    help="an LM or LPA arch id, or all (every LM and LPA "
+                         "arch)")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--ranks", type=int, default=None,
-                    help="also a 1-D mesh of this many ranks (1: one card)")
+                    help="also a mesh of this many ranks (1: one card)")
     ap.add_argument("--out", default="launch_results_torch/dryrun")
     args = ap.parse_args(argv)
 
-    spec = get_arch(args.arch)
-    if spec.family != "lpa":
-        print(f"dryrun: {args.arch}: " + NOT_PORTED.format(
-            family=spec.family), file=sys.stderr)
-        return 2
+    if args.arch == "all":
+        specs = [get_arch(a) for a in all_arch_ids()]
+        for spec in specs:
+            if spec.family not in PORTED:
+                print(f"dryrun: skipping {spec.arch_id}: " + NOT_PORTED.format(
+                    family=spec.family), file=sys.stderr)
+        specs = [sp for sp in specs if sp.family in PORTED]
+    else:
+        specs = [get_arch(args.arch)]
+        if specs[0].family not in PORTED:
+            print(f"dryrun: {args.arch}: " + NOT_PORTED.format(
+                family=specs[0].family), file=sys.stderr)
+            return 2
     if args.ranks is not None and args.ranks < 1:
         ap.error(f"--ranks must be positive, got {args.ranks}")
     n_ok = n_fail = 0
-    for mesh_name, mesh in _meshes(args.mesh, args.ranks):
-        outdir = os.path.join(args.out, mesh_name)
-        os.makedirs(outdir, exist_ok=True)
-        for cell in spec.cells:
-            if args.shape != "all" and cell.name != args.shape:
-                continue
-            rec = run_cell(spec, cell, mesh, mesh_name)
-            if rec["ok"]:
-                r = rec["roofline"]
-                extra = (f" peak={rec['memory']['peak_bytes_per_device']/1e9:.2f}GB"
-                         f" fits={rec['memory']['fits_80g_hbm']}"
-                         f" bottleneck={r['bottleneck']}"
-                         f" t_lb={r['step_time_lb_s']*1e3:.2f}ms")
-            else:
-                extra = " " + rec["error"][:160]
-            print(f"[{'OK ' if rec['ok'] else 'FAIL'}] {mesh_name} "
-                  f"{spec.arch_id}/{cell.name}{extra}", flush=True)
-            n_ok += rec["ok"]
-            n_fail += not rec["ok"]
-            path = os.path.join(outdir, f"{spec.arch_id}__{cell.name}.json")
-            with open(path, "w") as f:
-                json.dump(rec, f, indent=1)
+    for spec in specs:
+        for mesh_name, mesh in _meshes(args.mesh, args.ranks, spec.family):
+            outdir = os.path.join(args.out, mesh_name)
+            os.makedirs(outdir, exist_ok=True)
+            for cell in spec.cells:
+                if args.shape != "all" and cell.name != args.shape:
+                    continue
+                rec = run_cell(spec, cell, mesh, mesh_name)
+                if rec["ok"]:
+                    r, mem = rec["roofline"], rec["memory"]
+                    extra = (f" peak={mem['peak_bytes_per_device']/1e9:.2f}GB"
+                             f" fits={mem['fits_80g_hbm']}"
+                             f" bottleneck={r['bottleneck']}"
+                             f" t_lb={r['step_time_lb_s']*1e3:.2f}ms")
+                else:
+                    extra = " " + rec["error"][:160]
+                print(f"[{'OK ' if rec['ok'] else 'FAIL'}] {mesh_name} "
+                      f"{spec.arch_id}/{cell.name}{extra}", flush=True)
+                n_ok += rec["ok"]
+                n_fail += not rec["ok"]
+                path = os.path.join(outdir,
+                                    f"{spec.arch_id}__{cell.name}.json")
+                with open(path, "w") as f:
+                    json.dump(rec, f, indent=1)
     print(f"done: {n_ok} ok, {n_fail} failed")
     return 0 if n_fail == 0 else 1
 

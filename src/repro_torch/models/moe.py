@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import Params, dense_init, hint
 
-__all__ = ["MoEConfig", "init_moe", "moe_ffn", "router_aux_loss"]
+__all__ = ["MoEConfig", "moe_shapes", "init_moe", "moe_ffn",
+           "router_aux_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +45,10 @@ class MoEConfig:
     ep_mesh: object = None         # the reference's shard_map EP path
 
 
-def moe_tensors(generator: torch.Generator, cfg: MoEConfig, d_model: int,
-                lead: tuple = (), device=None) -> dict:
-    """The MoE parameters, each with the leading dims ``lead`` (a stack of
-    layers) and its per-layer fan-in scale, in the reference's order:
+def moe_shapes(cfg: MoEConfig, d_model: int) -> dict:
+    """The MoE parameters' per-layer shapes in the reference's order:
     ``router``, ``w_gate``, ``w_up``, ``w_down`` and, with shared
-    experts, ``shared_gate``, ``shared_up``, ``shared_down``. The routed
-    experts' fan-in is the reference's ``shape[0]``, the expert count."""
+    experts, ``shared_gate``, ``shared_up``, ``shared_down``."""
     e, f = cfg.n_experts, cfg.d_expert_ff
     shapes = {"router": (d_model, e), "w_gate": (e, d_model, f),
               "w_up": (e, d_model, f), "w_down": (e, f, d_model)}
@@ -58,9 +56,18 @@ def moe_tensors(generator: torch.Generator, cfg: MoEConfig, d_model: int,
         fs = cfg.d_shared_ff or cfg.d_expert_ff * cfg.n_shared
         shapes.update(shared_gate=(d_model, fs), shared_up=(d_model, fs),
                       shared_down=(fs, d_model))
+    return shapes
+
+
+def moe_tensors(generator: torch.Generator, cfg: MoEConfig, d_model: int,
+                lead: tuple = (), device=None) -> dict:
+    """The MoE parameters (``moe_shapes``), each with the leading dims
+    ``lead`` (a stack of layers) and its per-layer fan-in scale. The
+    routed experts' fan-in is the reference's ``shape[0]``, the expert
+    count."""
     return {name: dense_init(generator, lead + shape,
                              scale=1.0 / shape[0] ** 0.5, device=device)
-            for name, shape in shapes.items()}
+            for name, shape in moe_shapes(cfg, d_model).items()}
 
 
 def init_moe(generator: torch.Generator, cfg: MoEConfig, d_model: int,

@@ -41,11 +41,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import (Params, apply_rope, cross_entropy,
                                        dense_init, hint, rms_norm,
                                        rope_angles)
-from repro_torch.models.moe import MoEConfig, moe_ffn, moe_tensors
+from repro_torch.models.moe import MoEConfig, moe_ffn, moe_shapes
 
-__all__ = ["MLAConfig", "TransformerConfig", "init_params",
+__all__ = ["MLAConfig", "TransformerConfig", "init_params", "param_structs",
            "blockwise_attention", "direct_attention", "decode_attention",
-           "forward", "loss_fn", "init_cache", "decode_step"]
+           "forward", "loss_fn", "cache_shapes", "init_cache",
+           "decode_step"]
 
 #: score-tile elements (batch x heads x query rows x KV chunk) one
 #: attention step computes at once: 256 MiB of float32 scores (rows in
@@ -134,36 +135,28 @@ class TransformerConfig:
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(generator: torch.Generator, cfg: TransformerConfig,
-                device=None) -> Params:
-    """The model's parameters (float32) as a module whose state-dict keys
-    are the reference's paths, drawn from ``generator`` on its device
-    and moved to ``device`` (``None``: CUDA). The reference's law (a
-    truncated normal at each weight's per-layer fan-in, norms at 1,
-    ``embed`` at 0.02), not its bits."""
-    dev = resolve_device(device)
+def _param_tree(cfg: TransformerConfig, dense, ones) -> dict:
+    """The parameter tree, each weight ``dense(shape, scale)`` and each
+    norm ``ones(shape)``, made in the reference's order (the draws of
+    ``init_params`` follow it)."""
     l, d = cfg.n_layers, cfg.d_model
 
     def stack(*shape):
-        return dense_init(generator, (l,) + shape,
-                          scale=1.0 / shape[0] ** 0.5, device=dev)
+        return dense((l,) + shape, 1.0 / shape[0] ** 0.5)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
-
-    layer: Dict[str, Any] = {"ln1": ones(l, d), "ln2": ones(l, d)}
+    layer: Dict[str, Any] = {"ln1": ones((l, d)), "ln2": ones((l, d))}
     if cfg.mla is None:
         h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         layer.update(wq=stack(d, h * dh), wk=stack(d, kv * dh),
                      wv=stack(d, kv * dh), wo=stack(h * dh, d))
         if cfg.qk_norm:
-            layer["q_norm"] = ones(l, dh)
-            layer["k_norm"] = ones(l, dh)
+            layer["q_norm"] = ones((l, dh))
+            layer["k_norm"] = ones((l, dh))
     else:
         m, h = cfg.mla, cfg.n_heads
         layer.update(
             w_dkv=stack(d, m.kv_lora_rank + m.qk_rope_dim),
-            kv_ln=ones(l, m.kv_lora_rank),
+            kv_ln=ones((l, m.kv_lora_rank)),
             w_uk=stack(m.kv_lora_rank, h * m.qk_nope_dim),
             w_uv=stack(m.kv_lora_rank, h * m.v_head_dim),
             wq=stack(d, h * (m.qk_nope_dim + m.qk_rope_dim)),
@@ -173,15 +166,34 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
             layer["w_gate"] = stack(d, cfg.d_ff)
         layer.update(w_up=stack(d, cfg.d_ff), w_down=stack(cfg.d_ff, d))
     else:
-        layer["moe"] = moe_tensors(generator, cfg.moe, d, lead=(l,),
-                                   device=dev)
-    return Params({
-        "embed": dense_init(generator, (cfg.vocab, d), scale=0.02,
-                            device=dev),
-        "lm_head": dense_init(generator, (d, cfg.vocab), device=dev),
-        "final_ln": ones(d),
-        "layers": layer,
-    })
+        layer["moe"] = {name: stack(*shape) for name, shape in
+                        moe_shapes(cfg.moe, d).items()}
+    return {"embed": dense((cfg.vocab, d), 0.02),
+            "lm_head": dense((d, cfg.vocab), 1.0 / d ** 0.5),
+            "final_ln": ones((d,)), "layers": layer}
+
+
+def init_params(generator: torch.Generator, cfg: TransformerConfig,
+                device=None) -> Params:
+    """The model's parameters (float32) as a module whose state-dict keys
+    are the reference's paths, drawn from ``generator`` on its device
+    and moved to ``device`` (``None``: CUDA). The reference's law (a
+    truncated normal at each weight's per-layer fan-in, norms at 1,
+    ``embed`` at 0.02), not its bits."""
+    dev = resolve_device(device)
+    return Params(_param_tree(
+        cfg, lambda shape, scale: dense_init(generator, shape, scale=scale,
+                                             device=dev),
+        lambda shape: torch.ones(shape, dtype=torch.float32, device=dev)))
+
+
+def param_structs(cfg: TransformerConfig) -> dict:
+    """``init_params``' tree as float32 meta tensors (nested dicts): the
+    shapes and dtypes with nothing drawn or allocated, the counterpart of
+    the reference's ``jax.eval_shape`` of its init."""
+    def meta(shape, scale=None):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return _param_tree(cfg, meta, meta)
 
 
 def _unstack(tree, n: int) -> List[dict]:
@@ -435,23 +447,29 @@ def loss_fn(params, tokens: torch.Tensor, targets: torch.Tensor,
 # decode (serve_step)
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               dtype=None, device=None) -> Dict[str, torch.Tensor]:
-    """Zero KV cache: ``k``/``v`` [L, B, S_max, KV, dh], or under MLA the
-    compressed ``ckv`` [L, B, S_max, kv_lora] and ``krope`` [L, B,
-    S_max, rope_dim]. ``device=None`` means CUDA."""
-    dtype = dtype or cfg.dtype
-    dev = resolve_device(device)
+def cache_shapes(cfg: TransformerConfig, batch: int, max_len: int) -> dict:
+    """The KV cache's shapes: ``k``/``v`` [L, B, S_max, KV, dh], or under
+    MLA the compressed ``ckv`` [L, B, S_max, kv_lora] and ``krope`` [L,
+    B, S_max, rope_dim]."""
     l = cfg.n_layers
     if cfg.mla is None:
         shape = (l, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {"k": shape, "v": shape}
     m = cfg.mla
-    return {"ckv": torch.zeros((l, batch, max_len, m.kv_lora_rank),
-                               dtype=dtype, device=dev),
-            "krope": torch.zeros((l, batch, max_len, m.qk_rope_dim),
-                                 dtype=dtype, device=dev)}
+    return {"ckv": (l, batch, max_len, m.kv_lora_rank),
+            "krope": (l, batch, max_len, m.qk_rope_dim)}
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               dtype=None, device=None) -> Dict[str, torch.Tensor]:
+    """Zero KV cache of ``cache_shapes`` in ``dtype`` (default
+    ``cfg.dtype``). ``device=None`` means CUDA; ``"meta"`` gives shapes
+    only (nothing allocated)."""
+    dtype = dtype or cfg.dtype
+    dev = torch.device("meta") if device == "meta" else \
+        resolve_device(device)
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, shape in cache_shapes(cfg, batch, max_len).items()}
 
 
 def _decode_attn(lp, xn, cache_slices, pos, cfg):

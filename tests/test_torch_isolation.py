@@ -85,7 +85,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs.deepseek_v2_lite_16b, "
             "repro_torch.configs.granite_34b, repro_torch.configs.glm4_9b, "
             "repro_torch.launch.mesh, repro_torch.launch.roofline, "
-            "repro_torch.launch.dryrun, repro_torch.launch.report; "
+            "repro_torch.launch.dryrun, repro_torch.launch.report, "
+            "repro_torch.launch.cost, repro_torch.launch.live_bytes, "
+            "repro_torch.launch.probes, repro_torch.launch.perf_lab; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

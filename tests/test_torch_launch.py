@@ -18,6 +18,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -50,6 +51,17 @@ from _torch_parity import one_torch_thread  # noqa: F401 (autouse)
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SPEC = get_arch("lpa-mg8")
 RANKS = (1, 4, 256, 512)
+LM_ARCHS = ("qwen3-1.7b", "glm4-9b", "deepseek-v2-lite-16b", "granite-34b",
+            "qwen3-moe-235b-a22b")
+#: the SMOKE LM cells compiled on a (2, 2) mesh for their HLO collectives:
+#: every arch's, but deepseek's (MLA) train cell, whose collectives the
+#: port's count does not yet follow (PERF.md section 7); and the tp train
+#: (``sp_mode="none"``, kind ``train_tp``) of the dense GQA archs, the one
+#: tp train layout the count follows (``dryrun.lm_collectives_unchecked``)
+HLO_CELLS = tuple((arch, kind) for arch in LM_ARCHS
+                  for kind in ("train", "prefill", "decode")
+                  if (arch, kind) != ("deepseek-v2-lite-16b", "train")) + (
+    ("qwen3-1.7b", "train_tp"), ("glm4-9b", "train_tp"))
 
 _REF_CELLS = """
     import dataclasses, json
@@ -94,6 +106,69 @@ _REF_CELLS = """
             "argument_bytes":
                 int(compiled.memory_analysis().argument_size_in_bytes),
             "meta": plan.meta}
+
+    # the LM cells: plans on the single-pod mesh (specs, meta, per-rank
+    # argument bytes), the SMOKE cells compiled on a (2, 2) mesh of 4
+    # devices (the collectives their HLO parses to), and remesh there
+    from jax.sharding import NamedSharding
+    from repro.launch.cells import build_cell, lm_param_specs, _lm_structs
+    from repro.train.elastic import remesh
+
+    def spec_json(sp):
+        return [list(e) if isinstance(e, tuple) else e for e in sp]
+
+    def is_sharding(x):
+        return isinstance(x, NamedSharding)
+
+    out["lm"], out["lm_hlo"] = {}, {}
+    m16 = make_production_mesh()
+    for arch in LM_ARCHS:
+        spec = get_arch(arch)
+        for cell in spec.cells:
+            plan = build_cell(spec, cell, m16)
+            leaves = jax.tree.leaves(plan.args)
+            shardings = jax.tree.leaves(plan.in_shardings,
+                                        is_leaf=is_sharding)
+            out["lm"][f"{arch}/{cell.name}"] = {
+                "meta": plan.meta,
+                "argument_bytes": sum(
+                    int(np.prod(sh.shard_shape(a.shape)))
+                    * np.dtype(a.dtype).itemsize
+                    for a, sh in zip(leaves, shardings)),
+                "specs": [spec_json(sh.spec) for sh in shardings],
+                "shapes": [list(a.shape) for a in leaves]}
+    m4 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    for arch, kind in HLO_CELLS:
+        smoke = get_arch(arch).smoke
+        if kind == "train_tp":
+            smoke = dataclasses.replace(smoke, sp_mode="none")
+        spec = dataclasses.replace(get_arch(arch), config=smoke)
+        plan = build_cell(spec, ShapeCell("smoke", kind.split("_")[0],
+                                          {"batch": 4, "seq": 64}), m4)
+        with m4:
+            compiled = jax.jit(
+                plan.fn, in_shardings=plan.in_shardings,
+                donate_argnums=plan.donate_argnums).lower(
+                    *plan.args).compile()
+        out["lm_hlo"][f"{arch}/{kind}"] = {
+            "meta": plan.meta,
+            "collectives": collective_bytes(
+                compiled.as_text(),
+                loop_factor=float(spec.config.n_layers))}
+    smoke = get_arch("qwen3-1.7b").smoke
+    structs = _lm_structs(smoke)
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), structs)
+    position = {d: i for i, d in enumerate(m4.devices.flat)}
+    shards = {}
+    for mode in ("tp", "fsdp"):
+        placed = remesh(tree, lm_param_specs(smoke, structs, m4, mode), m4)
+        for i, leaf in enumerate(jax.tree.leaves(placed)):
+            for sh in leaf.addressable_shards:
+                shards[f"{mode}/{position[sh.device]}/{i}"] = np.asarray(
+                    sh.data)
+    np.savez(OUT + ".npz", **shards)
     with open(OUT, "w") as f:
         json.dump(out, f)
 """
@@ -101,17 +176,22 @@ _REF_CELLS = """
 
 @pytest.fixture(scope="module")
 def ref_cells(tmp_path_factory):
-    """The reference's LPA cells, built (and at SMOKE compiled) on 512
-    forced host devices in a subprocess."""
+    """The reference's LPA and LM cells, built (and at SMOKE compiled) on
+    512 forced host devices in a subprocess, and its remesh of a SMOKE LM
+    tree on 4 of them."""
     out = tmp_path_factory.mktemp("ref_cells") / "cells.json"
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512")
     code = (f"OUT = {str(out)!r}\nRANKS = {RANKS!r}\n"
+            f"LM_ARCHS = {LM_ARCHS!r}\nHLO_CELLS = {HLO_CELLS!r}\n"
             + textwrap.dedent(_REF_CELLS))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return json.loads(out.read_text())
+    cells = json.loads(out.read_text())
+    with np.load(str(out) + ".npz") as z:
+        cells["remesh"] = {k: z[k] for k in z.files}
+    return cells
 
 
 def _shape(t):
@@ -421,13 +501,251 @@ def test_dryrun_records_hold_the_worked_numbers(tmp_path, capsys):
 
 
 def test_dryrun_refuses_another_family(tmp_path, capsys):
-    rc = dryrun.main(["--arch", "qwen3-1.7b", "--out", str(tmp_path)])
-    assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
-    assert os.listdir(tmp_path) == []
+    """The GNN and recsys branches are not ported: their archs exit 2,
+    naming the ROADMAP item, and write nothing."""
+    for arch in ("pna", "dcn-v2"):
+        rc = dryrun.main(["--arch", arch, "--out", str(tmp_path)])
+        assert rc == 2
+        assert "ROADMAP" in capsys.readouterr().err
+        assert os.listdir(tmp_path) == []
 
 
 def test_ref_registry_has_the_same_lpa_cells():
     ref = ref_get_arch("lpa-mg8")
     assert [(c.name, c.kind, c.params) for c in ref.cells] == \
         [(c.name, c.kind, c.params) for c in SPEC.cells]
+
+
+# ---------------------------------------------------------------------------
+# the LM cells: layouts, plans, collectives, remesh, the LM dry run
+# ---------------------------------------------------------------------------
+
+def _duck_mesh(shape, axes):
+    """What the reference's layout code reads of a mesh."""
+    return types.SimpleNamespace(axis_names=axes, devices=np.empty(shape))
+
+
+DUCK_MESHES = {"single": ((16, 16), ("data", "model")),
+               "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _ref_spec_dict(specs) -> dict:
+    from jax.sharding import PartitionSpec
+    import jax
+    flat = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, PartitionSpec))[0]
+    return {"/".join(k.key for k in path): tuple(sp) for path, sp in flat}
+
+
+def _spec_dict(specs, path=()) -> dict:
+    if isinstance(specs, dict):
+        return {k: v for key in specs
+                for k, v in _spec_dict(specs[key], path + (key,)).items()}
+    return {"/".join(path): specs}
+
+
+def _flat_specs(args, specs) -> list:
+    """(shape, spec) of every input leaf in the reference's leaf order
+    (dict keys sorted), specs as JSON gives them."""
+    from repro_torch.train.elastic import leaves_with_specs
+    return [(list(t.shape), [list(e) if isinstance(e, tuple) else e
+                             for e in sp])
+            for _, t, sp in leaves_with_specs(args, specs)]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_param_specs_equal_the_reference(arch):
+    """The four layouts on both production meshes, leaf for leaf, and
+    the longest prefix of the mesh's axes a batch divides over."""
+    from repro.launch.cells import _lm_structs, lm_param_specs as ref_specs
+    from repro_torch.launch.cells import lm_param_specs
+    from repro_torch.models.transformer import param_structs
+    from repro.launch.cells import _best_batch_axes as ref_best
+    from repro_torch.launch.cells import _best_batch_axes
+    cfg, ref_cfg = get_arch(arch).config, ref_get_arch(arch).config
+    structs, ref_structs = param_structs(cfg), _lm_structs(ref_cfg)
+    for shape, axes in DUCK_MESHES.values():
+        m = _duck_mesh(shape, axes)
+        for b in (1, 3, 16, 32, 256, 512):
+            assert _best_batch_axes(m, b) == ref_best(m, b)
+        for mode in ("tp", "fsdp", "ep_fsdp", "cp"):
+            want = _ref_spec_dict(ref_specs(ref_cfg, ref_structs, m, mode))
+            got = _spec_dict(lm_param_specs(cfg, structs, m, mode))
+            assert got == want, (mode, shape)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_plans_equal_the_reference(ref_cells, arch):
+    """Each cell's plan on the 16 x 16 mesh: the reference's meta
+    (mode, probe extents, kv_len), every input's shape and spec in its
+    leaf order, and the per-rank argument bytes of its shard shapes."""
+    spec = get_arch(arch)
+    m = mesh.make_production_mesh()
+    for cell in spec.cells:
+        ref = ref_cells["lm"][f"{arch}/{cell.name}"]
+        plan = build_cell(spec, cell, m)
+        assert {k: plan.meta[k] for k in ref["meta"]} == ref["meta"]
+        flat = _flat_specs(plan.args, plan.specs)
+        assert [s for s, _ in flat] == ref["shapes"], cell.name
+        assert [sp for _, sp in flat] == ref["specs"], cell.name
+        assert dryrun.spec_bytes(plan.args, plan.specs, m) == \
+            ref["argument_bytes"], cell.name
+    # the one-card plans are unchanged
+    plan = build_cell(spec, spec.cells[0])
+    assert plan.args is None and plan.specs is None
+    assert plan.config is spec.config
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_collective_bytes_equal_the_reference_hlo(ref_cells, arch):
+    """The arch's SMOKE cells on a (2, 2) mesh: the total and every op
+    that holds at least 1% of it within 1% of what the reference's
+    roofline parses out of the compiled step's HLO (GQA, MQA, MLA and
+    MoE layouts, context-parallel train and tensor-parallel serving; the
+    dense GQA tensor-parallel train); the dry run marks each of these
+    layouts checked."""
+    m = mesh.make_mesh((2, 2), ("data", "model"))
+    for kind in [k for a, k in HLO_CELLS if a == arch]:
+        ref = ref_cells["lm_hlo"][f"{arch}/{kind}"]
+        smoke = get_arch(arch).smoke
+        if kind == "train_tp":
+            smoke = dataclasses.replace(smoke, sp_mode="none")
+        spec = dataclasses.replace(get_arch(arch), config=smoke)
+        plan = build_cell(spec, ShapeCell("smoke", kind.split("_")[0],
+                                          {"batch": 4, "seq": 64}), m)
+        assert {k: plan.meta[k] for k in ref["meta"]} == ref["meta"]
+        assert dryrun.lm_collectives_unchecked(plan, m) is None, kind
+        got = dryrun.lm_collective_bytes(plan, m)
+        want = ref["collectives"]
+        print(arch, kind, got, want)
+        assert got["total"] == pytest.approx(want["total"], rel=0.01)
+        for op, b in want.items():
+            if b >= 0.01 * want["total"]:
+                assert got.get(op, 0.0) == pytest.approx(b, rel=0.01), \
+                    (kind, op)
+
+
+def test_remesh_equals_the_reference_shards(ref_cells):
+    """Every rank's shard of a SMOKE LM tree under tp and fsdp on a
+    (2, 2) mesh equals the reference's addressable shard on the device at
+    the same mesh position; a mesh that does not divide raises first."""
+    from repro_torch.launch.cells import lm_param_specs
+    from repro_torch.models.transformer import param_structs
+    from repro_torch.train.elastic import remesh
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    smoke = get_arch("qwen3-1.7b").smoke
+    structs = param_structs(smoke)
+    rng = np.random.default_rng(0)
+    tree = tree_unflatten(structs, [
+        rng.standard_normal(tuple(a.shape)).astype(np.float32)
+        for a in tree_leaves(structs)])
+    m = mesh.make_mesh((2, 2), ("data", "model"))
+    for mode in ("tp", "fsdp"):
+        specs = lm_param_specs(smoke, structs, m, mode)
+        for rank in range(4):
+            shards = tree_leaves(remesh(tree, specs, m, rank, device="cpu"))
+            for i, got in enumerate(shards):
+                want = ref_cells["remesh"][f"{mode}/{rank}/{i}"]
+                assert torch.equal(got, torch.from_numpy(want)), \
+                    (mode, rank, i)
+    bad = mesh.make_mesh((1, 3), ("data", "model"))
+    with pytest.raises(ValueError, match="not divisible"):
+        remesh(tree, lm_param_specs(smoke, structs, bad, "tp"), bad, 0,
+               device="cpu")
+
+
+#: qwen3-1.7b's per-rank argument bytes on the 16 x 16 mesh, from the
+#: reference's shard shapes
+QWEN3_ARG_BYTES = {"train_4k": 532_933_380, "prefill_32k": 508_661_760,
+                   "decode_32k": 2_387_447_872, "long_500k": 743_280_648}
+LM_KEYS = {"arch", "shape", "kind", "mesh", "n_devices", "note", "ok",
+           "mode", "memory", "raw_cost", "flops_per_chip", "bytes_per_chip",
+           "model_flops_global", "useful_flops_ratio", "collectives",
+           "hlo_collective_loop_factor", "roofline"}
+
+
+def test_dryrun_writes_the_lm_records(tmp_path, capsys):
+    """``--arch qwen3-1.7b --mesh single``: four records with the
+    reference's keys, the worked argument bytes, the probe's FLOPs, the
+    collectives' total in the roofline; the report and perf_lab read
+    them."""
+    from repro_torch.launch import perf_lab
+    from repro_torch.launch.probes import lm_cell_cost
+    rc = dryrun.main(["--arch", "qwen3-1.7b", "--mesh", "single", "--out",
+                      str(tmp_path)])
+    assert rc == 0
+    recs = report.load(str(tmp_path), "single_pod_16x16")
+    assert sorted(s for _, s in recs) == sorted(QWEN3_ARG_BYTES)
+    cfg = get_arch("qwen3-1.7b").config
+    for (_, shape), d in recs.items():
+        assert LM_KEYS <= set(d) and d["ok"], shape
+        mem = d["memory"]
+        assert mem["argument_bytes"] == QWEN3_ARG_BYTES[shape]
+        assert mem["peak_bytes_per_device"] == (
+            mem["argument_bytes"] + mem["temp_bytes"])
+        assert mem["temp_bytes"] > 0 and mem["fits_80g_hbm"]
+        assert d["mode"] == ("cp" if d["kind"] == "train" else "tp")
+        want = lm_cell_cost(cfg, d["kind"], *{
+            "train_4k": (256, 4096, 1, 256),
+            "prefill_32k": (32, 32768, 16, 16),
+            "decode_32k": (128, 32768, 16, 16),
+            "long_500k": (1, 524288, 16, 16)}[shape])
+        assert d["flops_per_chip"] == want["flops"]
+        assert d["flops_per_chip_xla_cpu"] == want["flops_xla_cpu"]
+        assert d["flops_per_chip"] < d["flops_per_chip_xla_cpu"]
+        assert d["roofline"]["compute_s"] == pytest.approx(
+            d["flops_per_chip"] / PEAK_FLOPS)
+        assert d["collectives_checked"] is True
+        assert d["hlo_collective_loop_factor"] == cfg.n_layers
+        assert d["roofline"]["collective_s"] == pytest.approx(
+            d["collectives"]["total"] / 450e9)
+    capsys.readouterr()
+    report.main(["--results", str(tmp_path), "--mesh", "single_pod_16x16"])
+    out = capsys.readouterr().out
+    assert out.startswith("4/4 cells built; 4/4 fit 80 GB HBM/chip")
+    perf_lab.main(["--arch", "qwen3-1.7b", "--shape", "train_4k"])
+    out = capsys.readouterr().out
+    assert "qwen3-1.7b/train_4k mode=cp" in out and "->" in out
+    assert "unverified" not in out
+
+
+def test_dryrun_marks_the_collectives_not_held_to_the_reference():
+    """Of the registry's cells on the 16 x 16 mesh, only deepseek's (MLA)
+    cp train has a collective count not held to the reference's HLO; a
+    tp train is held only for a dense model whose KV heads divide the
+    model extent; one rank runs none. The report stars such a term and
+    gives the reason under the table."""
+    m16 = mesh.make_production_mesh()
+    for arch in LM_ARCHS:
+        spec = get_arch(arch)
+        for cell in spec.cells:
+            why = dryrun.lm_collectives_unchecked(build_cell(spec, cell, m16),
+                                                  m16)
+            assert (why is not None) == (
+                (arch, cell.kind) == ("deepseek-v2-lite-16b", "train")), \
+                (arch, cell.name)
+    m4, one = (mesh.make_mesh(s, ("data", "model")) for s in ((2, 2),
+                                                                (1, 1)))
+    cell = ShapeCell("smoke", "train", {"batch": 4, "seq": 64})
+    for arch, held in (("qwen3-1.7b", True), ("granite-34b", False),
+                       ("deepseek-v2-lite-16b", False),
+                       ("qwen3-moe-235b-a22b", False)):
+        spec = get_arch(arch)
+        spec = dataclasses.replace(spec, config=dataclasses.replace(
+            spec.smoke, sp_mode="none"))
+        plan = build_cell(spec, cell, m4)
+        assert plan.meta["mode"] == "tp"
+        assert (dryrun.lm_collectives_unchecked(plan, m4) is None) == held
+        assert dryrun.lm_collectives_unchecked(build_cell(spec, cell, one),
+                                               one) is None
+    rec = {"arch": "a", "shape": "s", "ok": True, "useful_flops_ratio": 0.5,
+           "memory": {"peak_bytes_per_device": 1e9},
+           "roofline": {"compute_s": 1.0, "memory_s": 2.0,
+                        "collective_s": 3.0, "bottleneck": "collective",
+                        "step_time_lb_s": 3.0}}
+    table = report.roofline_table({("a", "s"): rec})
+    assert "3.00s*" not in table and "unverified" not in table
+    table = report.roofline_table({("a", "s"): dict(
+        rec, collectives_checked=False, collectives_unchecked="why")})
+    assert "| 3.00s* |" in table
+    assert table.endswith("\n\n* a/s: collective term unverified: why")

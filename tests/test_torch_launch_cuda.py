@@ -11,7 +11,10 @@ above its inputs (``torch.cuda.max_memory_allocated``) within 5% of
 ``launch.dryrun.lpa_step_temp_bytes`` at 2^18 vertices, on the bucketed
 (K9) and the fused (K1) layout; K9 on the cell's bucketed rounds equal
 to its plain version (int32 bits); the step's collectives equal to
-``lpa_collective_bytes``.
+``lpa_collective_bytes``. The LM half (the ``card`` fixture): a SMOKE
+layer's ``CostCounter`` totals on the card equal to meta's, and
+``LiveBytes`` on meta within 5% of the allocator over a SMOKE train
+step.
 """
 import pytest
 import torch
@@ -105,3 +108,75 @@ def test_k9_on_the_cell_rounds_equals_plain(nccl_rank, graph):
     plain, _ = _cell_step(nccl_rank, ws, fold_tile=ref.mg_fold_ref)(
         labels, True, 1)
     assert torch.equal(new, plain)
+
+
+# ---------------------------------------------------------------------------
+# the LM half: the op counter and the bytes tracer against the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: these tests run LM layers and a "
+                    "train step on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_cost_counter_on_the_card_equals_meta(card, arch):
+    """A SMOKE layer's ``CostCounter`` totals on CUDA tensors equal those
+    of the same call on meta tensors (shapes and dtypes alone)."""
+    import dataclasses
+    from repro_torch.launch.cost import CostCounter
+    from repro_torch.models import transformer as tr
+    cfg = dataclasses.replace(get_arch(arch).smoke, n_layers=1)
+    totals = {}
+    for dev in ("meta", "cuda"):
+        if dev == "meta":
+            layers = tr.param_structs(cfg)["layers"]
+        else:
+            layers = tr.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device=card).layers
+        lp = tr._unstack(layers, 1)[0]
+        x = torch.randn(2, 16, cfg.d_model).to(cfg.dtype).to(dev)
+        pos = torch.arange(16, device=dev)[None].expand(2, 16)
+        with torch.no_grad(), CostCounter() as cc:
+            tr._layer(lp, x, cfg, pos)
+        totals[dev] = cc.totals()
+    assert totals["cuda"] == totals["meta"]
+
+
+def test_live_bytes_on_meta_matches_the_allocator(card):
+    """One SMOKE train step (loss, backward, AdamW on a module in place):
+    the most bytes ``LiveBytes`` sees it hold on meta within 5% of what
+    the allocator holds above the resident state on the card."""
+    import dataclasses
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch.cells import build_lm_train
+    from repro_torch.launch.live_bytes import LiveBytes
+    from repro_torch.models.common import Params
+    from repro_torch.models.transformer import param_structs
+    from repro_torch.optim.adamw import adamw_init
+    spec = get_arch("qwen3-1.7b")
+    cfg = dataclasses.replace(spec.smoke, n_layers=4)
+    plan = build_lm_train(dataclasses.replace(spec, config=cfg),
+                          ShapeCell("t", "train", {"batch": 8, "seq": 256}))
+    params = Params(param_structs(cfg))
+    batch = {k: torch.empty((8, 256), dtype=torch.int32, device="meta")
+             for k in ("tokens", "targets")}
+    opt = adamw_init(params)
+    with LiveBytes() as live:
+        plan.fn(params, opt, batch)
+    model = plan.init(torch.Generator().manual_seed(0), device=card)
+    opt = adamw_init(model)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 256), dtype=torch.int32,
+                              device=card) for k in ("tokens", "targets")}
+    plan.fn(model, opt, batch)  # warm-up: cuBLAS workspaces
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plan.fn(model, opt, batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - resident
+    assert abs(held / live.peak - 1) <= TEMP_TOL, (held, live.peak)
