@@ -230,7 +230,24 @@ Phases:
      and "fsdp" on a (2, 2) mesh: every shard equal to its slice, the
      shards gathered on rank 0 equal to the tree, a (1, 3) mesh raising
      before anything moves;
-  12. one JSON line describing every kernel (K1 and K2 also list the
+  12. the GNN and recsys half of the dry run (the mesh layouts of the
+     GNN and DCN-v2 cells, ``cells.rank_step`` and the GNN and recsys
+     branch of ``launch.dryrun``): (a) the dry run of the four GNN
+     archs' and DCN-v2's four cells on 256 and 512 ranks and on one, and
+     of minibatch_lg's PNA on 8g's 4 ranks, host work on meta tensors in
+     processes of this script's own (``--gnn-dryrun``) started at phase
+     7: per-rank peak and fit in 80 GB, the three roofline terms,
+     bottleneck and t_lb, and the report's table; (b) the one-rank
+     records of phase 8's cells (8c minibatch_lg with PNA and
+     MeshGraphNet, 8d molecule and full_graph_sm, 8e DCN-v2 at 65,536,
+     512 and 262,144 rows and 1,000,000 candidates) against the same
+     cells run on the card at the same widths: argument bytes within 5%
+     of the bytes resident for the call's inputs, temp bytes within 5%
+     of the call's peak above them, t_lb not above the median call,
+     ``CostCounter``'s totals on the card equal to meta's; (c) the
+     4-rank record's collective bytes within 1% of what ``ShardComm``
+     recorded a step in 8g's plain (float32) run;
+  13. one JSON line describing every kernel (K1 and K2 also list the
      partitions of phases 7 and 8 as ``gnn_partition`` and
      ``train_partition``; K1 and K9 the cells of phase 10).
 
@@ -2620,8 +2637,9 @@ def _dp_rank(comm, graph, out_dir) -> None:
     ``TRAIN_STEPS`` data-parallel steps with the int8 error-feedback
     all-reduce, then as many with the float32 mean, each run from the
     same init: every step's ms and its all-reduces' ms (host wall,
-    synchronised), the bytes they send, and the parameters' bits equal
-    across the ranks after each run. The report goes to
+    synchronised), the bytes they send (and ``ShardComm.bytes_by_op``'s
+    count of them, phase 12c's), and the parameters' bits equal across
+    the ranks after each run. The report goes to
     ``out_dir/dp{r}.json``."""
     import torch
     from repro_torch.launch.train_cells import (TRAIN_STEPS, train_plan,
@@ -2656,9 +2674,10 @@ def _dp_rank(comm, graph, out_dir) -> None:
                           device=comm.device)
         init, step = make_dp_train_step(plan.loss, comm, compress=compress)
         opt, err = init(model)
-        ms, ex_ms, wire, losses = [], [], [], []
+        ms, ex_ms, wire, losses, by_op = [], [], [], [], []
         for b in batches:
             timing.update(s=0.0, bytes=0)
+            comm.reset_counts()
             torch.cuda.synchronize(comm.device)
             t1 = time.perf_counter()
             model, opt, err, m = step(model, opt, err, b)
@@ -2666,13 +2685,14 @@ def _dp_rank(comm, graph, out_dir) -> None:
             ms.append((time.perf_counter() - t1) * 1e3)
             ex_ms.append(timing["s"] * 1e3)
             wire.append(timing["bytes"])
+            by_op.append(dict(comm.bytes_by_op))
             losses.append(float(m["loss"]))
         bits = torch.cat([p.reshape(-1) for p in _param_leaves(model)]
                          ).view(torch.int32)
         every = comm.all_gather(bits).reshape(comm.world_size, -1)
         n_params = bits.numel()
         out[run] = {"ms": ms, "exchange_ms": ex_ms, "wire_bytes": wire,
-                    "losses": losses,
+                    "bytes_by_op": by_op, "losses": losses,
                     "equal_across_ranks": bool((every == every[0]).all()),
                     "n_params": n_params}
     Path(out_dir, f"dp{comm.rank}.json").write_text(json.dumps(out))
@@ -4007,6 +4027,327 @@ def _lm_dryrun_path(dry: tuple, lm: dict, tag: str) -> dict:
     return report
 
 
+# -- phase 12: the GNN and recsys half of the dry run -------------------------
+
+#: 12a: the archs of the dry run, its meshes as the dry run names them, and
+#: the mesh of 8g's ranks, on which minibatch_lg's PNA record is also made
+MODEL_ARCHS = GNN_ARCHS + ("dcn-v2",)
+MODEL_DRYRUN_MESHES = ("single_pod_16x16", "multi_pod_2x16x16", "ranks_1")
+MODEL_DP_MESH = f"ranks_{DP_RANKS}"
+#: the longest phase 12 waits for the dry-run processes (started at
+#: phase 7; under a minute of host work each)
+MODEL_DRYRUN_WAIT_S = 900
+#: 12b: the one-rank records held to runs of phase 8's cells on the card
+#: (8c, 8d, 8e), the timed calls after one warm-up, and the tolerance of
+#: the argument and temp bytes against the allocator
+C12_CELLS = (("pna", "minibatch_lg"), ("meshgraphnet", "minibatch_lg"),
+             ("equiformer-v2", "molecule"), ("egnn", "molecule"),
+             ("pna", "full_graph_sm"), ("meshgraphnet", "full_graph_sm"),
+             ("egnn", "full_graph_sm"), ("equiformer-v2", "full_graph_sm"),
+             ("dcn-v2", "train_batch"), ("dcn-v2", "serve_p99"),
+             ("dcn-v2", "serve_bulk"), ("dcn-v2", "retrieval_cand"))
+C12_REPS = 3
+MODEL_MEM_TOL = 0.05
+#: 12c: the 4-rank record's collective bytes against 8g's ShardComm
+MODEL_COLL_TOL = 0.01
+
+
+def _model_dryrun(out: Path, arch: str) -> int:
+    """``--gnn-dryrun OUT ARCH``: ``launch.dryrun`` of one GNN or recsys
+    arch on the reference's two meshes and one rank (records under
+    ``OUT``), and for PNA minibatch_lg's record on 8g's ranks. A host
+    computation on meta tensors in a process of its own, started at
+    phase 7 so that it overlaps phases 7-11; it touches no device."""
+    os.nice(10)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    rc = dryrun.main(["--arch", arch, "--mesh", "both", "--ranks", "1",
+                      "--out", str(out)])
+    if arch == "pna":
+        spec = get_arch(arch)
+        cell = next(c for c in spec.cells if c.name == "minibatch_lg")
+        rec = dryrun.run_cell(spec, cell,
+                              make_mesh((DP_RANKS, 1), ("data", "model")),
+                              MODEL_DP_MESH)
+        (out / MODEL_DP_MESH).mkdir(exist_ok=True)
+        part = out / MODEL_DP_MESH / "pna__minibatch_lg.part"
+        part.write_text(json.dumps(rec))
+        os.replace(part, part.with_suffix(".json"))
+    return rc
+
+
+def _start_model_dryrun() -> tuple:
+    """Start one ``--gnn-dryrun`` process per GNN and recsys arch, writing
+    to one temporary directory; at exit they are stopped and it is
+    removed."""
+    out = Path(tempfile.mkdtemp(prefix="model_dryrun_"))
+    procs = {}
+    for arch in MODEL_ARCHS:
+        with open(out / f"{arch}.log", "w") as log:
+            procs[arch] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--gnn-dryrun", str(out), arch],
+                stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(_stop_lm_dryrun, procs, out)
+    return procs, out
+
+
+def _model_record_line(rec: dict) -> str:
+    mem, r = rec["memory"], rec["roofline"]
+    return (f"peak {mem['peak_bytes_per_device']} B "
+            f"({mem['peak_bytes_per_device'] / 1e9:.2f} GB; argument "
+            f"{mem['argument_bytes']}, temp {mem['temp_bytes']}): fits 80 GB "
+            f"{mem['fits_80g_hbm']}; compute {r['compute_s'] * 1e3:.4f} ms, "
+            f"memory {r['memory_s'] * 1e3:.4f} ms, collective "
+            f"{r['collective_s'] * 1e3:.4f} ms: bottleneck {r['bottleneck']},"
+            f" t_lb {r['step_time_lb_s'] * 1e3:.4f} ms "
+            f"({rec['flops_per_chip']:.6g} FLOP, {rec['bytes_per_chip']:.6g} "
+            f"B, {rec['collectives']['total']:.6g} collective B as the "
+            f"reference's parse counts them, "
+            f"{rec['collectives_moved']['total']:.6g} B moved)")
+
+
+def _model_dryrun_records(dry: tuple, tag: str) -> dict:
+    """12a: wait for the dry-run processes; print every GNN and recsys
+    record (per-rank peak and its fit in 80 GB, the roofline's three
+    terms, bottleneck and t_lb) and each mesh's report; a record that is
+    not ok must state why."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import report
+    procs, out = dry
+    t0 = time.perf_counter()
+    for arch, proc in procs.items():
+        rc = proc.wait(timeout=MODEL_DRYRUN_WAIT_S)
+        log = (out / f"{arch}.log").read_text()
+        if rc != 0 and "Traceback" in log:
+            raise AssertionError(f"phase 12a: the dry run of {arch} exited "
+                                 f"{rc}: {log[-3000:]}")
+    waited = time.perf_counter() - t0
+    want = {(a, c.name) for a in MODEL_ARCHS for c in get_arch(a).cells}
+    recs_by_mesh = {}
+    for mesh_name in MODEL_DRYRUN_MESHES + (MODEL_DP_MESH,):
+        recs = report.load(str(out), mesh_name)
+        expect = (want if mesh_name != MODEL_DP_MESH
+                  else {("pna", "minibatch_lg")})
+        if set(recs) != expect:
+            raise AssertionError(f"phase 12a: {mesh_name}: records "
+                                 f"{sorted(recs)}")
+        for (arch, shape), rec in sorted(recs.items()):
+            if not rec["ok"]:
+                if not rec.get("error"):
+                    raise AssertionError(f"phase 12a: {mesh_name} "
+                                         f"{arch}/{shape} is not ok and "
+                                         f"states no reason")
+                print(f"{tag} phase 12a: {arch}/{shape} on {mesh_name}: "
+                      f"not built: {rec['error']}", flush=True)
+                continue
+            print(f"{tag} phase 12a: {arch}/{shape} on {mesh_name} "
+                  f"({rec['n_devices']} ranks): " + _model_record_line(rec),
+                  flush=True)
+        print(f"{tag} phase 12a: {mesh_name}: {report.summary(recs)}\n"
+              f"{report.roofline_table(recs)}", flush=True)
+        recs_by_mesh[mesh_name] = {f"{a}/{c}": rec
+                                   for (a, c), rec in recs.items()}
+    return {"records": recs_by_mesh, "waited_s": waited}
+
+
+def _c12_inputs(arch: str, cell: str, graph) -> tuple:
+    """(model, the rest of the call's arguments) of a 12b cell on the
+    card: the model drawn from a generator seeded 0 (DCN-v2's on the
+    card), AdamW's state for a train cell, and the cell's batch as
+    phase 8 makes it, keeping the inputs the dry run's plan has."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import dcn_batch
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import molecule_cell_batch
+    from repro_torch.launch.train_cells import (full_graph_sm_batch,
+                                                registry_cell, train_plan,
+                                                tree_batch)
+    from repro_torch.optim.adamw import adamw_init
+
+    plan = train_plan(arch, cell)
+    spec = get_arch(arch)
+    one = build_cell(spec, registry_cell(arch, cell),
+                     make_mesh((1, 1), ("data", "model")))
+    if arch == "dcn-v2":
+        cfg = spec.config
+        model = plan.init(torch.Generator(device="cuda").manual_seed(0))
+        n = registry_cell(arch, cell).params["batch"]
+        b = dcn_batch(0, 0, n, cfg.n_dense, cfg.n_sparse, cfg.vocab_sizes)
+        if cell == "train_batch":
+            return plan, model, (adamw_init(model), b)
+        if cell != "retrieval_cand":
+            return plan, model, (b["dense"], b["sparse"])
+        cand = torch.randn(tuple(one.args[3].shape), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(2))
+        return plan, model, (b["dense"], b["sparse"], cand)
+    if cell == "minibatch_lg":
+        batch = tree_batch(graph, 0)
+    elif cell == "molecule":
+        batch = molecule_cell_batch()
+    else:
+        batch = full_graph_sm_batch()
+    batch = {k: v for k, v in batch.items() if k in one.args[2]}
+    model = plan.init(torch.Generator().manual_seed(0))
+    return plan, model, (adamw_init(model), batch)
+
+
+def _phase8_ms(train: dict, arch: str, cell: str):
+    """Phase 8's median ms of the cell (8c, 8d, 8e), where it has one."""
+    if cell == "minibatch_lg":
+        return train["minibatch_lg"][arch]["median_ms"]
+    if cell in ("molecule", "full_graph_sm"):
+        run = train["small_cells"][cell].get(arch)
+        return run and run["median_ms"]
+    dcn = train["dcn"]
+    if cell == "train_batch":
+        return dcn["train"]["median_ms"]
+    return statistics.median(dcn[cell]["ms"])
+
+
+def _model_vs_card(records: dict, graph, train: dict, tag: str) -> dict:
+    """12b: each one-rank record of ``C12_CELLS`` against the cell run on
+    the card at the same widths (phase 8's cells, run again here with
+    their bytes counted): ``argument_bytes`` within ``MODEL_MEM_TOL`` of
+    the bytes resident for the call's inputs (less what was allocated
+    before them), ``temp_bytes`` within it of the call's peak above them
+    (``max_memory_allocated`` over the calls after a warm-up), the
+    roofline's t_lb not above the median call, and ``CostCounter``'s
+    totals over one call on the card equal to the record's (meta)."""
+    import torch
+    from repro_torch.launch.cost import CostCounter
+    out = {}
+    for arch, cell in C12_CELLS:
+        rec = records["ranks_1"][f"{arch}/{cell}"]
+        if not rec["ok"]:
+            raise AssertionError(f"phase 12b: {arch}/{cell} on one rank: "
+                                 f"{rec.get('error')}")
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        plan, model, rest = _c12_inputs(arch, cell, graph)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - base
+        train_cell = rec["meta"]["kind"] in ("gnn_train", "recsys_train")
+
+        def call():
+            nonlocal model, rest
+            if train_cell:
+                model, opt, _ = plan.fn(model, *rest)
+                rest = (opt,) + rest[1:]
+            else:
+                plan.fn(model, *rest)
+
+        ms = []
+        with torch.set_grad_enabled(train_cell):
+            for rep in range(1 + C12_REPS):
+                if rep == 1:
+                    # after the warm-up (cuBLAS workspaces)
+                    torch.cuda.synchronize()
+                    held = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                call()
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            working = torch.cuda.max_memory_allocated() - held
+            with CostCounter() as cc:
+                call()
+            torch.cuda.synchronize()
+        mem, cost = rec["memory"], rec["raw_cost"]
+        arg_err = mem["argument_bytes"] / resident - 1
+        temp_err = mem["temp_bytes"] / working - 1
+        median = statistics.median(ms[1:])
+        t_lb = rec["roofline"]["step_time_lb_s"] * 1e3
+        same = (cc.flops == cost["flops"] and cc.bytes == cost["bytes"]
+                and cc.transcendentals == cost["transcendentals"])
+        p8 = _phase8_ms(train, arch, cell)
+        out[f"{arch}/{cell}"] = {
+            "argument_bytes": mem["argument_bytes"], "resident_bytes":
+            resident, "argument_err": arg_err, "temp_bytes":
+            mem["temp_bytes"], "working_bytes": working, "temp_err":
+            temp_err, "ms": ms, "median_ms": median, "t_lb_ms": t_lb,
+            "phase8_ms": p8, "card_flops": cc.flops, "card_bytes": cc.bytes,
+            "count_equal": same}
+        print(f"{tag} phase 12b: {arch}/{cell} on one rank: dry run "
+              f"argument {mem['argument_bytes']} B against the card's "
+              f"resident {resident} B ({arg_err:+.3%}), temp "
+              f"{mem['temp_bytes']} B against the card's working {working} B"
+              f" ({temp_err:+.3%}); median {median:.3f} ms of {C12_REPS} "
+              f"calls after 1 warm-up (phase 8: "
+              + (f"{p8:.3f} ms" if p8 else "not run") + f") against t_lb "
+              f"{t_lb:.4f} ms ({rec['roofline']['bottleneck']}); card count "
+              f"{cc.flops} FLOP, {cc.bytes} B "
+              + ("equal to meta's" if same else
+                 f"against meta's {cost['flops']:.0f}, {cost['bytes']:.0f}"),
+              flush=True)
+        if abs(arg_err) > MODEL_MEM_TOL or abs(temp_err) > MODEL_MEM_TOL:
+            raise AssertionError(f"phase 12b, {arch}/{cell}: argument "
+                                 f"{arg_err:+.2%}, temp {temp_err:+.2%}")
+        if t_lb > median:
+            raise AssertionError(f"phase 12b, {arch}/{cell}: t_lb {t_lb} ms "
+                                 f"above the measured {median} ms")
+        if not same:
+            raise AssertionError(f"phase 12b, {arch}/{cell}: the card's "
+                                 f"count differs from meta's")
+        del model, rest
+    torch.cuda.empty_cache()
+    return out
+
+
+def _model_vs_dp(records: dict, train: dict, tag: str) -> dict:
+    """12c: minibatch_lg's PNA record on 8g's ranks against 8g's plain
+    run (``compress=False``): the collective bytes a rank moves a step
+    (``collectives_moved``: the gradient all-reduce and the loss, every
+    array counted) within ``MODEL_COLL_TOL`` of the bytes ``ShardComm``
+    recorded on each rank in each step."""
+    rec = records[MODEL_DP_MESH]["pna/minibatch_lg"]
+    if not rec["ok"]:
+        raise AssertionError(f"phase 12c: {rec.get('error')}")
+    want = rec["collectives_moved"]["total"]
+    got = [[sum(step.values()) for step in rk["plain"]["bytes_by_op"]]
+           for rk in train["data_parallel"]["ranks"]]
+    worst = max(abs(b / want - 1) for steps in got for b in steps)
+    print(f"{tag} phase 12c: minibatch_lg PNA FULL on {DP_RANKS} ranks: the "
+          f"dry run's collective bytes a rank a step {want:.0f} "
+          f"({rec['collectives']['total']:.0f} as the reference's parse "
+          f"counts them: its gradient tuple holds more than five arrays) "
+          f"against 8g's ShardComm, plain float32 all-reduce, by rank and "
+          f"step: {got} (worst {worst:+.4%})", flush=True)
+    if worst > MODEL_COLL_TOL:
+        raise AssertionError(f"phase 12c: collective bytes {got} against "
+                             f"the dry run's {want}")
+    return {"dryrun_bytes": want, "shardcomm_bytes": got, "worst_err": worst}
+
+
+def _model_dryrun_path(dry: tuple, graph, train: dict, tag: str) -> dict:
+    """Phase 12: the GNN and recsys dry run (12a), its one-rank records
+    against the card (12b), its 4-rank record against 8g (12c)."""
+    report: dict = {}
+    t0 = time.perf_counter()
+    dr = _model_dryrun_records(dry, tag)
+    report["dryrun"], report["12a_s"] = dr, time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["vs_card"] = _model_vs_card(dr["records"], graph, train, tag)
+    report["12b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["vs_dp"] = _model_vs_dp(dr["records"], train, tag)
+    report["12c_s"] = time.perf_counter() - t0
+    print(f"{tag} phase 12: seconds by part: "
+          + ", ".join(f"{part} {report[part + '_s']:.1f}"
+                      for part in ("12a", "12b", "12c"))
+          + f" (12a waited {dr['waited_s']:.1f} s for the dry runs)",
+          flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None,
@@ -4015,6 +4356,8 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--lm-dryrun", nargs=2, default=None,
                         help=argparse.SUPPRESS)
+    parser.add_argument("--gnn-dryrun", nargs=2, default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.write_web_cell:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -4022,6 +4365,9 @@ def main(argv=None) -> int:
     if args.lm_dryrun:
         sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
         return _lm_dryrun(Path(args.lm_dryrun[0]), args.lm_dryrun[1])
+    if args.gnn_dryrun:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        return _model_dryrun(Path(args.gnn_dryrun[0]), args.gnn_dryrun[1])
 
     import torch
     if not torch.cuda.is_available():
@@ -4562,10 +4908,12 @@ def main(argv=None) -> int:
     _phase_took(tag, 6, t_phase, report)
 
     # -- phase 7: the GNN serving path ---------------------------------------
-    # phase 10's web_560m graph and workspace and phase 11's LM dry runs,
-    # host work in processes of their own meanwhile
+    # phase 10's web_560m graph and workspace, phase 11's LM dry runs and
+    # phase 12's GNN and recsys dry runs, host work in processes of their
+    # own meanwhile
     web_cell = _start_web_cell()
     lm_dry = _start_lm_dryrun()
+    model_dry = _start_model_dryrun()
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     report["gnn"] = _gnn_path(graph, cfg, tag)
@@ -4595,7 +4943,14 @@ def main(argv=None) -> int:
     report["lm_dryrun"] = _lm_dryrun_path(lm_dry, report["lm"], tag)
     _phase_took(tag, 11, t_phase, report)
 
-    # -- phase 12: the kernels line -------------------------------------------
+    # -- phase 12: the GNN and recsys half of the dry run -------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report["model_dryrun"] = _model_dryrun_path(model_dry, graph,
+                                                report["train"], tag)
+    _phase_took(tag, 12, t_phase, report)
+
+    # -- phase 13: the kernels line -------------------------------------------
     main = report["main"]
     gnn_launches = report["gnn"]["example"]["partition"]["launches"]
     train_launches = report["train"]["example"]["partition"]["launches"]

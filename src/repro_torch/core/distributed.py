@@ -42,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -395,6 +396,10 @@ class ShardComm:
     all-reduce counted twice (a ring moves a reduce-scatter and an
     all-gather of it). One ``dist_lpa_step`` adds
     :func:`lpa_collective_bytes` of its workspace.
+
+    Every collective returns once the backend holds neither of its
+    tensors (:meth:`_call`), so the bytes a step holds do not depend on
+    a backend thread's timing.
     """
 
     def __init__(self, device=None):
@@ -434,12 +439,27 @@ class ShardComm:
         self.staged_bytes += n_bytes
         return t.to(self.device)
 
+    def _call(self, collective: Callable, out: torch.Tensor,
+              src: torch.Tensor) -> None:
+        """``collective(out, src)``, returned from once the backend holds
+        neither tensor. gloo runs a call on a worker thread, which keeps
+        the call's tensors until it has done its bookkeeping after the
+        result is delivered: for that while (about 1 call in 100 on an
+        idle host, more under load) they stay allocated past the point
+        where the caller drops them, so wait for the worker to let go."""
+        held = [(t, t._use_count()) for t in {id(out): out,
+                                              id(src): src}.values()]
+        collective(out, src)
+        if self.backend == "gloo":
+            while any(t._use_count() > n for t, n in held):
+                time.sleep(0)
+
     def all_gather(self, vec: torch.Tensor) -> torch.Tensor:
         """[n] on every rank -> [P * n], rank-major (the reference's
         ``all_gather(..., tiled=True)``)."""
         src = self._to_wire(vec)
         out = src.new_empty((self.world_size * src.shape[0],))
-        dist.all_gather_into_tensor(out, src)
+        self._call(dist.all_gather_into_tensor, out, src)
         return self._from_wire(out, "all-gather")
 
     def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
@@ -451,13 +471,14 @@ class ShardComm:
                              f"got {tuple(buf.shape)}")
         src = self._to_wire(buf)
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src)
+        self._call(dist.all_to_all_single, out, src)
         return self._from_wire(out, "all-to-all")
 
     def psum(self, value: torch.Tensor) -> torch.Tensor:
         """The sum of an int32 scalar over the ranks."""
         src = self._to_wire(value.to(torch.int32).reshape(1)).clone()
-        dist.all_reduce(src, op=dist.ReduceOp.SUM)
+        self._call(lambda out, _: dist.all_reduce(out, op=dist.ReduceOp.SUM),
+                   src, src)
         return self._from_wire(src, "all-reduce").reshape(())
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -467,7 +488,7 @@ class ShardComm:
         if op not in ops:
             raise ValueError(f"all_reduce op {op!r}; expected sum or max")
         src = self._to_wire(t).clone()
-        dist.all_reduce(src, op=ops[op])
+        self._call(lambda out, _: dist.all_reduce(out, op=ops[op]), src, src)
         return self._from_wire(src, "all-reduce")
 
 

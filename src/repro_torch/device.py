@@ -14,14 +14,17 @@ __all__ = ["resolve_device", "check_same_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raise when CUDA is asked for but absent."""
+    """``None`` -> ``cuda``; raise when CUDA is asked for but absent.
+    ``"meta"`` (shapes only, nothing allocated) is what the dry run
+    builds its models on."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu "
+                         f"or meta")
     return dev
 
 

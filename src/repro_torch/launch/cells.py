@@ -1,22 +1,24 @@
 """Per-architecture cells: the LM, GNN and recsys cells' step functions.
 
-A copy of the cell builders of ``repro.launch.cells`` (the LM family's
-with their mesh layouts, the GNN dispatch ``_gnn_apply``, ``_gnn_init``,
-``_gnn_cell_config`` and the GNN and recsys builders). A ``CellPlan``
-here holds the cell's step function, the model config it runs at and
-``init(generator, device=None) -> model``. The GNN and recsys cells'
-shardings are not ported yet (ROADMAP).
+A copy of the cell builders of ``repro.launch.cells`` (the LM family's,
+the GNN dispatch ``_gnn_apply``, ``_gnn_init``, ``_gnn_cell_config``
+and the GNN and recsys builders, each with its mesh layout). A
+``CellPlan`` here holds the cell's step function, the model config it
+runs at and ``init(generator, device=None) -> model``.
 
-The LM builders take an optional ``mesh`` (``launch.mesh.Mesh`` or
-anything with ``axis_names`` and ``devices.shape``). Without one, the
-plan is the one-card step the serving and training paths run. With one,
-it is the reference's plan on that mesh: the config rewrite of its
-context-parallel train cell, ``meta``'s ``mode``, ``probe_model``,
-``probe_data`` (train) and ``kv_len`` (decode), ``args`` (the step's
-inputs as meta tensors: the counterpart of the reference's
+The LM, GNN and recsys builders take an optional ``mesh``
+(``launch.mesh.Mesh`` or anything with ``axis_names`` and
+``devices.shape``). Without one, the plan is the one-card step the
+serving and training paths run. With one, it is the reference's plan on
+that mesh: its ``meta`` (the config rewrite of the LM's context-parallel
+train cell, ``mode``, ``probe_model``, ``probe_data`` and ``kv_len``;
+the GNN and recsys cells' counts padded to the rank count), ``args``
+(the step's inputs as meta tensors: the counterpart of the reference's
 ``ShapeDtypeStruct`` arguments) and ``specs`` (a spec per input leaf, in
 the tuple form ``train.elastic`` takes: per dim ``None``, an axis name
 or a tuple of names; the reference's ``PartitionSpec`` values).
+``rank_step`` runs one rank's share of a GNN or recsys step on such a
+plan.
 
 - ``lm_param_specs``: the LM parameter tree's specs in the reference's
   four layouts, ``tp``, ``fsdp``, ``ep_fsdp`` and ``cp``;
@@ -37,7 +39,10 @@ or a tuple of names; the reference's ``PartitionSpec`` values).
   v_t), and an edge at a tree's dump row v_t goes to the flat batch's
   dump row B v_t (not t v_t + v_t, the next tree's seed);
 - ``build_recsys_cell``: DCN-v2's train step, its serving forward, and
-  the retrieval scores of one query against the candidates;
+  the retrieval scores of one query against the candidates
+  (``dcn_param_specs``: its tables row-sharded on 'model');
+- ``rank_step``: a GNN or DCN-v2 step as one rank of a mesh runs it, on
+  its shards, through ``models.sharding``'s collectives;
 - ``build_lpa_cell``: the paper's own cells (``configs/lpa_graphs.py``),
   distributed LPA on ``n_shards`` ranks: the workspace of
   ``lpa_dist_spec`` as meta tensors (shapes and dtypes, nothing
@@ -61,14 +66,15 @@ from repro_torch.models.gnn import (init_egnn, init_equiformer, init_mgn,
                                     init_pna)
 from repro_torch.train.elastic import mesh_sizes
 from repro_torch.train.steps import make_train_step
-from repro_torch.tree import param_tree
+from repro_torch.models.sharding import current_graph
+from repro_torch.tree import param_tree, tree_map
 
 __all__ = ["CellPlan", "meta_tensor", "mesh_extents", "lm_param_specs",
            "build_lm_train", "build_lm_prefill", "decode_layout",
            "build_lm_decode",
            "_gnn_apply", "_gnn_init", "_gnn_cell_config", "build_gnn_cell",
-           "build_gnn_sampled_cell", "flatten_trees",
-           "build_recsys_cell", "lpa_dist_spec", "lpa_cell_engine",
+           "build_gnn_sampled_cell", "flatten_trees", "dcn_param_specs",
+           "build_recsys_cell", "rank_step", "lpa_dist_spec", "lpa_cell_engine",
            "build_lpa_cell", "build_cell"]
 
 #: ``init_*(generator, cfg, device=None)`` by arch id
@@ -85,7 +91,7 @@ class CellPlan:
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     loss: Optional[Callable] = None  # a train cell's loss(model, batch)
     workspace: Optional[DistLPAWorkspace] = None  # an LPA cell's, on meta
-    args: Optional[tuple] = None   # an LM cell's inputs on a mesh, on meta
+    args: Optional[tuple] = None   # the cell's inputs on a mesh, on meta
     specs: Optional[tuple] = None  # a spec tree per input of ``args``
 
 
@@ -101,13 +107,17 @@ def _spec(*entries) -> tuple:
                  None if e == () else e for e in entries)
 
 
-def _leaves_with_names(tree, fn):
+def _leaves_with_names(tree, fn, name: str = ""):
     """``tree``'s structure with ``fn(name, leaf)`` at each leaf (``name``
-    the leaf's key); a module is read as its ``param_tree``."""
+    the key of the leaf, or of the list that holds it); a module is read
+    as its ``param_tree``."""
     if isinstance(tree, torch.nn.Module):
         tree = param_tree(tree)
-    return {k: _leaves_with_names(v, fn) if isinstance(v, dict)
-            else fn(k, v) for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _leaves_with_names(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_leaves_with_names(v, fn, name) for v in tree]
+    return fn(name, tree)
 
 
 def lm_param_specs(cfg, params, mesh, mode: str = "tp") -> dict:
@@ -260,6 +270,24 @@ def mesh_extents(mesh) -> Tuple[int, int]:
             sizes.get("model", 1))
 
 
+def _opt_state(params: dict, pspecs) -> tuple:
+    """AdamW's state of ``params`` on meta and its specs: the moments
+    shaped and sharded like the parameters, ``step`` replicated."""
+    opt = {"m": tree_map(lambda t: meta_tensor(t.shape, t.dtype), params),
+           "v": tree_map(lambda t: meta_tensor(t.shape, t.dtype), params),
+           "step": meta_tensor((), torch.int32)}
+    return opt, {"m": pspecs, "v": pspecs, "step": ()}
+
+
+def _meta_params(init) -> dict:
+    """``init``'s parameter tree on meta: nothing drawn or allocated."""
+    return param_tree(init(torch.Generator(), device="meta"))
+
+
+def _pad_to(n: int, p: int) -> int:
+    return -(-n // p) * p
+
+
 def _lm_meta(cfg, cell: ShapeCell, kind: str) -> dict:
     b, s = cell.params["batch"], cell.params["seq"]
     return {"kind": kind, "tokens": b if kind == "decode" else b * s,
@@ -318,13 +346,12 @@ def build_lm_train(spec: ArchSpec, cell: ShapeCell, mesh=None) -> CellPlan:
     if mesh is not None:
         b, s = meta["batch"], meta["seq"]
         params = param_structs(cfg)
-        opt = {"m": param_structs(cfg), "v": param_structs(cfg),
-               "step": meta_tensor((), torch.int32)}
         batch = {"tokens": meta_tensor((b, s), torch.int32),
                  "targets": meta_tensor((b, s), torch.int32)}
         pspecs = lm_param_specs(cfg, params, mesh, mode)
+        opt, ospecs = _opt_state(params, pspecs)
         plan.args = (params, opt, batch)
-        plan.specs = (pspecs, {"m": pspecs, "v": pspecs, "step": ()},
+        plan.specs = (pspecs, ospecs,
                       {"tokens": tok_spec, "targets": tok_spec})
     return plan
 
@@ -435,27 +462,71 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     return torch.logsumexp(logits, dim=-1) - gold
 
 
-def build_gnn_cell(spec: ArchSpec, cell: ShapeCell,
+def build_gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
                    n_classes: int = 16) -> CellPlan:
     """The full-graph train step of ``spec.config`` at the cell's width
-    (a ``gnn_sampled`` cell goes to ``build_gnn_sampled_cell``)."""
+    (a ``gnn_sampled`` cell goes to ``build_gnn_sampled_cell``).
+
+    On a mesh, the reference's layout: ``n`` and ``e`` padded up to a
+    multiple of the rank count, every node and edge array sharded over
+    the flattened mesh (its leading dim), parameters and AdamW state
+    replicated. A rank runs its N/P nodes and E/P edges against the
+    node tables the all-gathers make whole (``rank_step``)."""
     if cell.kind == "gnn_sampled":
-        return build_gnn_sampled_cell(spec, cell, n_classes)
+        return build_gnn_sampled_cell(spec, cell, mesh, n_classes)
     cfg = _gnn_cell_config(spec, cell.params["d_feat"], n_classes)
     apply_fn = _gnn_apply(spec, cfg)
 
     def loss(model, batch):
         ce = _cross_entropy(apply_fn(model, batch), batch["labels"])
+        shard = current_graph()
+        if shard is not None:
+            # this rank's share: the ranks' mean is the whole graph's loss
+            w = (batch["seed_mask"].to(torch.float32) if "seed_mask" in batch
+                 else torch.ones_like(ce))
+            total = shard.comm.all_reduce(torch.sum(w).reshape(1), "sum")
+            return (shard.world * torch.sum(ce * w)
+                    / torch.clamp_min(total[0], 1.0))
         if "seed_mask" in batch:
             w = batch["seed_mask"].to(torch.float32)
             return torch.sum(ce * w) / torch.clamp_min(torch.sum(w), 1.0)
         return torch.mean(ce)
 
     _, step = make_train_step(loss)
-    return CellPlan(fn=step, config=cfg, init=_gnn_init(spec, cfg),
-                    meta={"kind": "gnn_train",
-                          "n_nodes": cell.params["n_nodes"],
-                          "n_edges": cell.params["n_edges"]}, loss=loss)
+    n, e = cell.params["n_nodes"], cell.params["n_edges"]
+    plan = CellPlan(fn=step, config=cfg, init=_gnn_init(spec, cfg),
+                    meta={"kind": "gnn_train", "n_nodes": n, "n_edges": e},
+                    loss=loss)
+    if mesh is not None:
+        p = int(mesh.devices.size)
+        n, e = _pad_to(n, p), _pad_to(e, p)
+        plan.meta.update(n_nodes=n, n_edges=e)
+        _gnn_mesh_plan(plan, spec, mesh, (n,), (e,), cell.params["d_feat"])
+    return plan
+
+
+def _gnn_mesh_plan(plan: CellPlan, spec: ArchSpec, mesh, nodes: tuple,
+                   edges: tuple, d_feat: int) -> None:
+    """Set ``plan.args`` and ``plan.specs`` to the reference's GNN layout
+    on ``mesh``: node arrays of leading shape ``nodes`` and edge arrays of
+    ``edges``, each sharded on its first dim over the flattened mesh; the
+    parameters and AdamW state replicated."""
+    f32, i32 = torch.float32, torch.int32
+    batch = {"node_feat": meta_tensor(nodes + (d_feat,), f32),
+             "labels": meta_tensor(nodes, i32),
+             "edge_src": meta_tensor(edges, i32),
+             "edge_dst": meta_tensor(edges, i32)}
+    if spec.arch_id in ("egnn", "equiformer-v2"):
+        batch["coords"] = meta_tensor(nodes + (3,), f32)
+    if spec.arch_id == "meshgraphnet":
+        batch["edge_feat"] = meta_tensor(edges + (4,), f32)
+    params = _meta_params(plan.init)
+    pspecs = tree_map(lambda _: (), params)
+    opt, ospecs = _opt_state(params, pspecs)
+    fa = all_axes(mesh)
+    plan.args = (params, opt, batch)
+    plan.specs = (pspecs, ospecs, {k: _spec(fa, *([None] * (t.dim() - 1)))
+                                   for k, t in batch.items()})
 
 
 def flatten_trees(batch: dict) -> dict:
@@ -482,13 +553,20 @@ def flatten_trees(batch: dict) -> dict:
     return flat
 
 
-def build_gnn_sampled_cell(spec: ArchSpec, cell: ShapeCell,
+def build_gnn_sampled_cell(spec: ArchSpec, cell: ShapeCell, mesh=None,
                            n_classes: int = 16) -> CellPlan:
     """``minibatch_lg`` in the tree layout: the train step of
-    ``spec.config`` on [B, v_t, ...] tree batches."""
+    ``spec.config`` on [B, v_t, ...] tree batches.
+
+    On a mesh, the reference's layout: ``B`` padded up to a multiple of
+    the rank count and the trees sharded over the flattened mesh,
+    parameters and AdamW state replicated. The trees are independent, so
+    a rank trains on its B/P and the gradient all-reduce is the step's
+    one collective (``rank_step``)."""
     b = cell.params["batch_nodes"]
     v_t, e_t = tree_shape(cell.params["fanouts"])
-    cfg = _gnn_cell_config(spec, cell.params.get("d_feat", 602), n_classes)
+    d_feat = cell.params.get("d_feat", 602)
+    cfg = _gnn_cell_config(spec, d_feat, n_classes)
     apply_fn = _gnn_apply(spec, cfg)
 
     def loss(model, batch):
@@ -498,39 +576,153 @@ def build_gnn_sampled_cell(spec: ArchSpec, cell: ShapeCell,
         return torch.mean(_cross_entropy(seed_logits, batch["labels"][:, 0]))
 
     _, step = make_train_step(loss)
-    return CellPlan(fn=step, config=cfg, init=_gnn_init(spec, cfg),
+    plan = CellPlan(fn=step, config=cfg, init=_gnn_init(spec, cfg),
                     meta={"kind": "gnn_train", "n_nodes": b * v_t,
                           "n_edges": b * e_t, "layout": "tree"}, loss=loss)
+    if mesh is not None:
+        b = _pad_to(b, int(mesh.devices.size))
+        plan.meta.update(n_nodes=b * v_t, n_edges=b * e_t)
+        _gnn_mesh_plan(plan, spec, mesh, (b, v_t), (b, e_t), d_feat)
+    return plan
 
 
-def build_recsys_cell(spec: ArchSpec, cell: ShapeCell) -> CellPlan:
+def dcn_param_specs(params: dict) -> dict:
+    """The reference's DCN-v2 layout: every ``table_*`` row-sharded on
+    'model', every other leaf replicated."""
+    def spec_for(name, leaf):
+        if name.startswith("table_"):
+            return _spec("model", None)
+        return _spec(*([None] * leaf.dim()))
+
+    return _leaves_with_names(params, spec_for)
+
+
+def build_recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh=None
+                      ) -> CellPlan:
     """DCN-v2 at ``spec.config``: ``recsys_train`` -> step(model, opt,
     batch); ``recsys_serve`` -> fn(model, dense, sparse) logits;
-    ``retrieval`` -> fn(model, dense, sparse, cand_emb) scores."""
+    ``retrieval`` -> fn(model, dense, sparse, cand_emb) scores.
+
+    On a mesh, the reference's layout (``dcn_param_specs``; the AdamW
+    moments as the parameters): train and serve shard the batch over the
+    batch axes; retrieval pads the candidates up to a multiple of the
+    rank count and shards them over every axis, the query replicated."""
     from repro_torch.models.recsys.dcn_v2 import (dcn_forward, dcn_loss,
                                                   dcn_retrieval_scores,
                                                   init_dcn)
     cfg = spec.config
     init = functools.partial(init_dcn, cfg=cfg)
-    meta = {"kind": cell.kind, "batch": cell.params["batch"]}
+    b = cell.params["batch"]
+    meta = {"kind": cell.kind, "batch": b}
     if cell.kind == "recsys_train":
         def loss(model, batch):
             return dcn_loss(model, batch["dense"], batch["sparse"],
                             batch["labels"], cfg)
 
         _, step = make_train_step(loss)
-        return CellPlan(fn=step, config=cfg, init=init, meta=meta, loss=loss)
-    if cell.kind == "recsys_serve":
+        plan = CellPlan(fn=step, config=cfg, init=init, meta=meta, loss=loss)
+    elif cell.kind == "recsys_serve":
         def serve(model, dense, sparse):
             return dcn_forward(model, dense, sparse, cfg)
 
-        return CellPlan(fn=serve, config=cfg, init=init, meta=meta)
+        plan = CellPlan(fn=serve, config=cfg, init=init, meta=meta)
+    else:
+        def retrieve(model, dense, sparse, cand_emb):
+            return dcn_retrieval_scores(model, dense, sparse, cand_emb, cfg)
 
-    def retrieve(model, dense, sparse, cand_emb):
-        return dcn_retrieval_scores(model, dense, sparse, cand_emb, cfg)
+        meta["candidates"] = cell.params["n_candidates"]
+        plan = CellPlan(fn=retrieve, config=cfg, init=init, meta=meta)
+    if mesh is None:
+        return plan
+    ba = batch_axes(mesh)
+    params = _meta_params(init)
+    pspecs = dcn_param_specs(params)
+    dense = meta_tensor((b, cfg.n_dense), torch.float32)
+    sparse = meta_tensor((b, cfg.n_sparse), torch.int32)
+    if cell.kind == "recsys_train":
+        opt, ospecs = _opt_state(params, pspecs)
+        plan.args = (params, opt, {"dense": dense, "sparse": sparse,
+                                   "labels": meta_tensor((b,), torch.float32)})
+        plan.specs = (pspecs, ospecs, {"dense": _spec(ba, None),
+                                       "sparse": _spec(ba, None),
+                                       "labels": _spec(ba)})
+    elif cell.kind == "recsys_serve":
+        plan.args = (params, dense, sparse)
+        plan.specs = (pspecs, _spec(ba, None), _spec(ba, None))
+    else:
+        nc = _pad_to(cell.params["n_candidates"], int(mesh.devices.size))
+        plan.meta = {"kind": "retrieval", "candidates": nc}
+        d_q = cfg.d_interact + cfg.mlp_dims[-1]
+        plan.args = (params, dense, sparse,
+                     meta_tensor((nc, d_q), torch.float32))
+        plan.specs = (pspecs, _spec(None, None), _spec(None, None),
+                      _spec(all_axes(mesh), None))
+    return plan
 
-    meta["candidates"] = cell.params["n_candidates"]
-    return CellPlan(fn=retrieve, config=cfg, init=init, meta=meta)
+
+def rank_step(plan: CellPlan, mesh, comms: Optional[dict] = None,
+              index: Optional[dict] = None) -> Callable:
+    """A GNN or DCN-v2 cell's step as one rank of ``mesh`` runs it, on
+    that rank's shards of ``plan.args`` (``train.elastic.shard_shape``
+    under ``plan.specs``), with the same signature as ``plan.fn``.
+
+    ``comms`` holds the collectives' groups: ``"all"`` (every rank: a
+    GNN's node tables and segment sums, and its gradient mean),
+    ``"model"`` (DCN-v2's table lookups) and ``"data"`` (DCN-v2's
+    gradient mean); a group missing, or of one rank, has no collective.
+    The default is a ``models.sharding.MetaComm`` of each group's extent
+    (the dry run on meta tensors). ``index["model"]`` is the rank's place
+    in its "model" group (default 0). On one rank this is ``plan.fn``.
+
+      * full graph: the rank's N/P nodes and E/P edges inside
+        ``models.sharding.graph_shard`` (its loss the rank's share, scaled
+        so that the ranks' mean is the graph's), the data-parallel step of
+        ``train.steps.make_dp_train_step`` (float32 gradient mean);
+      * tree layout: the rank's B/P trees, the same data-parallel step;
+      * DCN-v2: the lookups inside ``models.sharding.table_shard``; train
+        adds the gradient mean over "data". AdamW's clip norm is taken
+        over the rank's table rows (the reference all-reduces the tables'
+        squared norms over 'model', one scalar a table).
+    """
+    from repro_torch.models.sharding import (MetaComm, graph_shard,
+                                             table_shard)
+    from repro_torch.train.steps import make_dp_train_step
+    if mesh.devices.size == 1:
+        return plan.fn
+    data_extent, model_extent = mesh_extents(mesh)
+    extents = {"all": int(mesh.devices.size), "data": data_extent,
+               "model": model_extent}
+    comms = {k: MetaComm(v) for k, v in extents.items()} if comms is None \
+        else comms
+    comm = {k: comms.get(k) if extents[k] > 1 else None for k in extents}
+    if plan.meta["kind"] == "gnn_train":
+        _, dp_step = make_dp_train_step(plan.loss, comm["all"],
+                                        compress=False)
+
+        def gnn_step(model, opt, batch):
+            if plan.meta.get("layout") == "tree":
+                params, opt, _, metrics = dp_step(model, opt, None, batch)
+                return params, opt, metrics
+            with graph_shard(comm["all"], plan.meta["n_nodes"]):
+                params, opt, _, metrics = dp_step(model, opt, None, batch)
+            return params, opt, metrics
+
+        return gnn_step
+    place = (index or {}).get("model", 0) if model_extent > 1 else 0
+    if plan.meta["kind"] == "recsys_train" and comm["data"] is not None:
+        _, dp_step = make_dp_train_step(plan.loss, comm["data"],
+                                        compress=False)
+    else:
+        dp_step = None
+
+    def dcn_step(*args):
+        with table_shard(comm["model"], place, model_extent):
+            if dp_step is None:
+                return plan.fn(*args)
+            params, opt, _, metrics = dp_step(args[0], args[1], None, args[2])
+            return params, opt, metrics
+
+    return dcn_step
 
 
 def lpa_dist_spec(n_nodes: int, n_edges: int, n_shards: int, k: int,
@@ -630,5 +822,5 @@ BUILDERS = {
 
 def build_cell(spec: ArchSpec, cell: ShapeCell, *args) -> CellPlan:
     """The cell's plan; an LPA cell takes its rank count after ``cell``,
-    an LM cell an optional mesh."""
+    an LM, GNN or recsys cell an optional mesh."""
     return BUILDERS[cell.kind](spec, cell, *args)

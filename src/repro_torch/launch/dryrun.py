@@ -1,13 +1,12 @@
-"""Dry run of the LM and LPA cells: per-rank memory, bytes, FLOPs,
-collectives and roofline terms of every cell of the five LM archs and of
-``lpa-mg8`` on a mesh of ranks, from shapes alone. A host computation:
-inputs and workspaces are meta tensors and nothing is allocated on any
-device.
+"""Dry run of every cell: per-rank memory, bytes, FLOPs, collectives and
+roofline terms of every cell of the five LM archs, the four GNN archs,
+DCN-v2 and ``lpa-mg8`` on a mesh of ranks, from shapes alone. A host
+computation: inputs and workspaces are meta tensors and nothing is
+allocated on any device.
 
-The port's counterpart of the LM and LPA branches of
-``repro.launch.dryrun``, which lowers and compiles each cell's step with
-XLA and reads XLA's analyses. The port has no compiler to ask, so each
-figure has a named counterpart here.
+The port's counterpart of ``repro.launch.dryrun``, which lowers and
+compiles each cell's step with XLA and reads XLA's analyses. The port
+has no compiler to ask, so each figure has a named counterpart here.
 
 LPA (``run_lpa_cell``):
 
@@ -64,14 +63,37 @@ LM (``run_lm_cell``; the plan of ``cells.build_cell`` on the mesh):
     ``cp`` train; a ``tp`` train of MoE, MLA, or KV heads split along
     ``dh``).
 
+GNN and recsys (``run_model_cell``; the plan of ``cells.build_cell`` on
+the mesh, and the rank's share of its step, ``cells.rank_step``: a
+full-graph rank runs its N/P nodes and E/P edges against the node tables
+its all-gathers make whole, a tree-layout rank its B/P trees, a DCN-v2
+rank its batch rows and table rows):
+
+  * ``argument_bytes`` — :func:`spec_bytes` of the plan's inputs;
+  * ``output_bytes`` — train: the parameters and AdamW state, donated, so
+    ``alias_bytes`` the same; serve: the rank's [B/D] float32 logits;
+    retrieval: its [1, NC/P] scores (the reference leaves them sharded);
+  * ``temp_bytes`` — :func:`model_local_run`: ``LiveBytes``' peak over
+    the rank's step on meta tensors (the collectives' results included);
+  * ``raw_cost``, ``flops_per_chip``, ``bytes_per_chip`` —
+    ``CostCounter`` over the same call (the models are unrolled, as the
+    reference's ``raw_flops`` is exact); ``model_flops_global`` = FLOPs
+    x P, the reference's formula, so ``useful_flops_ratio`` is 1;
+  * ``collectives`` — :func:`gnn_collective_bytes` or
+    :func:`recsys_collective_bytes`, the ops the reference's HLO places,
+    in its parse's convention (a tuple of more than five arrays counts
+    0), with ``hlo_collective_loop_factor`` 1; ``collectives_moved`` the
+    same ops counted whole (what the ranks send), ``collective_ops`` the
+    op list. Every layout's count is held to the reference's HLO
+    (tests/test_torch_launch_gnn.py), so ``collectives_checked`` is true.
+
 The ranks: the reference's two production meshes (``--mesh``: 256 and
 512 ranks) and any count (``--ranks N``: a 1-D mesh for LPA, (N, 1)
-("data", "model") for the LMs; 1: one card). An LPA cell whose int32
-positions cannot index its per-rank arrays is recorded ``ok: false``
-with that reason (``web_4b`` on one rank: 3.4 B entries). The GNN and
-recsys branches of the reference's dry run are not ported (ROADMAP,
-Queue 1): their archs exit 2 and write nothing; ``--arch all`` runs
-every LM and LPA arch.
+("data", "model") for the LM, GNN and recsys cells; 1: one card). An
+LPA cell whose int32 positions cannot index its per-rank arrays is
+recorded ``ok: false`` with that reason (``web_4b`` on one rank: 3.4 B
+entries); any other cell that cannot be built records its error. An
+unknown arch id exits 2.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -112,18 +134,14 @@ from repro_torch.tree import tree_leaves
 __all__ = ["HBM_PER_CHIP", "ALLOC_GRAIN", "workspace_bytes",
            "lpa_step_temp_bytes", "lpa_step_bytes", "int32_overflow",
            "run_lpa_cell", "lm_collective_bytes", "spec_bytes",
-           "lm_local_run", "run_lm_cell", "run_cell", "main"]
+           "lm_local_run", "run_lm_cell", "gnn_collective_bytes",
+           "recsys_collective_bytes", "model_local_run", "run_model_cell",
+           "run_cell", "main"]
 
 HBM_PER_CHIP = 80e9  # NVIDIA H100 80GB
 #: the CUDA caching allocator rounds every block up to a multiple of this
 ALLOC_GRAIN = 512
 INT32_MAX = 2**31 - 1
-#: the families whose branch of the reference's dry run is ported
-PORTED = ("lm", "lpa")
-#: what ports the dry run's other branches
-NOT_PORTED = ("the {family} branch of the dry run (repro.launch.dryrun) "
-              "is not ported: ROADMAP Queue 1, item 1 (the GNN and recsys "
-              "branches of launch/dryrun.py and their cells.py sharding)")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -497,9 +515,10 @@ class _Colls:
     def __init__(self, n_layers: int):
         self.n_layers = n_layers
         self.out: dict = {}
+        self.moved_out: dict = {}  # every op whole (``add_tuple``)
         self.ops: dict = {}  # (op, result bytes) -> instances in the HLO
 
-    def add(self, op: str, nbytes: float, extent: int, loop: bool,
+    def add(self, op: str, nbytes: float, extent: int, loop: bool = False,
             times: int = 1) -> None:
         if extent <= 1 or nbytes <= 0:
             return
@@ -508,9 +527,33 @@ class _Colls:
         nbytes *= times * (2 if op == "all-reduce" else 1)
         nbytes *= self.n_layers if loop else 1
         self.out[op] = self.out.get(op, 0.0) + nbytes
+        self.moved_out[op] = self.moved_out.get(op, 0.0) + nbytes
+
+    def add_tuple(self, op: str, arrays, extent: int, times: int = 1
+                  ) -> None:
+        """One op (outside any loop) whose result is a tuple of
+        ``arrays`` (each one's bytes), as XLA's combiner makes them: the
+        parse reads a tuple of more than five arrays as 0 (the HLO text's
+        ``/*index=5*/`` comment); ``moved`` counts every array."""
+        arrays = [float(a) for a in arrays if a > 0]
+        if extent <= 1 or not arrays:
+            return
+        whole = sum(arrays) * times * (2 if op == "all-reduce" else 1)
+        self.moved_out[op] = self.moved_out.get(op, 0.0) + whole
+        counted = whole if len(arrays) <= 5 else 0.0
+        key = (op, sum(arrays) if len(arrays) <= 5 else 0.0)
+        self.ops[key] = self.ops.get(key, 0) + times
+        self.out[op] = self.out.get(op, 0.0) + counted
 
     def totals(self) -> dict:
         out = dict(self.out)
+        out["total"] = sum(out.values())
+        return out
+
+    def moved(self) -> dict:
+        """The bytes of every op whole, by op, with their ``"total"``:
+        what the ranks send, tuples of any length included."""
+        out = dict(self.moved_out)
         out["total"] = sum(out.values())
         return out
 
@@ -1058,20 +1101,285 @@ def run_lm_cell(spec, cell, mesh, mesh_name: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the GNN and recsys branch
+# ---------------------------------------------------------------------------
+
+def _leaf_bytes(tree) -> list:
+    return [t.numel() * t.element_size() for t in tree_leaves(tree)]
+
+
+def gnn_collective_bytes(plan, mesh) -> dict:
+    """``_gnn_collectives(plan, mesh)``' bytes by op, in the parse's
+    convention, with their ``"total"``."""
+    return _gnn_collectives(plan, mesh).totals()
+
+
+def _gnn_collectives(plan, mesh) -> _Colls:
+    """The collective bytes one call of a GNN cell's train step moves on
+    each rank of ``mesh``: the counterpart of what ``repro.launch.dryrun``
+    parses out of the reference's compiled step
+    (``repro.launch.roofline.collective_bytes``, loop factor 1: the
+    models are unrolled), in that parse's convention: the bytes of each
+    op's result on a rank, an all-reduce twice, a tuple of more than five
+    arrays 0 (``_Colls.add_tuple``; ``moved()`` counts those whole).
+    Every op spans all P ranks (the flattened mesh). float32 throughout.
+
+    The formulas come from the reference's HLO on its SMOKE configs on
+    (2, 2) and (2, 4) meshes at 2 to 4 layers, d = 16 and 24 (N the
+    padded nodes, L layers, d the hidden width, S = (l_max + 1)^2 and H
+    heads for Equiformer-v2). GSPMD gathers every node table whole and
+    all-reduces every segment reduction over the [N + 1] segments (the
+    dump row included); its backward all-gathers each segment output's
+    cotangent at [N + P] (N + 1 padded to a multiple of P) after moving
+    it between the two row layouts by collective-permutes of P - 1 rows,
+    one each way:
+
+      * tree layout (``minibatch_lg``): the trees are independent, so the
+        one collective is the gradient all-reduce, every parameter and the
+        loss in one tuple (0 in the parse);
+      * PNA: per layer the table [N, d]; all-reduces of the max and min
+        [N + 1, d], of the sums (layer 0: the degree, the count and a
+        third [N + 1] vector with the sum and square sum [N + 1, d];
+        middle layers: the two sums and one [N + 1]; the last: the two
+        sums); permutes of 4 [P - 1, d] each way a layer and L + 1 [P - 1];
+        4 [N + P, d] gathers a layer;
+      * MeshGraphNet: per layer the table [N, d], the sum [N + 1, d], one
+        [P - 1, d] permute each way, one [N + P, d] gather;
+      * EGNN: per layer the tables [N, 3] and [N, d]; the sums (layer 0:
+        [N + 1, d], the degree [N + 1], [N + 1, 3]; middle layers [N + 1,
+        d] and [N + 1, 3]; the last [N + 1, d] alone: its coordinates are
+        unused); permutes of [P - 1, d] each way a layer, one [P - 1], and
+        [P - 1, 3] each way for all but the last; gathers of [N + P, d] a
+        layer and [N + P, 3] for all but the last;
+      * Equiformer-v2: the coordinates [N, 3] once; per layer the irreps
+        table [N, S, d], three [H, N + 1] all-reduces (the attention's
+        segment softmax) and the sum [N + 1, S, d], one [P - 1, S, d]
+        permute each way, one [N + P, S, d] gather, a tuple of two [H, N +
+        1] and the irreps cotangent [N, S, d];
+      * the backward's gradient all-reduces: every parameter, the loss and
+        the node-table cotangents (two [N, d] a layer; EGNN also two [N,
+        3] for all but the last), combined into tuples of more than five
+        arrays (0), but for PNA and EGNN the encoder's weight and bias,
+        the decoder's weight and the loss, four arrays, counted.
+    """
+    meta, cfg = plan.meta, plan.config
+    p = int(mesh.devices.size)
+    c = _Colls(1)
+    params = plan.args[0]
+    grads = _leaf_bytes(params) + [4]
+    if meta.get("layout") == "tree":
+        c.add_tuple("all-reduce", grads, p)
+        return c
+    n, L, d = meta["n_nodes"], cfg.n_layers, cfg.d_hidden
+    if L < 2:
+        raise ValueError(f"the counts are taken at 2 or more layers; "
+                         f"got {L}")
+    arch = type(cfg).__name__
+    AG, AR, CP = "all-gather", "all-reduce", "collective-permute"
+
+    def x(*dims):
+        return 4 * math.prod(dims)
+
+    cot = [x(n, d)] * 2 * L     # the node tables' cotangents
+    counted = []                # the backward's four-array tuple
+    if arch == "PNAConfig":
+        c.add(AG, x(n, d), p, times=L)
+        c.add(AR, x(n + 1, d), p, times=2 * L)
+        c.add_tuple(AR, [x(n + 1)] * 3 + [x(n + 1, d)] * 2, p)
+        c.add_tuple(AR, [x(n + 1, d)] * 2 + [x(n + 1)], p, times=L - 2)
+        c.add_tuple(AR, [x(n + 1, d)] * 2, p)
+        c.add(CP, x(p - 1, d), p, times=8 * L)
+        c.add(CP, x(p - 1), p, times=L + 1)
+        c.add(AG, x(n + p, d), p, times=4 * L)
+        cot += [x(n + 1, d)] * 2 * L
+        counted = [params["encode"][0]["w"], params["encode"][0]["b"],
+                   params["decode"][0]["w"]]
+    elif arch == "MGNConfig":
+        c.add(AG, x(n, d), p, times=L)
+        c.add(AR, x(n + 1, d), p, times=L)
+        c.add(CP, x(p - 1, d), p, times=2 * L)
+        c.add(AG, x(n + p, d), p, times=L)
+    elif arch == "EGNNConfig":
+        c.add(AG, x(n, 3), p, times=L)
+        c.add(AG, x(n, d), p, times=L)
+        c.add_tuple(AR, [x(n + 1, d), x(n + 1), x(n + 1, 3)], p)
+        c.add_tuple(AR, [x(n + 1, d), x(n + 1, 3)], p, times=L - 2)
+        c.add(AR, x(n + 1, d), p)
+        c.add(CP, x(p - 1, d), p, times=2 * L)
+        c.add(CP, x(p - 1), p)
+        c.add(CP, x(p - 1, 3), p, times=2 * (L - 1))
+        c.add(AG, x(n + p, d), p, times=L)
+        c.add(AG, x(n + p, 3), p, times=L - 1)
+        cot += [x(n, 3)] * 2 * (L - 1)
+        counted = [params["encode"][0]["w"], params["encode"][0]["b"],
+                   params["decode"][0]["w"]]
+    elif arch == "EquiformerConfig":
+        s, h = cfg.n_sph, cfg.n_heads
+        c.add(AG, x(n, 3), p)
+        c.add(AG, x(n, s, d), p, times=L)
+        c.add(AR, x(h, n + 1), p, times=3 * L)
+        c.add(AR, x(n + 1, s, d), p, times=L)
+        c.add(CP, x(p - 1, s, d), p, times=2 * L)
+        c.add(AG, x(n + p, s, d), p, times=L)
+        c.add_tuple(AR, [x(h, n + 1)] * 2, p, times=L)
+        c.add(AR, x(n, s, d), p, times=L)
+        cot = []
+    else:
+        raise ValueError(f"no collective count for {arch}")
+    counted = [t.numel() * t.element_size() for t in counted]
+    if counted:
+        c.add_tuple(AR, counted + [4], p)
+        rest = list(grads[:-1])
+        for b in counted:
+            rest.remove(b)
+    else:
+        rest = grads
+    c.add_tuple(AR, rest + cot, p)
+    return c
+
+
+def recsys_collective_bytes(plan, mesh) -> dict:
+    """``_recsys_collectives(plan, mesh)``' bytes by op, in the parse's
+    convention, with their ``"total"``."""
+    return _recsys_collectives(plan, mesh).totals()
+
+
+def _recsys_collectives(plan, mesh) -> _Colls:
+    """The collective bytes one call of a DCN-v2 cell moves on each rank
+    of ``mesh`` (D ranks on the batch axes, M on 'model'), in the
+    parse's convention (``_gnn_collectives``). From the reference's HLO on
+    its SMOKE config (2 to 6 tables) on (2, 2) and (2, 4) meshes:
+
+      * every cell: the lookups in the row-sharded tables, all-reduced
+        over 'model', one tuple of ``n_sparse`` [b, D_e] arrays (b the
+        rank's rows: B / D for train and serve, the one query for
+        retrieval, whose query is replicated);
+      * train: the tables' squared gradient norms over 'model' (AdamW's
+        clip), one tuple of ``n_sparse`` scalars, and the gradient
+        all-reduce over the batch axes: every parameter (a table as its
+        [V / M, D_e] shard) and the loss, one tuple.
+
+    Retrieval's scores stay sharded: no collective gathers them."""
+    meta, cfg = plan.meta, plan.config
+    dext, mext = mesh_extents(mesh)
+    c = _Colls(1)
+    k, e = cfg.n_sparse, cfg.embed_dim
+    rows = 1 if meta["kind"] == "retrieval" else meta["batch"] // dext
+    c.add_tuple("all-reduce", [4 * rows * e] * k, mext)
+    if meta["kind"] == "recsys_train":
+        c.add_tuple("all-reduce", [4] * k, mext)
+        shards = [math.prod(shard_shape(t.shape, sp, mesh)) * t.element_size()
+                  for _, t, sp in leaves_with_specs(plan.args[0],
+                                                    plan.specs[0])]
+        c.add_tuple("all-reduce", shards + [4], dext)
+    return c
+
+
+def _rank_args(plan, mesh) -> tuple:
+    """The rank's shards of ``plan.args`` as meta tensors, the parameters
+    as the cell's model (on meta, a table as its shard)."""
+    model = plan.init(torch.Generator(), device="meta")
+    shards = _shards(plan.args, plan.specs, mesh)
+    if hasattr(model, "tables"):
+        for name, t in shards[0]["tables"].items():
+            model.tables[name] = torch.nn.Parameter(t)
+    return (model,) + tuple(shards[1:])
+
+
+def model_local_run(plan, mesh) -> dict:
+    """One call of a GNN or DCN-v2 cell's step as a rank of ``mesh`` runs
+    it (``cells.rank_step``) on meta tensors: ``{"temp_bytes",
+    "raw_cost"}``, ``LiveBytes``' peak (the bytes the call's ops made and
+    still held at once: every temporary, the gradients, the new AdamW
+    moments and the collectives' results) and ``CostCounter``'s totals.
+    A serving call runs without autograd, as the card serves."""
+    from repro_torch.launch.cells import rank_step
+    from repro_torch.launch.live_bytes import LiveBytes
+    fn = rank_step(plan, mesh)
+    args = _rank_args(plan, mesh)
+    train = plan.meta["kind"] in ("gnn_train", "recsys_train")
+    cc = CostCounter()
+    with torch.set_grad_enabled(train), LiveBytes() as lb, cc:
+        fn(*args)
+    return {"temp_bytes": lb.peak, "raw_cost": _cost_record(cc)}
+
+
+def _model_output_bytes(plan, mesh) -> tuple:
+    """(output bytes, alias bytes) a rank's call returns: train the
+    donated parameters and AdamW state; serve its [B / D] float32
+    logits; retrieval its [1, NC / P] scores."""
+    kind = plan.meta["kind"]
+    if kind in ("gnn_train", "recsys_train"):
+        out = spec_bytes(plan.args[:2], plan.specs[:2], mesh)
+        return out, out
+    if kind == "recsys_serve":
+        return 4 * plan.meta["batch"] // mesh_extents(mesh)[0], 0
+    return 4 * plan.meta["candidates"] // int(mesh.devices.size), 0
+
+
+def run_model_cell(spec, cell, mesh, mesh_name: str) -> dict:
+    """The GNN and recsys branch: the cell's record on ``mesh``, the
+    reference's keys with the port's counterparts (see the module
+    docstring)."""
+    rec = {
+        "arch": spec.arch_id, "shape": cell.name, "kind": cell.kind,
+        "mesh": mesh_name, "n_devices": int(mesh.devices.size),
+        "note": cell.note, "ok": False,
+    }
+    try:
+        t0 = time.perf_counter()
+        plan = build_cell(spec, cell, mesh)
+        n_dev = int(mesh.devices.size)
+        out, alias = _model_output_bytes(plan, mesh)
+        local = model_local_run(plan, mesh)
+        mem = {"argument_bytes": spec_bytes(plan.args, plan.specs, mesh),
+               "output_bytes": out, "temp_bytes": local["temp_bytes"],
+               "alias_bytes": alias}
+        peak = (mem["argument_bytes"] + mem["output_bytes"]
+                + mem["temp_bytes"] - mem["alias_bytes"])
+        mem["peak_bytes_per_device"] = peak
+        mem["fits_80g_hbm"] = bool(peak < HBM_PER_CHIP)
+        rec["memory"] = mem
+        rec["meta"] = dict(plan.meta)
+        cost = rec["raw_cost"] = local["raw_cost"]
+        # the models are unrolled: the counts are exact
+        rec["flops_per_chip"] = cost["flops"]
+        rec["bytes_per_chip"] = cost["bytes"]
+        rec["model_flops_global"] = cost["flops"] * n_dev
+        rec["useful_flops_ratio"] = 1.0 if cost["flops"] else None
+        colls = (_gnn_collectives if spec.family == "gnn"
+                 else _recsys_collectives)(plan, mesh)
+        coll = rec["collectives"] = colls.totals()
+        rec["collectives_moved"] = colls.moved()
+        rec["collective_ops"] = colls.op_list()
+        rec["collectives_checked"] = True
+        rec["hlo_collective_loop_factor"] = 1.0
+        rec["roofline"] = roofline(cost["flops"], cost["bytes"],
+                                   coll["total"]).to_dict()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["ok"] = True
+    except (ValueError, TypeError, KeyError, RuntimeError) as e:
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    return rec
+
+
 def run_cell(spec, cell, mesh, mesh_name: str) -> dict:
-    """The cell's record on ``mesh`` (the LM or the LPA branch)."""
+    """The cell's record on ``mesh`` (the LM, LPA, or GNN and recsys
+    branch)."""
     if spec.family == "lm":
         return run_lm_cell(spec, cell, mesh, mesh_name)
     if spec.family == "lpa":
         return run_lpa_cell(spec, cell, mesh, mesh_name)
-    raise ValueError(f"{spec.arch_id}: " + NOT_PORTED.format(
-        family=spec.family))
+    return run_model_cell(spec, cell, mesh, mesh_name)
 
 
 def _meshes(which: str, ranks, family: str) -> list:
     """The meshes of ``--mesh``, and with ``ranks`` one of that many
     ranks: 1-D ("shard") for the LPA cells, (ranks, 1) ("data",
-    "model") for the LM cells (data parallel: one rank holds a model)."""
+    "model") for the LM, GNN and recsys cells (data parallel: one rank
+    holds a model, DCN-v2's tables whole on its one 'model' rank)."""
     meshes = []
     if which in ("single", "both"):
         meshes.append(("single_pod_16x16", make_production_mesh()))
@@ -1079,8 +1387,8 @@ def _meshes(which: str, ranks, family: str) -> list:
         meshes.append(("multi_pod_2x16x16",
                        make_production_mesh(multi_pod=True)))
     if ranks is not None:
-        mesh = (make_mesh((ranks, 1), ("data", "model")) if family == "lm"
-                else make_mesh((ranks,), ("shard",)))
+        mesh = (make_mesh((ranks,), ("shard",)) if family == "lpa"
+                else make_mesh((ranks, 1), ("data", "model")))
         meshes.append((f"ranks_{ranks}", mesh))
     return meshes
 
@@ -1088,8 +1396,8 @@ def _meshes(which: str, ranks, family: str) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="lpa-mg8",
-                    help="an LM or LPA arch id, or all (every LM and LPA "
-                         "arch)")
+                    help="an arch id, or all (every LM, GNN, recsys and "
+                         "LPA arch)")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
@@ -1098,19 +1406,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="launch_results_torch/dryrun")
     args = ap.parse_args(argv)
 
-    if args.arch == "all":
-        specs = [get_arch(a) for a in all_arch_ids()]
-        for spec in specs:
-            if spec.family not in PORTED:
-                print(f"dryrun: skipping {spec.arch_id}: " + NOT_PORTED.format(
-                    family=spec.family), file=sys.stderr)
-        specs = [sp for sp in specs if sp.family in PORTED]
-    else:
-        specs = [get_arch(args.arch)]
-        if specs[0].family not in PORTED:
-            print(f"dryrun: {args.arch}: " + NOT_PORTED.format(
-                family=specs[0].family), file=sys.stderr)
-            return 2
+    try:
+        specs = [get_arch(a) for a in (all_arch_ids() if args.arch == "all"
+                                       else [args.arch])]
+    except KeyError as e:
+        print(f"dryrun: {e.args[0]}", file=sys.stderr)
+        return 2
     if args.ranks is not None and args.ranks < 1:
         ap.error(f"--ranks must be positive, got {args.ranks}")
     n_ok = n_fail = 0

@@ -1,12 +1,12 @@
 """Aggregate the port's dry-run JSON records (``launch.dryrun``) into
 the reference's roofline table.
 
-A copy of ``repro.launch.report`` over the port's records, the LM cells'
-beside the LPA cells' (one table per mesh): the same table, with the fit
-threshold at an H100's 80 GB, and a summary that counts the cells built
-(the port compiles nothing). A collective term whose count is not held
-to the reference's HLO (a record's ``collectives_checked`` false) is
-starred, with the reason under the table.
+A copy of ``repro.launch.report`` over the port's records, the LM,
+GNN, recsys and LPA cells' in one table per mesh: the same table, with
+the fit threshold at an H100's 80 GB, and a summary that counts the
+cells built (the port compiles nothing). A collective term whose count
+is not held to the reference's HLO (a record's ``collectives_checked``
+false) is starred, with the reason under the table.
 
   PYTHONPATH=src python -m repro_torch.launch.report \\
       --results launch_results_torch/dryrun --mesh single_pod_16x16

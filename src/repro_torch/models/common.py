@@ -49,7 +49,10 @@ class Params(nn.Module):
 
 def dense_init(generator: torch.Generator, shape, scale: float | None = None,
                dtype=torch.float32, device=None) -> torch.Tensor:
-    """Truncated-normal fan-in init (params stay f32; compute may cast)."""
+    """Truncated-normal fan-in init (params stay f32; compute may cast).
+    On ``device="meta"`` nothing is drawn: the tensor has a shape only."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / max(fan_in, 1) ** 0.5
     w = torch.empty(tuple(shape), dtype=torch.float32,

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import dense_init
+from repro_torch.models.sharding import own_rows, reduce_nodes
 
 __all__ = ["Dense", "MLP", "init_mlp", "mlp_apply", "segment_agg",
            "forward_with"]
@@ -80,29 +81,33 @@ def segment_agg(messages: torch.Tensor, dst: torch.Tensor, n_nodes: int,
     """Aggregate edge messages [E, F] to nodes [N, F] per reduction.
 
     ``dst`` may contain the dump index ``n_nodes`` for padded edges; the
-    extra row is sliced off. Returns a dict {name: [N, F]}.
+    extra row is sliced off. Returns a dict {name: [N, F]}. As a rank's
+    share of a sharded graph (``models.sharding``): each reduction over
+    the rank's edges, all-reduced over the ranks, then the rank's rows.
     """
     out = {}
     ns = n_nodes + 1
     dst = dst.long()
     zeros = messages.new_zeros((ns,) + messages.shape[1:])
     if "sum" in reductions or "mean" in reductions or "std" in reductions:
-        out["sum"] = zeros.index_add(0, dst, messages)[:n_nodes]
+        out["sum"] = reduce_nodes(zeros.index_add(0, dst, messages))[:n_nodes]
     if "mean" in reductions or "std" in reductions:
-        cnt = messages.new_zeros(ns).index_add_(
-            0, dst, messages.new_ones(dst.shape))[:n_nodes]
+        cnt = reduce_nodes(messages.new_zeros(ns).index_add_(
+            0, dst, messages.new_ones(dst.shape)))[:n_nodes]
         denom = torch.clamp_min(cnt, 1.0)[:, None]
         out["count"] = cnt
         out["mean"] = out["sum"] / denom
     if "std" in reductions:
-        sq = zeros.index_add(0, dst, messages * messages)[:n_nodes]
+        sq = reduce_nodes(zeros.index_add(0, dst, messages * messages)
+                          )[:n_nodes]
         var = sq / denom - out["mean"] ** 2
         out["std"] = torch.sqrt(torch.clamp_min(var, 0.0) + 1e-5)
     for name, reduce in (("max", "amax"), ("min", "amin")):
         if name in reductions:
-            x = _segment_extreme(messages, dst, ns, reduce)[:n_nodes]
+            x = reduce_nodes(_segment_extreme(messages, dst, ns, reduce),
+                             name)[:n_nodes]
             out[name] = torch.where(torch.isfinite(x), x, 0.0)
-    return out
+    return {k: own_rows(v) for k, v in out.items()}
 
 
 def forward_with(model: nn.Module, batch, cfg=None):

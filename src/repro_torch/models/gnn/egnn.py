@@ -19,6 +19,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.common import (forward_with, init_mlp,
                                            mlp_apply, segment_agg)
+from repro_torch.models.sharding import (n_nodes, node_table, own_rows,
+                                         reduce_nodes)
 
 __all__ = ["EGNNConfig", "EGNN", "init_egnn", "egnn_forward"]
 
@@ -49,20 +51,23 @@ class EGNN(nn.Module):
         """
         h = mlp_apply(self.encode, batch["node_feat"])
         x = batch["coords"].to(h.dtype)
-        n = h.shape[0]
+        n = n_nodes(h)
         src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
         pad = src >= n
         s_src = src.clamp_max(n - 1)
         s_dst = dst.clamp_max(n - 1)
         seg_dst = torch.where(pad, n, dst)
-        deg = h.new_zeros(n + 1).index_add_(0, seg_dst, (~pad).to(h.dtype))[:n]
+        deg = own_rows(reduce_nodes(h.new_zeros(n + 1).index_add_(
+            0, seg_dst, (~pad).to(h.dtype)))[:n])
         inv_deg = (1.0 / torch.clamp_min(deg, 1.0))[:, None]
 
         for lp in self.layers:
-            diff = x[s_dst] - x[s_src]                       # x_i - x_j (i=dst)
+            x_table, h_table = node_table(x), node_table(h)
+            diff = x_table[s_dst] - x_table[s_src]           # x_i - x_j (i=dst)
             dist2 = torch.sum(diff * diff, dim=-1, keepdim=True)
-            m = mlp_apply(lp["phi_e"], torch.cat([h[s_dst], h[s_src], dist2],
-                                                 dim=-1), final_act=True)
+            m = mlp_apply(lp["phi_e"], torch.cat(
+                [h_table[s_dst], h_table[s_src], dist2], dim=-1),
+                final_act=True)
             m = torch.where(pad[:, None], 0.0, m)
             coef = torch.tanh(mlp_apply(lp["phi_x"], m))     # bounded step
             xmsg = torch.where(pad[:, None], 0.0, diff * coef)

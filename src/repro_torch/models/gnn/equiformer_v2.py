@@ -32,6 +32,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.common import dense_init
 from repro_torch.models.gnn.common import forward_with, init_mlp, mlp_apply
 from repro_torch.models.gnn.wigner import edge_rotations
+from repro_torch.models.sharding import (n_nodes, node_table, own_rows,
+                                         reduce_nodes)
 
 __all__ = ["EquiformerConfig", "Equiformer", "init_equiformer",
            "equiformer_forward"]
@@ -96,16 +98,18 @@ class Equiformer(nn.Module):
         Returns scalar node outputs [N, d_out].
         """
         cfg = self.cfg
-        n = batch["node_feat"].shape[0]
+        rows = batch["node_feat"].shape[0]   # this rank's (one card: N)
+        n = n_nodes(batch["node_feat"])
         c, lm = cfg.d_hidden, cfg.l_max
         scal = mlp_apply(self.embed, batch["node_feat"])  # [N, C]
-        f = torch.cat([scal[:, None], scal.new_zeros((n, cfg.n_sph - 1, c))],
-                      dim=1)
+        f = torch.cat([scal[:, None],
+                       scal.new_zeros((rows, cfg.n_sph - 1, c))], dim=1)
 
         src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
         s_src = src.clamp_max(n - 1)
         s_dst = dst.clamp_max(n - 1)
-        evec = batch["coords"][s_src] - batch["coords"][s_dst]
+        coords = node_table(batch["coords"])
+        evec = coords[s_src] - coords[s_dst]
         dist = torch.sqrt(torch.sum(evec ** 2, dim=-1) + 1e-12)
         # pad edges and degenerate (zero-length / self-loop) edges carry no message
         pad = (src >= n) | (dist < 1e-5)
@@ -121,7 +125,7 @@ class Equiformer(nn.Module):
 
         for lp in self.layers:
             fn = _irrep_norm(f, lp["ln_scale"], lm)
-            msg_in = fn[s_src]
+            msg_in = node_table(fn)[s_src]
             rot = _apply_wigner(blocks, msg_in, lm)
             rad = mlp_apply(lp["radial"], rbf).reshape(-1, cfg.m_max + 1, lm + 1)
             conv = _so2_conv(lp, rot, rad, cfg)
@@ -135,15 +139,16 @@ class Equiformer(nn.Module):
             msg_h = msg.reshape(-1, cfg.n_sph, cfg.n_heads, hsz)
             msg_h = msg_h * alpha[:, None, :, None].to(msg.dtype)
             msg = msg_h.reshape(-1, cfg.n_sph, c)
-            agg = msg.new_zeros((n + 1, cfg.n_sph, c)).index_add(
-                0, seg_dst, msg)[:n]
+            agg = own_rows(reduce_nodes(msg.new_zeros(
+                (n + 1, cfg.n_sph, c)).index_add(0, seg_dst, msg))[:n])
             f = f + agg
             # equivariant gated FFN
             fn2 = _irrep_norm(f, lp["ln_scale2"], lm)
             s0 = fn2[:, 0]
             h = F.silu(s0 @ lp["ffn_w1"].to(s0.dtype))
             s_out = h @ lp["ffn_w2"].to(s0.dtype)
-            gates = torch.sigmoid(mlp_apply(lp["ffn_gate"], s0)).reshape(n, lm, c)
+            gates = torch.sigmoid(mlp_apply(lp["ffn_gate"], s0)).reshape(
+                rows, lm, c)
             upd = [s_out[:, None]]
             for l in range(1, lm + 1):
                 blk = fn2[:, l * l:(l + 1) * (l + 1)]
@@ -243,10 +248,12 @@ def _segment_softmax(scores, seg, n_segments):
     head (the reference maps its 1-D version over the head axis)."""
     idx = seg.long()[:, None].expand_as(scores)
     smax = scores.new_full((n_segments, scores.shape[1]), float("-inf"))
-    smax = smax.scatter_reduce(0, idx, scores, "amax", include_self=True)
+    smax = reduce_nodes(smax.scatter_reduce(0, idx, scores, "amax",
+                                            include_self=True), "max")
     smax = torch.where(torch.isfinite(smax), smax, 0.0)
     ex = torch.exp(scores - smax[seg])
-    den = scores.new_zeros((n_segments, scores.shape[1])).index_add(0, seg, ex)
+    den = reduce_nodes(scores.new_zeros((n_segments, scores.shape[1])
+                                        ).index_add(0, seg, ex))
     return ex / torch.clamp_min(den[seg], 1e-9)
 
 

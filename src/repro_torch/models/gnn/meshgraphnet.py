@@ -17,6 +17,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.common import (forward_with, init_mlp,
                                            mlp_apply, segment_agg)
+from repro_torch.models.sharding import n_nodes, node_table
 
 __all__ = ["MGNConfig", "MGN", "init_mgn", "mgn_forward"]
 
@@ -51,14 +52,15 @@ class MGN(nn.Module):
         """batch: node_feat [N, Fn], edge_feat [E, Fe], edge_src/dst [E]."""
         h = mlp_apply(self.enc_node, batch["node_feat"], layer_norm=True)
         e = mlp_apply(self.enc_edge, batch["edge_feat"], layer_norm=True)
-        n = h.shape[0]
+        n = n_nodes(h)
         src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
         pad = src >= n
         s_src = src.clamp_max(n - 1)
         s_dst = dst.clamp_max(n - 1)
         seg_dst = torch.where(pad, n, dst)
         for lp in self.layers:
-            e_in = torch.cat([e, h[s_src], h[s_dst]], dim=-1)
+            table = node_table(h)
+            e_in = torch.cat([e, table[s_src], table[s_dst]], dim=-1)
             e = e + mlp_apply(lp["edge"], e_in, layer_norm=True)
             e = torch.where(pad[:, None], 0.0, e)
             agg = segment_agg(e, seg_dst, n, ("sum",))["sum"]

@@ -18,6 +18,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.common import (forward_with, init_mlp,
                                            mlp_apply, segment_agg)
+from repro_torch.models.sharding import (n_nodes, node_table, own_rows,
+                                         reduce_nodes)
 
 __all__ = ["PNAConfig", "PNA", "init_pna", "pna_forward"]
 
@@ -47,20 +49,21 @@ class PNA(nn.Module):
         """batch: node_feat [N, F], edge_src [E], edge_dst [E] (pad -> N)."""
         cfg = self.cfg
         h = mlp_apply(self.encode, batch["node_feat"])
-        n = h.shape[0]
+        n = n_nodes(h)
         src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
         pad = src >= n
         safe_src = src.clamp_max(n - 1)
         safe_dst = dst.clamp_max(n - 1)
         seg_dst = torch.where(pad, n, dst)
-        deg = h.new_zeros(n + 1).index_add_(
-            0, dst.clamp_max(n), (~pad).to(h.dtype))[:n]
+        deg = own_rows(reduce_nodes(h.new_zeros(n + 1).index_add_(
+            0, dst.clamp_max(n), (~pad).to(h.dtype)))[:n])
         logd = torch.log(deg + 1.0)
         amp = (logd / cfg.avg_log_degree)[:, None]
         att = (cfg.avg_log_degree / torch.clamp_min(logd, 1e-3))[:, None]
 
         for lp in self.layers:
-            m_in = torch.cat([h[safe_src], h[safe_dst]], dim=-1)
+            table = node_table(h)
+            m_in = torch.cat([table[safe_src], table[safe_dst]], dim=-1)
             m = mlp_apply(lp["msg"], m_in)
             m = torch.where(pad[:, None], 0.0, m)
             aggs = segment_agg(m, seg_dst, n, reductions=cfg.aggregators)

@@ -7,6 +7,9 @@ have ``torch.nn.EmbeddingBag`` semantics (bag i covers
 ``ids[offsets[i]:offsets[i+1]]``, the last to the end, ``offsets[0] ==
 0``): ``F.embedding_bag``'s weighted sum, divided for ``"mean"`` by the
 bag's length (at least 1), as the reference divides its segment sum.
+As rank of a "model" group holding a row shard of the table
+(``models.sharding.table_shard``), a single-hot lookup reads the rows
+it holds and sums over the group.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init
+from repro_torch.models.sharding import lookup
 
 __all__ = ["init_embedding_bag", "embedding_bag"]
 
@@ -34,6 +38,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     """ids [T] (flat indices); offsets [B] bag starts (None => single-hot
     ids of shape [B] -> pure gather). Returns [B, D]."""
     if offsets is None:
+        sharded = lookup(table, ids)
+        if sharded is not None:
+            return sharded
         return torch.index_select(table, 0, ids.long())
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode {mode!r}; expected sum or mean")

@@ -41,13 +41,15 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_repro_import_in_the_port():
-    """The package, ``chip_smoke.py`` (run where JAX is not installed)
-    and the port's examples import neither JAX nor the JAX package."""
+    """The package, ``chip_smoke.py`` (run where JAX is not installed),
+    the port's examples and the tests' rank helpers import neither JAX
+    nor the JAX package."""
     root = SRC.parent
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 10
     scripts = [root / "chip_smoke.py"] + sorted(
-        (root / "examples").glob("*_torch.py"))
+        (root / "examples").glob("*_torch.py")) + sorted(
+        (root / "tests").glob("_torch_*ranks.py"))
     assert len(scripts) >= 2
     bad = [(str(f.relative_to(root)), name) for f in files + scripts
            for name in _imports(f)
@@ -87,7 +89,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.mesh, repro_torch.launch.roofline, "
             "repro_torch.launch.dryrun, repro_torch.launch.report, "
             "repro_torch.launch.cost, repro_torch.launch.live_bytes, "
-            "repro_torch.launch.probes, repro_torch.launch.perf_lab; "
+            "repro_torch.launch.probes, repro_torch.launch.perf_lab, "
+            "repro_torch.models.sharding; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -501,13 +501,14 @@ def test_dryrun_records_hold_the_worked_numbers(tmp_path, capsys):
 
 
 def test_dryrun_refuses_another_family(tmp_path, capsys):
-    """The GNN and recsys branches are not ported: their archs exit 2,
-    naming the ROADMAP item, and write nothing."""
-    for arch in ("pna", "dcn-v2"):
-        rc = dryrun.main(["--arch", arch, "--out", str(tmp_path)])
-        assert rc == 2
-        assert "ROADMAP" in capsys.readouterr().err
-        assert os.listdir(tmp_path) == []
+    """An arch id of no family the registry knows exits 2, naming the
+    ids it knows, and writes nothing (every family of the reference's
+    dry run is ported: tests/test_torch_launch_gnn.py)."""
+    rc = dryrun.main(["--arch", "no-such-arch", "--out", str(tmp_path)])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "no-such-arch" in err and "dcn-v2" in err and "pna" in err
+    assert os.listdir(tmp_path) == []
 
 
 def test_ref_registry_has_the_same_lpa_cells():

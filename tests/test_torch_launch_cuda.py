@@ -14,7 +14,8 @@ to its plain version (int32 bits); the step's collectives equal to
 ``lpa_collective_bytes``. The LM half (the ``card`` fixture): a SMOKE
 layer's ``CostCounter`` totals on the card equal to meta's, and
 ``LiveBytes`` on meta within 5% of the allocator over a SMOKE train
-step.
+step. The GNN and recsys half: a one-rank dry-run record's argument and
+temp bytes within 5% of the allocator over the same step on the card.
 """
 import pytest
 import torch
@@ -180,3 +181,63 @@ def test_live_bytes_on_meta_matches_the_allocator(card):
     torch.cuda.synchronize()
     held = torch.cuda.max_memory_allocated() - resident
     assert abs(held / live.peak - 1) <= TEMP_TOL, (held, live.peak)
+
+
+# ---------------------------------------------------------------------------
+# the GNN and recsys half: a one-rank record against the allocator
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["pna", "dcn-v2"])
+def test_model_record_bytes_match_the_allocator(card, arch):
+    """The one-rank dry-run record of a SMOKE cell (PNA on a 4,096-node
+    full graph, DCN-v2's train step on 4,096 rows): ``argument_bytes``
+    within 5% of the bytes its inputs hold on the card, ``temp_bytes``
+    within 5% of the allocator's peak above them over a step after a
+    warm-up."""
+    import dataclasses
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.data.synthetic import dcn_batch
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import adamw_init
+    spec = get_arch(arch)
+    spec = dataclasses.replace(spec, config=spec.smoke)
+    n, e = 4096, 32768
+    cell = (ShapeCell("c", "gnn_full", {"n_nodes": n, "n_edges": e,
+                                        "d_feat": 8}) if arch == "pna"
+            else ShapeCell("c", "recsys_train", {"batch": 4096}))
+    rec = dryrun.run_cell(spec, cell, make_mesh((1, 1), ("data", "model")),
+                          "ranks_1")
+    assert rec["ok"], rec.get("error")
+    plan = build_cell(spec, cell)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = plan.init(torch.Generator().manual_seed(0), device=card)
+    opt = adamw_init(model)
+    if arch == "pna":
+        batch = {"node_feat": torch.randn(n, 8, device=card, generator=gen),
+                 "labels": torch.randint(0, 16, (n,), device=card,
+                                         generator=gen, dtype=torch.int32),
+                 "edge_src": torch.randint(0, n, (e,), device=card,
+                                           generator=gen, dtype=torch.int32),
+                 "edge_dst": torch.randint(0, n, (e,), device=card,
+                                           generator=gen, dtype=torch.int32)}
+    else:
+        cfg = spec.config
+        batch = dcn_batch(0, 0, 4096, cfg.n_dense, cfg.n_sparse,
+                          cfg.vocab_sizes, device=card)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    model, opt, _ = plan.fn(model, opt, batch)  # warm-up: cuBLAS workspaces
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plan.fn(model, opt, batch)
+    torch.cuda.synchronize()
+    working = torch.cuda.max_memory_allocated() - held
+    mem = rec["memory"]
+    assert abs(mem["argument_bytes"] / resident - 1) <= TEMP_TOL, (
+        mem["argument_bytes"], resident)
+    assert abs(mem["temp_bytes"] / working - 1) <= TEMP_TOL, (
+        mem["temp_bytes"], working)
