@@ -229,7 +229,17 @@ Phases:
      restored by ``remesh`` on 4 gloo ranks sharing the card under "tp"
      and "fsdp" on a (2, 2) mesh: every shard equal to its slice, the
      shards gathered on rank 0 equal to the tree, a (1, 3) mesh raising
-     before anything moves;
+     before anything moves; (e) the rank-local train steps (the parts
+     ``dryrun.lm_local_run`` measures on meta: the loss forward and
+     backward at the rank's config and shapes on the 16 x 16 mesh,
+     published widths, 2 and 3 layers) of deepseek's context-parallel
+     ``train_4k`` and of the tensor-parallel train of deepseek,
+     granite-34b and qwen3-moe: ``CostCounter``'s totals on the card
+     equal to meta's, the allocator's ``P_act`` within 5% of
+     ``LiveBytes``' on meta, the median ms of 5 steps beside the t_lb
+     of the counted FLOPs and bytes, and the card's points extrapolated
+     to the cell's depth equal to the dry run's ``raw_cost`` and within
+     5% of its ``temp_bytes``;
   12. the GNN and recsys half of the dry run (the mesh layouts of the
      GNN and DCN-v2 cells, ``cells.rank_step`` and the GNN and recsys
      branch of ``launch.dryrun``): (a) the dry run of the four GNN
@@ -261,7 +271,9 @@ import argparse
 import atexit
 import concurrent.futures
 import dataclasses
+import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -3629,6 +3641,16 @@ C11_CELLS = ("prefill_32k", "decode_32k", "long_500k", "train_4k")
 #: 11d: gloo ranks sharing the card, their mesh, and a mesh that does not
 #: divide qwen3-1.7b's TP layout
 REMESH_RANKS, REMESH_MESH, REMESH_BAD = 4, (2, 2), (1, 3)
+#: 11e: the rank-local train steps run on the card, (arch, layout) of
+#: ``train_4k`` on the 16 x 16 mesh: deepseek's context-parallel one and
+#: the tensor-parallel one (``sp_mode="none"``) of deepseek, granite-34b
+#: and qwen3-moe, each at the depths the dry run measures
+LOCAL_TRAINS = (("deepseek-v2-lite-16b", "cp"), ("deepseek-v2-lite-16b", "tp"),
+                ("granite-34b", "tp"), ("qwen3-moe-235b-a22b", "tp"))
+LOCAL_TRAIN_LAYERS = (2, 3)
+#: 11e: the most a step may hold, its inputs included (the card's 80 GB
+#: less the allocator's and CUDA's own); a larger step halves its batch
+LOCAL_TRAIN_FIT = 72e9
 
 
 def _c11_cells() -> dict:
@@ -3655,8 +3677,10 @@ def _c11_cells() -> dict:
 
 def _lm_dryrun(out: Path, arch: str) -> int:
     """``--lm-dryrun OUT ARCH``: ``launch.dryrun`` of one LM arch on the
-    reference's two meshes and one rank (records under ``OUT``), and for
-    qwen3-1.7b 11c's cells (``OUT/c11.json``). A host computation on meta
+    reference's two meshes and one rank (records under ``OUT``), for
+    qwen3-1.7b 11c's cells (``OUT/c11.json``), and ``lm_local_run`` of
+    the arch's layouts of ``LOCAL_TRAINS`` (``OUT/local_ARCH_MODE.json``,
+    what 11e holds the card to). A host computation on meta
     tensors in a process of its own, started at phase 7 so that it
     overlaps phases 7-10; it touches no device."""
     os.nice(10)
@@ -3667,6 +3691,15 @@ def _lm_dryrun(out: Path, arch: str) -> int:
         part = out / "c11.part"
         part.write_text(json.dumps(_c11_cells()))
         os.replace(part, out / "c11.json")
+    for a, mode in LOCAL_TRAINS:
+        if a == arch:
+            spec, cell, plan, mesh = _local_train_plan(arch, mode)
+            local = dryrun.lm_local_run(spec, cell, plan, mesh)
+            local["points"] = {n: [peak, cost] for n, (peak, cost)
+                               in local["points"].items()}
+            part = out / f"local_{arch}_{mode}.part"
+            part.write_text(json.dumps(local))
+            os.replace(part, out / f"local_{arch}_{mode}.json")
     return rc
 
 
@@ -3718,6 +3751,10 @@ def _lm_dryrun_records(dry: tuple, tag: str) -> dict:
             if not rec["ok"]:
                 raise AssertionError(f"phase 11a: {mesh_name} {arch}/{shape}:"
                                      f" {rec.get('error')}")
+            if rec.get("collectives_checked") is not True:
+                raise AssertionError(f"phase 11a: {mesh_name} {arch}/{shape}:"
+                                     " collective count not held to the "
+                                     "reference's HLO")
             mem, r = rec["memory"], rec["roofline"]
             print(f"{tag} phase 11a: {arch}/{shape} on {mesh_name} "
                   f"({rec['n_devices']} ranks, {rec['mode']}): peak "
@@ -3731,16 +3768,20 @@ def _lm_dryrun_records(dry: tuple, tag: str) -> dict:
                   f"{r['bottleneck']}, t_lb {r['step_time_lb_s'] * 1e3:.4f} "
                   f"ms ({rec['flops_per_chip']:.6g} FLOP, "
                   f"{rec['bytes_per_chip']:.6g} B, "
-                  f"{rec['collectives']['total']:.6g} collective B"
-                  + ("" if rec["collectives_checked"] else
-                     f", unverified: {rec['collectives_unchecked']}")
-                  + ")", flush=True)
+                  f"{rec['collectives']['total']:.6g} collective B as the "
+                  f"reference's parse counts them, "
+                  f"{rec['collectives_moved']['total']:.6g} B moved)",
+                  flush=True)
         print(f"{tag} phase 11a: {mesh_name}: {report.summary(recs)}\n"
               f"{report.roofline_table(recs)}", flush=True)
         recs_by_mesh[mesh_name] = {f"{a}/{c}": rec
                                    for (a, c), rec in recs.items()}
     c11 = json.loads((out / "c11.json").read_text())
-    return {"records": recs_by_mesh, "c11": c11, "waited_s": waited}
+    local = {f"{a}/{mode}": json.loads(
+        (out / f"local_{a}_{mode}.json").read_text())
+        for a, mode in LOCAL_TRAINS}
+    return {"records": recs_by_mesh, "c11": c11, "local": local,
+            "waited_s": waited}
 
 
 def _probe_layer(arch: str, cell: str, mm: int, md: int, tag: str) -> dict:
@@ -3917,6 +3958,8 @@ def _remesh_rank(comm, ckpt: str, out_dir: str) -> None:
         torch.cuda.synchronize(comm.device)
         seconds = time.perf_counter() - t0
         equal = gathered_equal = True
+        # each leaf's gather runs while rank 0 checks the leaf before it
+        pending = None
         for (_, leaf, spec), shard in zip(leaves_with_specs(tree, specs),
                                           shards):
             sl = shard_slices(leaf.shape, spec, mesh, rank)
@@ -3924,13 +3967,11 @@ def _remesh_rank(comm, ckpt: str, out_dir: str) -> None:
             equal &= torch.equal(host, torch.from_numpy(np.array(leaf[sl])))
             parts = ([torch.empty_like(host) for _ in range(world)]
                      if rank == 0 else None)
-            dist.gather(host, parts, dst=0)
-            if rank == 0:
-                whole = np.empty(leaf.shape, dtype=leaf.dtype)
-                for r, part in enumerate(parts):
-                    whole[shard_slices(leaf.shape, spec, mesh, r)] = \
-                        part.numpy()
-                gathered_equal &= bool(np.array_equal(whole, leaf))
+            work = dist.gather(host, parts, dst=0, async_op=True)
+            if pending is not None:
+                gathered_equal &= _remesh_gathered(pending, rank, mesh)
+            pending = (work, host, parts, leaf, spec)
+        gathered_equal &= _remesh_gathered(pending, rank, mesh)
         out[mode] = {"seconds": seconds, "equal": bool(equal),
                      "gathered_equal": bool(gathered_equal),
                      "bytes": sum(t.numel() * t.element_size()
@@ -3947,6 +3988,21 @@ def _remesh_rank(comm, ckpt: str, out_dir: str) -> None:
         out["bad_mesh"] = str(e)
     out["bad_mesh_moved"] = torch.cuda.memory_allocated(comm.device) - before
     Path(out_dir, f"remesh{rank}.json").write_text(json.dumps(out))
+
+
+def _remesh_gathered(pending: tuple, rank: int, mesh) -> bool:
+    """Wait for one leaf's gather; on rank 0, whether the shards placed
+    at their slices equal the stored leaf."""
+    import numpy as np
+    from repro_torch.train.elastic import shard_slices
+    work, _, parts, leaf, spec = pending
+    work.wait()
+    if rank != 0:
+        return True
+    whole = np.empty(leaf.shape, dtype=leaf.dtype)
+    for r, part in enumerate(parts):
+        whole[shard_slices(leaf.shape, spec, mesh, r)] = part.numpy()
+    return bool(np.array_equal(whole, leaf))
 
 
 def _remesh(tag: str) -> dict:
@@ -4000,9 +4056,152 @@ def _remesh(tag: str) -> dict:
             "tree_bytes": n_bytes}
 
 
+def _local_train_plan(arch: str, mode: str) -> tuple:
+    """(spec, cell, plan, mesh) of ``arch``'s ``train_4k`` in the ``mode``
+    layout (``tp``: ``sp_mode="none"``) on the 16 x 16 mesh."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    spec = get_arch(arch)
+    if mode == "tp":
+        spec = dataclasses.replace(spec, config=dataclasses.replace(
+            spec.config, sp_mode="none"))
+    cell = next(c for c in spec.cells if c.name == "train_4k")
+    mesh = make_production_mesh()
+    plan = build_cell(spec, cell, mesh)
+    if plan.meta["mode"] != mode:
+        raise AssertionError(f"phase 11e, {arch}: the plan's layout is "
+                             f"{plan.meta['mode']}, not {mode}")
+    return spec, cell, plan, mesh
+
+
+def _local_train(arch: str, mode: str, local: dict, tag: str) -> dict:
+    """11e: the rank's local train step of ``arch``'s ``train_4k`` in the
+    ``mode`` layout on the 16 x 16 mesh, the parts ``dryrun.lm_local_run``
+    measures on meta run on the card (``dryrun.lm_train_inputs`` on a
+    CUDA generator, ``dryrun.lm_train_measure``) at the rank's config and
+    shapes (``dryrun.lm_local_step``), published widths, at each depth of
+    ``LOCAL_TRAIN_LAYERS``. ``local`` is ``lm_local_run``'s result for the
+    layout (made on meta in the ``--lm-dryrun`` process). At each depth:
+    ``CostCounter`` totals on the card equal to meta's; the allocator's
+    ``P_act`` within ``LM_MEM_TOL`` of ``LiveBytes``' on meta; the median
+    ms of ``PROBE_REPS`` steps (``value_and_grad`` of the loss, CUDA
+    events, after the counted one) against the roofline's t_lb of the
+    counted FLOPs and bytes. Then the card's points extrapolated to the
+    cell's depth and completed by ``dryrun.lm_train_total`` give the
+    record's ``raw_cost`` (equal) and ``temp_bytes`` (within
+    ``LM_MEM_TOL``). A step whose parameters, gradients and ``P_act``
+    would not fit in ``LOCAL_TRAIN_FIT`` runs at the largest batch that
+    does (a cut, printed; its points are then held to meta's at that
+    batch, and the record is not compared)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import roofline
+    from repro_torch.train.steps import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    _, _, plan, mesh = _local_train_plan(arch, mode)
+    lcfg, b0, s = dryrun.lm_local_step(plan, mesh)
+    meta_points = {int(n): (peak, cost)
+                   for n, (peak, cost) in local["points"].items()}
+    out, card_points = {}, {}
+    for n in LOCAL_TRAIN_LAYERS:
+        ncfg = dataclasses.replace(lcfg, n_layers=n)
+        # the largest batch (halving from the rank's) whose parameters,
+        # their gradients and P_act fit
+        b, (p_meta, c_meta) = b0, meta_points[n]
+        while True:
+            params, batch = dryrun.lm_train_inputs(ncfg, b, s)
+            need = (2 * sum(t.numel() * 4 for t in tree_leaves(params))
+                    + 2 * b * s * 4 + p_meta)
+            if need <= LOCAL_TRAIN_FIT or b == 1:
+                break
+            b //= 2
+            peak, cc = dryrun.lm_train_measure(ncfg, params, batch)
+            p_meta, c_meta = peak, dryrun._cost_record(cc)
+        # on the card: the counted step and P_act, then PROBE_REPS steps
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        params, batch = dryrun.lm_train_inputs(ncfg, b, s, "cuda", gen)
+        p_card, cc = dryrun.lm_train_measure(ncfg, params, batch)
+        c_card = dryrun._cost_record(cc)
+        loss_of = dryrun.lm_train_loss(ncfg)
+        loss, grads = value_and_grad(loss_of, params, batch)
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        shapes = [tuple(g.shape) for g in tree_leaves(grads)] == [
+            tuple(p.shape) for p in tree_leaves(params)]
+        del loss, grads
+        ms = _time_ms(functools.partial(value_and_grad, loss_of, params,
+                                        batch), warmup=0, reps=PROBE_REPS)
+        del params, batch
+        torch.cuda.empty_cache()
+        where = f"phase 11e, {arch} {mode} {n} layers"
+        if not (finite and shapes):
+            raise AssertionError(f"{where}: finite {finite}, gradient "
+                                 f"shapes {shapes}")
+        if c_card != c_meta:
+            raise AssertionError(f"{where}: the card's count {c_card} "
+                                 f"differs from meta's {c_meta}")
+        mem_err = p_card / p_meta - 1
+        if abs(mem_err) > LM_MEM_TOL:
+            raise AssertionError(f"{where}: P_act {p_card} B on the card, "
+                                 f"{p_meta} B by LiveBytes on meta "
+                                 f"({mem_err:+.2%})")
+        t_lb = roofline(c_card["flops"], c_card["bytes"], 0.0)
+        if t_lb.step_time_s * 1e3 > ms:
+            raise AssertionError(f"{where}: t_lb "
+                                 f"{t_lb.step_time_s * 1e3:.4f} ms above "
+                                 f"the measured {ms:.4f} ms")
+        card_points[n] = (p_card, c_card)
+        share = t_lb.step_time_s * 1e3 / ms
+        cut = "none" if b == b0 else f"batch {b0} -> {b}"
+        out[n] = {"batch": b, "seq": s, "cut": cut, "ms": ms,
+                  "t_lb_ms": t_lb.step_time_s * 1e3,
+                  "bound_by": t_lb.bottleneck, "t_lb_share": share,
+                  "flops": c_card["flops"], "bytes": c_card["bytes"],
+                  "p_act_card": p_card, "p_act_meta": p_meta,
+                  "p_act_vs_meta": mem_err}
+        print(f"{tag} phase 11e: {arch} train_4k {mode} rank-local train "
+              f"step ({n} layers, published widths, batch {b} x seq {s}, "
+              f"{ncfg.n_heads} heads, remat {ncfg.remat}; cut: {cut}) on "
+              f"the card: CostCounter equal to meta's "
+              f"({c_card['flops']:.6g} FLOP, {c_card['bytes']:.6g} B "
+              f"unfused eager traffic); {ms:.4f} ms (median of "
+              f"{PROBE_REPS}, CUDA events) against t_lb "
+              f"{t_lb.step_time_s * 1e3:.4f} ms by {t_lb.bottleneck}: "
+              f"{share:.1%} of it; P_act {p_card} B above resident against "
+              f"LiveBytes {p_meta} B on meta ({mem_err:+.3%})", flush=True)
+    if all(r["cut"] == "none" for r in out.values()):
+        peak, cost = dryrun.lm_extrapolate(card_points, lcfg.n_layers)
+        temp, cost = dryrun.lm_train_total(plan, mesh, peak, cost)
+        want_t, want_c = local["temp_bytes"], local["raw_cost"]
+        temp_err = temp / want_t - 1
+        where = f"phase 11e, {arch} {mode} at {lcfg.n_layers} layers"
+        if any(not math.isclose(cost[k], want_c[k], rel_tol=1e-9)
+               for k in ("flops", "bytes", "transcendentals")):
+            raise AssertionError(f"{where}: the card's points give "
+                                 f"{cost}, the record {want_c}")
+        if abs(temp_err) > LM_MEM_TOL:
+            raise AssertionError(f"{where}: the card's points give temp "
+                                 f"{temp} B, the record {want_t} B "
+                                 f"({temp_err:+.2%})")
+        out["record"] = {"layers": lcfg.n_layers, "temp_bytes": temp,
+                         "record_temp_bytes": want_t,
+                         "temp_vs_record": temp_err, "p_act": peak,
+                         "flops": cost["flops"]}
+        print(f"{tag} phase 11e: {arch} train_4k {mode}: the card's 2- and "
+              f"3-layer points extrapolated to {lcfg.n_layers} layers give "
+              f"the record's raw_cost ({cost['flops']:.6g} FLOP, "
+              f"{cost['bytes']:.6g} B) and temp {temp} B against its "
+              f"{want_t} B ({temp_err:+.3%}; P_act {peak} B)", flush=True)
+    return out
+
+
 def _lm_dryrun_path(dry: tuple, lm: dict, tag: str) -> dict:
     """Phase 11: the LM dry run (11a), the probe layers on the card (11b),
-    the dry run against phase 9 (11c), remesh over gloo ranks (11d)."""
+    the dry run against phase 9 (11c), remesh over gloo ranks (11d), the
+    rank-local train steps of the dry run's layouts on the card (11e)."""
     import torch
     report: dict = {}
     t0 = time.perf_counter()
@@ -4019,9 +4218,14 @@ def _lm_dryrun_path(dry: tuple, lm: dict, tag: str) -> dict:
     t0 = time.perf_counter()
     report["remesh"] = _remesh(tag)
     report["11d_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["local_trains"] = {
+        f"{a}/{mode}": _local_train(a, mode, dr["local"][f"{a}/{mode}"], tag)
+        for a, mode in LOCAL_TRAINS}
+    report["11e_s"] = time.perf_counter() - t0
     print(f"{tag} phase 11: seconds by part: "
           + ", ".join(f"{part} {report[part + '_s']:.1f}"
-                      for part in ("11a", "11b", "11c", "11d"))
+                      for part in ("11a", "11b", "11c", "11d", "11e"))
           + f" (11a waited {dr['waited_s']:.1f} s for the dry runs)",
           flush=True)
     return report

@@ -57,11 +57,12 @@ LM (``run_lm_cell``; the plan of ``cells.build_cell`` on the mesh):
     card's collective dtype is taken to be the same, float32, which is an
     upper bound where a sharded port step sent its bf16 activations (no
     LM step across cards exists in the port yet).
-    ``collectives_checked`` says whether the cell's layout is one whose
-    count is held to the reference's HLO (tests/test_torch_launch.py);
-    where it is not, ``collectives_unchecked`` says why (deepseek's MLA
-    ``cp`` train; a ``tp`` train of MoE, MLA, or KV heads split along
-    ``dh``).
+    ``collectives_moved`` the same ops counted whole, what the ranks send
+    (the parse reads a tuple of more than five arrays as 0: the ``cp``
+    weight and embedding gradients' all-reduces), so the roofline's
+    collective term and t_lb, which read ``collectives``, leave out the
+    difference. Every layout's count is held to the reference's HLO
+    (tests/test_torch_launch.py), so ``collectives_checked`` is true.
 
 GNN and recsys (``run_model_cell``; the plan of ``cells.build_cell`` on
 the mesh, and the rank's share of its step, ``cells.rank_step``: a
@@ -111,7 +112,6 @@ import os
 import sys
 import time
 import traceback
-from typing import Optional
 
 import torch
 
@@ -134,9 +134,11 @@ from repro_torch.tree import tree_leaves
 __all__ = ["HBM_PER_CHIP", "ALLOC_GRAIN", "workspace_bytes",
            "lpa_step_temp_bytes", "lpa_step_bytes", "int32_overflow",
            "run_lpa_cell", "lm_collective_bytes", "spec_bytes",
-           "lm_local_run", "run_lm_cell", "gnn_collective_bytes",
-           "recsys_collective_bytes", "model_local_run", "run_model_cell",
-           "run_cell", "main"]
+           "lm_local_run", "lm_local_step", "lm_train_inputs",
+           "lm_train_measure", "lm_extrapolate", "lm_train_total",
+           "run_lm_cell",
+           "gnn_collective_bytes", "recsys_collective_bytes",
+           "model_local_run", "run_model_cell", "run_cell", "main"]
 
 HBM_PER_CHIP = 80e9  # NVIDIA H100 80GB
 #: the CUDA caching allocator rounds every block up to a multiple of this
@@ -529,16 +531,17 @@ class _Colls:
         self.out[op] = self.out.get(op, 0.0) + nbytes
         self.moved_out[op] = self.moved_out.get(op, 0.0) + nbytes
 
-    def add_tuple(self, op: str, arrays, extent: int, times: int = 1
-                  ) -> None:
-        """One op (outside any loop) whose result is a tuple of
-        ``arrays`` (each one's bytes), as XLA's combiner makes them: the
-        parse reads a tuple of more than five arrays as 0 (the HLO text's
-        ``/*index=5*/`` comment); ``moved`` counts every array."""
+    def add_tuple(self, op: str, arrays, extent: int, times: int = 1,
+                  loop: bool = False) -> None:
+        """One op whose result is a tuple of ``arrays`` (each one's
+        bytes), as XLA's combiner makes them: the parse reads a tuple of
+        more than five arrays as 0 (the HLO text's ``/*index=5*/``
+        comment); ``moved`` counts every array."""
         arrays = [float(a) for a in arrays if a > 0]
         if extent <= 1 or not arrays:
             return
         whole = sum(arrays) * times * (2 if op == "all-reduce" else 1)
+        whole *= self.n_layers if loop else 1
         self.moved_out[op] = self.moved_out.get(op, 0.0) + whole
         counted = whole if len(arrays) <= 5 else 0.0
         key = (op, sum(arrays) if len(arrays) <= 5 else 0.0)
@@ -565,15 +568,49 @@ class _Colls:
                       key=lambda x: -x[1] * x[2])
 
 
-def _weight_gathers(c: _Colls, shape, spec, sizes) -> None:
+def _weight_gathers(c: _Colls, shape, spec, sizes,
+                    whole: bool = True) -> None:
     """A cp weight [n_in, n_out] (one layer's) gathered whole: first over
     the axis on its output dim (result: the weight over the input dim's
-    extent), then over the axis on its input dim (the whole weight)."""
+    extent), then over the axis on its input dim (the whole weight);
+    ``whole=False``: the first gather only (the weight stays split on its
+    input dim)."""
     e_in, e_out = (axes_extent(spec[-2], sizes),
                    axes_extent(spec[-1], sizes))
     n = 4 * math.prod(shape[-2:])
     c.add("all-gather", n / e_in, e_out, loop=True)
-    c.add("all-gather", n, e_in, loop=True)
+    if whole:
+        c.add("all-gather", n, e_in, loop=True)
+
+
+def _latent_split(c: _Colls, rows: int, r: int, rope: int, m: int,
+                  backward: bool) -> None:
+    """MLA's ``w_dkv`` output [rows, r + rope], split in ``m`` equal
+    shards on its last dim (column parallel), against the latent [rows,
+    r] and the rope key [rows, rope] it is sliced into, each split in
+    ``m`` equal shards (the forward's slices; the backward pads their
+    gradients back). GSPMD moves each piece between the ranks whose
+    shards overlap: one collective-permute per shard distance, of the
+    largest piece any rank sends that far; in the backward, where a rank
+    takes its piece from more than one other rank, one all-gather of the
+    piece whole instead."""
+    w = (r + rope) / m
+    for lo, n in ((0, r), (r, rope)):
+        p = n / m
+        moves, senders = {}, {}
+        for j in range(m):  # the piece's shard j: [lo + j p, lo + (j+1) p)
+            for i in range(m):  # the output's shard i: [i w, (i+1) w)
+                size = (min(lo + (j + 1) * p, (i + 1) * w)
+                        - max(lo + j * p, i * w))
+                if i == j or size <= 0:
+                    continue
+                moves[i - j] = max(moves.get(i - j, 0), size)
+                senders.setdefault(i, set()).add(j)
+        if backward and any(len(s) > 1 for s in senders.values()):
+            c.add("all-gather", 4 * rows * n, m, loop=True)
+            continue
+        for size in moves.values():
+            c.add("collective-permute", 4 * rows * size, m, loop=True)
 
 
 def lm_collective_bytes(plan, mesh) -> dict:
@@ -596,8 +633,8 @@ def _lm_collectives(plan, mesh) -> _Colls:
         also the attention's inner KV scan, once);
       * a tuple result of more than five arrays counts 0 (the HLO text
         puts an ``/*index=5*/`` comment in it, whose ``=`` the parse's
-        result pattern cannot cross), as XLA's combiner gives the data
-        axes' gradient all-reduces;
+        result pattern cannot cross), as XLA's combiner makes the
+        weights' gradient all-reduces;
       * float32 activations: the reference's CPU compile computes its
         bf16 products in float32, and the collectives carry those; the
         dry run assumes the same float32 payloads on the card.
@@ -606,37 +643,68 @@ def _lm_collectives(plan, mesh) -> _Colls:
     layers, d model width, H/KV heads, dh head width, V vocab, E experts,
     k top-k, f expert width, B batch, S sequence, D data extent (the
     batch axes), M model extent, b = B / D, c the loss chunk, n_c = S / c
-    chunks, g = ``n_groups``, cap the experts' capacity of S/g tokens.
-    The formulas come from the reference's HLO on its SMOKE configs (2
-    layers, d = 64, B = 4, S = 64) on a (2, 2) ("data", "model") mesh:
+    chunks, g = ``n_groups``, cap the experts' capacity of S/g tokens;
+    MLA: r the latent (kv_lora) width, rope its rope key's. In ``tp`` the
+    model axis splits the KV heads into G = gcd(KV, M) groups, and each
+    head's dh over the M/G ranks of a group where KV % M != 0 (MQA, and
+    GQA with fewer heads than ranks: "split dh"), a rank holding h = KV /
+    G heads (or parts of them). The formulas come from the reference's
+    HLO on its SMOKE configs (2 layers, d = 64, B = 4, S = 64) on (2, 2)
+    and (2, 4) ("data", "model") meshes, with and without remat
+    (tests/test_torch_launch.py holds every layout below to it):
 
     ``tp`` prefill (``build_lm_prefill``):
       * per layer: all-reduce [b, S, d] after ``wo`` (the row-parallel
         attention output) and after ``w_down`` (the FFN's; dense);
         MoE: the router's probabilities all-gathered over the data axes
-        ([B, S, E]), a collective-permute of the groups' [b, g] int32
-        starts, an all-reduce of the combine's gathered [b, g, S/g · k,
-        d]; shared experts: an all-reduce [b, S, d];
+        ([B, S, E]), a collective-permute of the groups' [b, g, M - 1]
+        int32 starts, an all-reduce of the combine's gathered [b, g, S/g
+        · k, d]; shared experts: an all-reduce [b, S, d];
+      * split dh: the rope halves of the new key [b, S, h, dh/2] (two)
+        and k_norm's sums [b, S, h] all-reduced over a head's ranks, its
+        value chunk [b, kv_chunk, h, dh] all-gathered there (inside the
+        KV scan);
+      * MLA: kv_ln's sums [b, S] and the rope halves [b, S, 1, rope/2]
+        all-reduced; the latent and the rope key sliced out of w_dkv's
+        output [b, S, r + rope] split on 'model', each into its own
+        split (``_latent_split``: a collective-permute per shard
+        distance), the latent [b, S, r] all-gathered whole;
       * ENTRY: all-reduce [b, S, d] of the vocab-sharded embedding lookup.
-    ``tp`` decode (``build_lm_decode``, split KV), per layer:
-      * all-gather over 'model' of the new key and value [b, KV, dh]
-        (the cache holds every head) and of the query [b, H, dh]; over
-        the data axes of the new key and value [B, KV, dh] (the
-        scatter's updates);
-      * all-reduce over 'model' of the softmax's max and sum [b, H] and
-        of its weighted values [b, H, dh] (the partials of the split
-        sequence), after ``wo`` [b, d] and the FFN [b, d]; MoE as in
-        prefill at one token a row; ENTRY: all-reduce [b, d] of the
-        embedding lookup, all-gather of the scatter's [B, 2] int32
-        indices for the key and the value. MLA: the same with the latent
-        [b, kv_lora + rope] entry and H heads of kv_lora + rope.
-    ``tp`` train (``sp_mode == "none"``), per layer:
-      * all-reduce [b, S, d] after ``wo`` and ``w_down``, and of the
-        input gradients of the column-parallel products (q, k, v; gate,
-        up): 7 in all; ENTRY: the embedding lookup's, per loss chunk the
-        head's input gradient [b, c, d] and its [b, c] sums, and the
-        head's [V/M, d] weight gradient chunks over the data axes (one
-        tuple of n_c, counted while n_c <= 5).
+    ``tp`` decode (``build_lm_decode``), per layer:
+      * all-gather of the new key and value [b, KV, dh] and the query
+        [b, H, dh] over the head groups, of one new entry [b, h, dh] and
+        the query's [b, H h / KV, dh] over a head's ranks; over the data
+        axes of the new key and value [B, KV, dh] (the scatter's
+        updates);
+      * all-reduce over 'model' of the softmax's max and sum [b, H], of
+        its weighted values [b, H, dh] (the partials of the split
+        sequence) over both groups, after ``wo`` [b, d] and the FFN [b,
+        d]; MoE as in prefill at one token a row; split dh: the rope
+        halves and k_norm's sums as in prefill; ENTRY: all-reduce [b, d]
+        of the embedding lookup, all-gather of the scatter's [B, 2] int32
+        indices for the key and the value. MLA: the latent [b, r] and the
+        rope and absorbed queries [b, H (rope + r)] gathered, H heads of
+        r reduced, the latent split as in prefill at one token.
+    ``tp`` train (``sp_mode == "none"``), per layer, the prefill's
+    collectives and:
+      * all-reduce [b, S, d] of the input gradients of the
+        column-parallel products: q, k, v (MLA: wq, w_dkv), the FFN's
+        gate and up (up alone without GLU; MoE: the shared experts'); of
+        the combine's gather transposed, a scatter-add [b, g, S/g + 1,
+        d]; of q_norm's [dh] and k_norm's [dh / (M/G)] gradients;
+      * split dh: the value chunk gathered again and the key and value
+        chunks' gradients [b, kv_chunk, h, dh] all-reduced (two, in the
+        KV scan's backward), k_norm's backward sums;
+      * MLA: the latent gathered again; all-reduced: its two gradients
+        [b, S, r] (from w_uk and w_uv), kv_ln's backward sums [b, S],
+        the rope key's gradient [b, S, rope] (summed over the split
+        heads); the pieces' gradients padded back into w_dkv's split
+        (``_latent_split(backward=True)``);
+      * remat: the forward's per-layer collectives again, but the dense
+        FFN's and the shared experts' output all-reduces;
+      * ENTRY: per loss chunk the head's input gradient [b, c, d] and its
+        [b, c] sums, two partial losses, and the head's [V/M, d] weight
+        gradient chunks over the data axes (one tuple of n_c).
     ``cp`` train (``build_lm_train``'s default), per layer:
       * all-gather of each 2-D layer weight, 2-D sharded for storage, in
         the forward and again in the backward (``_weight_gathers``), of
@@ -648,17 +716,32 @@ def _lm_collectives(plan, mesh) -> _Colls:
         over the data axes, the dispatch and combine all-to-alls of
         [b, g/M, E, cap, d] in the forward and the backward;
       * all-reduce over 'model' of dK and dV [b, KV, S, dh] (inside the
-        attention's scan) and of the gradients of ln1, ln2, q_norm (or
-        kv_ln) and every 2-D layer weight; over the data axes: one
-        tuple of more than five, 0;
+        attention's scan); the weights' gradients in three tuples: every
+        norm and 2-D weight over 'model' (0), then over the data axes
+        the attention's projections with the FFN's output or the router,
+        and the norms (k_norm only with remat) with the FFN's gate and
+        up;
+      * MLA: the backward keeps the latent's gradient split on r: kv_ln
+        is not gathered again, w_uk and w_uv only over their output
+        dim's axis; it gathers a [b, S, H·v] gradient and kv_ln's [b, S]
+        scales over 'model', switches the latent's gradient pieces
+        between the r and the sequence split (five all-to-alls of [b, S,
+        r/M]) and moves kv_ln's gradient [r/M]; the weights' gradients
+        leave in three tuples of more than five (0);
+      * remat: the forward's K, V, router and expert gathers and its
+        all-to-alls again, every norm's gather (ENTRY's too), MLA's w_uk
+        and w_uv whole; without MLA, K and V three more times (the
+        attention's checkpointed chunks and their backward);
       * ENTRY: all-gather of the embedding [V, d] over 'model', of
         final_ln [d] (forward and backward) and of norms sharded on
         their L dim, of the targets' [b, c] chunks (forward and remat,
         2 n_c) and of h [b, S, d] over 'model' for the loss head;
-        collective-permutes of the targets' [b, c/M] slices (n_c); the
-        loss chunks' all-reduces: [b, c] sums and [b, c, d] head input
-        gradients (one tuple of n_c each, counted while n_c <= 5) and
-        the n_c + 1 float32 partial losses.
+        collective-permutes of the targets' [b, c/M] slices (n_c (M -
+        1)); the loss chunks' all-reduces: [b, c] sums and [b, c, d]
+        head input gradients (one tuple of n_c each) and the n_c + 1
+        float32 partial losses; the embedding's whole gradient [V, d]
+        over 'model' in one tuple with three squared-norm partials under
+        MLA (counted), five otherwise (0).
     """
     cfg, meta = plan.config, plan.meta
     kind, mode = meta["kind"], meta.get("mode", "tp")
@@ -680,70 +763,114 @@ def _lm_collectives(plan, mesh) -> _Colls:
         cap = max(1, math.ceil(sg * moe.top_k / moe.n_experts
                                * moe.capacity_factor))
     x = 4 * b * s_tokens * d  # one float32 [b, S, d] activation
+    AR, AG, CP = "all-reduce", "all-gather", "collective-permute"
     if mode == "tp":
+        train = kind == "train"
+        # remat recomputes each layer's forward in the backward: its
+        # collectives again, but the dense FFN's and the shared experts'
+        # output all-reduces, whose results the backward does not need
+        fwd, bwd = (2 if train and cfg.remat else 1), int(train)
+        ffn_in = 2 if cfg.glu else 1  # the FFN's column-parallel inputs
+        cols = 2 if mla is not None else 3  # wq, w_dkv; or wq, wk, wv
         # the row-parallel attention output, and the embedding lookup
-        c.add("all-reduce", x, mext, loop=True)
-        c.add("all-reduce", x, mext, loop=False)
+        c.add(AR, x, mext, loop=True, times=fwd)
+        c.add(AR, x, mext, loop=False)
         if moe is None:
-            c.add("all-reduce", x, mext, loop=True)
+            c.add(AR, x, mext, loop=True)
+            cols += ffn_in
         else:
             e = moe.n_experts
-            c.add("all-gather", 4 * B * s_tokens * e, dext, loop=True)
-            c.add("collective-permute", 4 * b * ng, mext, loop=True)
-            c.add("all-reduce", 4 * b * ng * sg * moe.top_k * d, mext,
-                  loop=True)
+            c.add(AG, 4 * B * s_tokens * e, dext, loop=True, times=fwd)
+            c.add(CP, 4 * b * ng * (mext - 1), mext, loop=True, times=fwd)
+            c.add(AR, 4 * b * ng * sg * moe.top_k * d, mext, loop=True,
+                  times=fwd)
+            if train:  # the combine's gather transposed: a scatter-add
+                c.add(AR, 4 * b * ng * (sg + 1) * d, mext, loop=True)
             if moe.n_shared:
-                c.add("all-reduce", x, mext, loop=True)
-        split_kv = mla is None and KV % mext != 0  # MQA: heads split dh
+                c.add(AR, x, mext, loop=True)
+                cols += ffn_in
+        if train:  # the input gradients of the column-parallel products
+            c.add(AR, x, mext, loop=True, times=cols)
+        # the model axis over the heads: gk groups of them, a head's dh
+        # split over the g ranks of a group (KV % M != 0: MQA, GQA), kv_h
+        # heads to a rank
+        split_kv = mla is None and KV % mext != 0
+        gk = math.gcd(KV, mext)
+        g, kv_h = mext // gk, KV // gk
         rope = mla.qk_rope_dim if mla is not None else dh
         if kind == "decode":
             s_ext = mext if split else mesh.devices.size
             if mla is None:
-                # the new key and value entries (one under MQA), the query
-                c.add("all-gather", 4 * b * KV * dh, mext, loop=True,
-                      times=1 if split_kv else 2)
-                c.add("all-gather", 4 * b * H * dh, mext, loop=True)
+                # the new key and value entries and the query, over the
+                # head groups and over a head's dh split (one entry)
+                c.add(AG, 4 * b * KV * dh, gk, loop=True, times=2)
+                c.add(AG, 4 * b * kv_h * dh, g, loop=True)
+                c.add(AG, 4 * b * H * dh, gk, loop=True)
+                c.add(AG, 4 * b * H * dh * kv_h / KV, g, loop=True)
                 entries, pv = (KV * dh, KV * dh), H * dh
             else:
                 # the new latent entry, the rope and absorbed queries
                 r = mla.kv_lora_rank
-                c.add("all-gather", 4 * b * r, mext, loop=True)
-                c.add("all-gather", 4 * b * H * (rope + r), mext, loop=True)
+                c.add(AG, 4 * b * r, mext, loop=True)
+                c.add(AG, 4 * b * H * (rope + r), mext, loop=True)
                 entries, pv = (r, rope), H * r
             if split:
                 for n in entries:
-                    c.add("all-gather", 4 * B * n, dext, loop=True)
-                c.add("all-gather", 4 * B * 2, dext, loop=False, times=2)
-            c.add("all-reduce", 4 * b * H, s_ext, loop=True, times=2)
-            c.add("all-reduce", 4 * b * pv, s_ext, loop=True)
+                    c.add(AG, 4 * B * n, dext, loop=True)
+                c.add(AG, 4 * B * 2, dext, loop=False, times=2)
+            c.add(AR, 4 * b * H, s_ext, loop=True, times=2)
+            if mla is None and split:  # over the two groups
+                c.add(AR, 4 * b * pv, g, loop=True)
+                c.add(AR, 4 * b * pv, gk, loop=True)
+            else:
+                c.add(AR, 4 * b * pv, s_ext, loop=True)
         if split_kv or mla is not None:
-            # the new key's rope halves (and MLA's latent norm), reduced
-            # over the dh-split (MLA: the latent's split) shards
-            k_heads = 1 if mla is not None else KV  # MLA: one rope head
-            c.add("all-reduce", 4 * b * s_tokens * k_heads * (rope // 2),
-                  mext, loop=True, times=2)
-        if mla is not None:
-            c.add("all-reduce", 4 * b * s_tokens, mext, loop=True)
-            c.add("collective-permute", 4 * b * s_tokens * rope / mext,
-                  mext, loop=True, times=2)
-            if kind != "decode":
-                c.add("all-gather", 4 * b * S * mla.kv_lora_rank, mext,
-                      loop=True)
+            # the new key's rope halves, reduced over the dh-split (MLA:
+            # its one rope head over the latent's split) shards
+            heads, ext = (1, mext) if mla is not None else (kv_h, g)
+            c.add(AR, 4 * b * s_tokens * heads * (rope // 2), ext,
+                  loop=True, times=2 * fwd)
+        if split_kv and cfg.qk_norm:  # k_norm's sums over the split dh
+            c.add(AR, 4 * b * s_tokens * kv_h, g, loop=True,
+                  times=fwd + bwd)
         if split_kv and kind != "decode":
-            # the value chunk, inside the attention's KV scan
-            c.add("all-gather", 4 * b * min(cfg.kv_chunk, S) * KV * dh,
-                  mext, loop=True)
-        elif kind == "train":
-            # input gradients of q, k, v and gate, up (dense)
-            c.add("all-reduce", x, mext, loop=True,
-                  times=3 + (2 if moe is None else 0))
+            # the value chunk, inside the attention's KV scan (again in
+            # its backward, with the key and value chunks' gradients)
+            chunk = 4 * b * min(cfg.kv_chunk, S) * kv_h * dh
+            c.add(AG, chunk, g, loop=True, times=fwd + bwd)
+            if train:
+                c.add(AR, chunk, g, loop=True, times=2)
+        if train and cfg.qk_norm:  # q_norm's and k_norm's gradients
+            c.add(AR, 4 * dh, mext, loop=True)
+            c.add(AR, 4 * dh / g, gk, loop=True)
+        if mla is not None:
+            r = mla.kv_lora_rank
+            # kv_ln's sums over the latent's split; the latent and the
+            # rope key sliced out of w_dkv's split output
+            c.add(AR, 4 * b * s_tokens, mext, loop=True, times=fwd)
+            for _ in range(fwd):
+                _latent_split(c, b * s_tokens, r, rope, mext,
+                              backward=False)
+            if kind != "decode":  # the latent whole, for w_uk and w_uv
+                c.add(AG, 4 * b * S * r, mext, loop=True, times=fwd + bwd)
+            if train:
+                # the latent's gradients from w_uk and w_uv, kv_ln's
+                # backward sums, the rope key's gradient summed over the
+                # split heads; the pieces' gradients padded back
+                c.add(AR, 4 * b * S * r, mext, loop=True, times=2)
+                c.add(AR, 4 * b * S, mext, loop=True)
+                c.add(AR, 4 * b * S * rope, mext, loop=True)
+                _latent_split(c, b * S, r, rope, mext, backward=True)
+        if train:
+            # ENTRY: per loss chunk the head's input gradient and its
+            # sums, and two partial losses; the head's weight gradient
+            # chunks over the data axes
             lc = min(cfg.loss_chunk, S)
             n_c = S // lc
-            c.add("all-reduce", 4 * b * lc * d + 4 * b * lc, mext,
-                  loop=False, times=n_c)
-            if n_c <= 5:
-                c.add("all-reduce", 4 * (V / mext) * d, dext, loop=False,
-                      times=n_c)
+            c.add(AR, 4 * b * lc * d + 4 * b * lc, mext, loop=False,
+                  times=n_c)
+            c.add(AR, 4, mext, loop=False, times=2)
+            c.add_tuple(AR, [4 * (V / mext) * d] * n_c, dext)
         return c
     if mode != "cp":
         raise ValueError(f"lm_collective_bytes covers the cells' layouts, "
@@ -761,55 +888,102 @@ def _lm_collectives(plan, mesh) -> _Colls:
              if n in layers]
     mats = [n for n, t in layers.items() if t.dim() == 3 and n not in norms]
     experts = [n for n, t in layers.items() if t.dim() == 4]
-    for _ in ("forward", "backward"):
+    # remat: the rematerialised forward gathers every norm again, and the
+    # weights the backward does not gather whole; the other weights'
+    # gathers it shares with the backward
+    fwd = 2 if cfg.remat else 1
+    for phase in ("forward", "backward", "remat")[:1 + fwd]:
+        # MLA's backward keeps the latent's gradient split on r over
+        # 'model': kv_ln is not gathered again, w_uk and w_uv only over
+        # their output dim's axis
+        split_r = mla is not None and phase == "backward"
         for n in norms:
-            c.add("all-gather", 4 * layers[n].shape[1],
-                  axes_extent(lspecs[n][1], sizes), loop=True)
+            if not (split_r and n == "kv_ln"):
+                c.add(AG, 4 * layers[n].shape[1],
+                      axes_extent(lspecs[n][1], sizes), loop=True)
         for n in mats:
-            _weight_gathers(c, layers[n].shape, lspecs[n], sizes)
+            latent = mla is not None and n in ("w_uk", "w_uv")
+            if phase != "remat" or latent:
+                _weight_gathers(c, layers[n].shape, lspecs[n], sizes,
+                                whole=not (split_r and latent))
     if mla is None:
         kv_width = (KV * dh, KV * dh)
     else:
         kv_width = (H * (mla.qk_nope_dim + mla.qk_rope_dim),
                     H * mla.v_head_dim)
     for w in kv_width:
-        c.add("all-gather", 4 * b * S * w, mext, loop=True)
-        c.add("all-reduce", 4 * b * S * w, mext, loop=True)
+        c.add(AG, 4 * b * S * w, mext, loop=True, times=fwd)
+        c.add(AR, 4 * b * S * w, mext, loop=True)
+    if cfg.remat and mla is None:
+        # K and V again in the attention's checkpointed chunks, and once
+        # more in their backward
+        c.add(AG, 4 * b * S * KV * dh, mext, loop=True, times=3)
     for n in experts:
         e, f_in, f_out = layers[n].shape[1:]
         whole = 4 * e * f_in * f_out / mext
-        c.add("all-gather", whole, dext, loop=True)
+        c.add(AG, whole, dext, loop=True, times=fwd)
         c.add("reduce-scatter", whole / dext, dext, loop=True)
     if moe is not None:
         e = moe.n_experts
-        c.add("all-gather", 4 * b * S * e, mext, loop=True)
-        c.add("all-gather", 4 * B * S * e, dext, loop=True)
+        c.add(AG, 4 * b * S * e, mext, loop=True, times=fwd)
+        c.add(AG, 4 * B * S * e, dext, loop=True, times=fwd)
         c.add("all-to-all", 4 * b * (ng // mext) * e * cap * d, mext,
-              loop=True, times=4)
-    grads = [n for n in ("ln1", "ln2", "q_norm", "kv_ln") if n in layers]
-    for n in grads + mats:
-        c.add("all-reduce", 4 * math.prod(layers[n].shape[1:]), mext,
-              loop=True)
+              loop=True, times=2 * fwd + 2)
+
+    def nbytes(names):
+        return [4 * math.prod(layers[n].shape[1:]) for n in names]
+
+    # the weights' gradients leave each layer in three all-reduces: every
+    # norm and 2-D weight over 'model' (a tuple of more than five: 0),
+    # then the rest over the data axes
+    c.add_tuple(AR, nbytes(norms + mats), mext, loop=True)
+    if mla is None:
+        # the attention's projections with the FFN's output (or the
+        # router); the norms with the FFN's column-parallel inputs
+        # (without remat k_norm's goes with the first)
+        ffn_in = [n for n in mats if n in ("w_gate", "w_up")]
+        c.add_tuple(AR, nbytes([n for n in mats if n not in ffn_in]), dext,
+                    loop=True)
+        c.add_tuple(AR, nbytes([n for n in norms if cfg.remat
+                                or n != "k_norm"] + ffn_in), dext,
+                    loop=True)
+    else:
+        r = mla.kv_lora_rank
+        # two tuples of more than five (0); the backward's own: a [b, S,
+        # H·v] gradient gathered over the sequence for the products with
+        # the latent, kv_ln's [b, S] scales; the latent's gradient pieces
+        # switched between the r split and the sequence split (five
+        # all-to-alls of [b, S, r/M]); kv_ln's gradient [r/M] moved to its
+        # storage layout
+        grads = nbytes(norms + mats)
+        c.add_tuple(AR, grads[::2], dext, loop=True)
+        c.add_tuple(AR, grads[1::2], dext, loop=True)
+        c.add(AG, 4 * b * S * H * mla.v_head_dim, mext, loop=True)
+        c.add(AG, 4 * b * S, mext, loop=True)
+        c.add("all-to-all", 4 * b * S * r / mext, mext, loop=True, times=5)
+        c.add(CP, 4 * r / mext, min(dext, mext), loop=True)
     # ENTRY: the embedding, final_ln, norms sharded on L, the loss head
-    c.add("all-gather", 4 * V * d, axes_extent(specs["embed"][0], sizes),
-          loop=False)
-    c.add("all-gather", 4 * d, axes_extent(specs["final_ln"][0], sizes),
-          loop=False, times=2)
+    c.add(AG, 4 * V * d, axes_extent(specs["embed"][0], sizes), loop=False)
+    c.add(AG, 4 * d, axes_extent(specs["final_ln"][0], sizes), loop=False,
+          times=2)
     for n in norms:
         lead = axes_extent(lspecs[n][0], sizes)
-        c.add("all-gather", 4 * L * layers[n].shape[1]
-              / axes_extent(lspecs[n][1], sizes), lead, loop=False)
+        c.add(AG, 4 * L * layers[n].shape[1]
+              / axes_extent(lspecs[n][1], sizes), lead, loop=False,
+              times=fwd)
     lc = min(cfg.loss_chunk, S)
     n_c = S // lc
-    c.add("all-gather", 4 * b * lc, mext, loop=False, times=2 * n_c)
-    c.add("all-gather", 4 * b * S * d, mext, loop=False)
-    c.add("collective-permute", 4 * b * lc / mext, mext, loop=False,
-          times=n_c)
-    if n_c <= 5:
-        c.add("all-reduce", 4 * b * lc, mext, loop=False, times=n_c)
-        c.add("all-reduce", 4 * b * lc * d, mext, loop=False, times=n_c)
-    if n_c + 1 <= 5:
-        c.add("all-reduce", 4, dext, loop=False, times=n_c + 1)
+    c.add(AG, 4 * b * lc, mext, loop=False, times=2 * n_c)
+    c.add(AG, 4 * b * S * d, mext, loop=False)
+    c.add(CP, 4 * b * lc / mext, mext, loop=False, times=n_c * (mext - 1))
+    c.add_tuple(AR, [4 * b * lc] * n_c, mext)
+    c.add_tuple(AR, [4 * b * lc * d] * n_c, mext)
+    c.add_tuple(AR, [4] * (n_c + 1), dext)
+    # the embedding's whole gradient over 'model', in one tuple with
+    # squared-norm partials of the gradients: three under MLA (counted),
+    # five otherwise (0)
+    c.add_tuple(AR, [4] * (3 if mla is not None else 5) + [4 * V * d],
+                mext)
     return c
 
 
@@ -874,13 +1048,130 @@ def _lm_local_shapes(plan, mesh) -> tuple:
     return b // dext, s // mext if meta.get("mode") == "cp" else s
 
 
+def lm_local_step(plan, mesh) -> tuple:
+    """(config, b, s) of the step a rank of ``plan`` on ``mesh`` runs:
+    ``_local_lm_cfg`` of the plan's config, ``_lm_local_shapes``."""
+    meta = plan.meta
+    lcfg = _local_lm_cfg(plan.config, meta["kind"], meta.get("mode", "tp"),
+                         mesh_extents(mesh)[1])
+    return (lcfg, *_lm_local_shapes(plan, mesh))
+
+
 def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def lm_train_inputs(cfg, b: int, s: int, device="meta",
+                    generator=None) -> tuple:
+    """(params, batch) of a rank's train step at ``cfg``, batch ``b`` x
+    sequence ``s``: on meta the shapes alone; on a card the weights and
+    tokens drawn from ``generator`` (a plain tree, no leaf requiring
+    gradients, as on meta)."""
+    from repro_torch.models.transformer import init_params, param_structs
+    from repro_torch.tree import param_tree, tree_map
+
+    if torch.device(device).type == "meta":
+        return param_structs(cfg), {
+            k: meta_tensor((b, s), torch.int32)
+            for k in ("tokens", "targets")}
+    params = tree_map(lambda t: t.detach(),
+                      param_tree(init_params(generator, cfg, device=device)))
+    return params, {k: torch.randint(0, cfg.vocab, (b, s),
+                                     generator=generator, device=device,
+                                     dtype=torch.int32)
+                    for k in ("tokens", "targets")}
+
+
+def lm_train_loss(cfg):
+    """The train step's loss, ``loss(params, batch)``."""
+    from repro_torch.models.transformer import loss_fn
+    return lambda p, bt: loss_fn(p, bt["tokens"], bt["targets"], cfg)
+
+
+def lm_train_measure(cfg, params, batch) -> tuple:
+    """(peak, counter) of the layered part of a rank's train step on
+    ``lm_train_inputs``' tensors: ``CostCounter`` over the loss's forward
+    and backward (every gradient), and ``P_act``, the peak above the
+    inputs of the forward and backward with gradients taken for the
+    embedding, head and final norm only (the moment
+    :func:`lm_local_run` takes for the activations). On a card the peak
+    is the allocator's above what was resident; elsewhere (meta, the
+    CPU) ``LiveBytes``'."""
+    from repro_torch.launch.live_bytes import LiveBytes
+    from repro_torch.train.steps import value_and_grad
+
+    loss = lm_train_loss(cfg)
+    cc = CostCounter()
+    with cc:
+        value_and_grad(loss, params, batch)
+    top = [v.requires_grad_(True) for k, v in params.items()
+           if k != "layers"]
+    dev = top[0].device
+    if dev.type != "cuda":
+        with LiveBytes() as lb:
+            torch.autograd.grad(loss(params, batch), top)
+        peak = lb.peak
+    else:
+        torch.cuda.synchronize(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.autograd.grad(loss(params, batch), top)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+    for v in top:
+        v.requires_grad_(False)
+    return peak, cc
+
+
+def lm_extrapolate(points: dict, n_layers: int) -> tuple:
+    """(peak, cost record) at ``n_layers`` from ``points`` (layer count ->
+    (peak, cost record)), affine through the two largest counts."""
+    lo, hi = sorted(points)[-2:]
+    (p_lo, c_lo), (p_hi, c_hi) = points[lo], points[hi]
+    k = (n_layers - hi) / (hi - lo)
+    peak = p_hi + round(k * (p_hi - p_lo))
+    cost = {key: v + k * (v - c_lo[key]) if key != "bytes_are" else v
+            for key, v in c_hi.items()}
+    return peak, cost
+
+
+def lm_train_total(plan, mesh, peak: int, cost: dict) -> tuple:
+    """(temp_bytes, raw_cost) of a rank's whole train step from the
+    layered part's ``peak`` (``P_act``) and ``cost`` at the cell's depth:
+    AdamW's count added, and the largest of the three moments of
+    :func:`lm_local_run` (plus one gathered layer in ``cp``)."""
+    from repro_torch.models.common import Params
+    from repro_torch.launch.live_bytes import LiveBytes
+    from repro_torch.models.transformer import param_structs
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.schedule import cosine_schedule
+
+    # the parameters as a module, updated in place (as the port's train
+    # path runs them), and the gradients and moments as trees
+    shards = Params(_shards(plan.args[0], plan.specs[0], mesh))
+    grads, m, v = (_shards(plan.args[0], plan.specs[0], mesh)
+                   for _ in range(3))
+    state = {"m": m, "v": v, "step": meta_tensor((), torch.int32)}
+    cc = CostCounter()
+    with LiveBytes() as lb_opt, cc:
+        lr = cosine_schedule(state["step"], 3e-4, 100, 10000)
+        adamw_update(grads, state, shards, lr)
+    opt = _cost_record(cc)
+    cost = {k: v + opt[k] if k != "bytes_are" else v
+            for k, v in cost.items()}
+    g = _tree_bytes(grads)
+    s_max = max(t.numel() * t.element_size()
+                for t in tree_leaves(grads["layers"]))
+    temp = max(peak, g + s_max, g + lb_opt.peak)
+    if plan.meta.get("mode") == "cp":
+        temp += _tree_bytes(param_structs(
+            dataclasses.replace(plan.config, n_layers=1))["layers"])
+    return temp, cost
+
+
 def lm_local_run(spec, cell, plan, mesh) -> dict:
     """One call of the cell's step as a rank runs it, on meta tensors:
-    ``{"temp_bytes", "raw_cost", "layers_run"}``.
+    ``{"temp_bytes", "raw_cost", "layers_run", "points"}``.
 
     Prefill and decode: the step at the rank's config
     (``_local_lm_cfg``) and shapes (``_lm_local_shapes``) under
@@ -890,8 +1181,9 @@ def lm_local_run(spec, cell, plan, mesh) -> dict:
 
     Train: the step's parts apart, as a sharded step holds them. Its
     FLOPs and bytes: ``CostCounter`` over the loss's forward and backward
-    at the rank's config and shapes, and over AdamW on the rank's shards.
-    Its memory, the largest of three moments of the step:
+    at the rank's config and shapes (:func:`lm_train_measure`), and over
+    AdamW on the rank's shards. Its memory, the largest of three moments
+    of the step (:func:`lm_train_total`):
 
       * ``P_act``: the peak of the loss's forward and backward with
         gradients taken for the embedding, head and final norm only (the
@@ -915,125 +1207,62 @@ def lm_local_run(spec, cell, plan, mesh) -> dict:
     counts of the layered part are affine in the layer count L: they are
     measured at 2, 3 and 4 layers and extrapolated to L when both
     differences agree (else the call runs at L). ``layers_run`` says
-    which.
+    which; ``points`` holds each measured count's (peak, cost record),
+    which a run of the same parts on a card is held to.
 
     Not counted: collective buffers (NCCL's own), and the allocator's
     rounding of large blocks past 512 B."""
     from repro_torch.launch.live_bytes import LiveBytes
-    from repro_torch.models.common import Params
-    from repro_torch.models.transformer import (init_cache, loss_fn,
-                                                param_structs)
-    from repro_torch.optim.adamw import adamw_update
-    from repro_torch.optim.schedule import cosine_schedule
-    from repro_torch.train.steps import value_and_grad
+    from repro_torch.models.transformer import init_cache, param_structs
 
-    cfg, meta = plan.config, plan.meta
-    kind, mode = meta["kind"], meta.get("mode", "tp")
-    _, mext = mesh_extents(mesh)
-    lcfg = _local_lm_cfg(cfg, kind, mode, mext)
-    b, s = _lm_local_shapes(plan, mesh)
+    kind = plan.meta["kind"]
+    lcfg, b, s = lm_local_step(plan, mesh)
     i32 = torch.int32
 
     def measure(n: int) -> tuple:
-        """(peak, counter) of the layered part at ``n`` layers."""
+        """(peak, cost record) of the layered part at ``n`` layers."""
         ncfg = dataclasses.replace(lcfg, n_layers=n)
-        params = param_structs(ncfg)
-        cc = CostCounter()
         if kind == "train":
-            batch = {"tokens": meta_tensor((b, s), i32),
-                     "targets": meta_tensor((b, s), i32)}
-
-            def loss(p, bt):
-                return loss_fn(p, bt["tokens"], bt["targets"], ncfg)
-
-            with cc:
-                value_and_grad(loss, params, batch)
-            top = {k: v.requires_grad_(True) for k, v in params.items()
-                   if k != "layers"}
-            with LiveBytes() as lb:
-                torch.autograd.grad(loss(params, batch), list(top.values()))
-            return lb.peak, cc
+            peak, cc = lm_train_measure(ncfg, *lm_train_inputs(ncfg, b, s))
+            return peak, _cost_record(cc)
+        params = param_structs(ncfg)
         fn = build_cell(dataclasses.replace(spec, config=ncfg), cell).fn
         if kind == "prefill":
             args = (params, meta_tensor((b, s), i32))
         else:
             args = (params, init_cache(ncfg, b, s, device="meta"),
                     meta_tensor((b,), i32), meta_tensor((b,), i32))
+        cc = CostCounter()
         with torch.no_grad(), LiveBytes() as lb, cc:
             fn(*args)
-        return lb.peak, cc
+        return lb.peak, _cost_record(cc)
 
     n_layers, points = lcfg.n_layers, (2, 3, 4)
     layers_run = f"extrapolated from {points}"
     if n_layers <= points[-1]:
-        peak, cc = measure(n_layers)
-        cost, layers_run = _cost_record(cc), n_layers
+        runs = {n_layers: measure(n_layers)}
+        (peak, cost), layers_run = runs[n_layers], n_layers
     else:
-        runs = [measure(n) for n in points]
-        recs = [_cost_record(cc) for _, cc in runs]
-        steps = {runs[k + 1][0] - runs[k][0] for k in range(2)}
-        counts = [r["flops"] for r in recs]
+        runs = {n: measure(n) for n in points}
+        steps = {runs[n + 1][0] - runs[n][0] for n in points[:2]}
+        counts = [runs[n][1]["flops"] for n in points]
         if len(steps) == 1 and counts[2] - counts[1] == counts[1] - counts[0]:
-            extra = n_layers - points[-1]
-            peak = runs[-1][0] + extra * steps.pop()
-            cost = {k: v + extra * (v - recs[-2][k]) if k != "bytes_are"
-                    else v for k, v in recs[-1].items()}
+            peak, cost = lm_extrapolate(runs, n_layers)
         else:
-            peak, cc = measure(n_layers)
-            cost, layers_run = _cost_record(cc), n_layers
-    if kind != "train":
-        return {"temp_bytes": peak, "raw_cost": cost,
-                "layers_run": layers_run}
-    # the parameters as a module, updated in place (as the port's train
-    # path runs them), and the gradients and moments as trees
-    shards = Params(_shards(plan.args[0], plan.specs[0], mesh))
-    grads, m, v = (_shards(plan.args[0], plan.specs[0], mesh)
-                   for _ in range(3))
-    state = {"m": m, "v": v, "step": meta_tensor((), i32)}
-    cc = CostCounter()
-    with LiveBytes() as lb_opt, cc:
-        lr = cosine_schedule(state["step"], 3e-4, 100, 10000)
-        adamw_update(grads, state, shards, lr)
-    opt = _cost_record(cc)
-    cost = {k: v + opt[k] if k != "bytes_are" else v
-            for k, v in cost.items()}
-    g = _tree_bytes(grads)
-    s_max = max(t.numel() * t.element_size()
-                for t in tree_leaves(grads["layers"]))
-    temp = max(peak, g + s_max, g + lb_opt.peak)
-    if mode == "cp":
-        temp += _tree_bytes(param_structs(
-            dataclasses.replace(cfg, n_layers=1))["layers"])
-    return {"temp_bytes": temp, "raw_cost": cost, "layers_run": layers_run}
+            peak, cost = measure(n_layers)
+            layers_run = n_layers
+    if kind == "train":
+        temp, cost = lm_train_total(plan, mesh, peak, cost)
+    else:
+        temp = peak
+    return {"temp_bytes": temp, "raw_cost": cost, "layers_run": layers_run,
+            "points": runs}
 
 
 def _cost_record(cc) -> dict:
     return {"flops": float(cc.flops), "bytes": float(cc.bytes),
             "transcendentals": float(cc.transcendentals),
             "bytes_are": "unfused eager traffic of the port's ops"}
-
-
-def lm_collectives_unchecked(plan, mesh) -> Optional[str]:
-    """Why the plan's collective count on ``mesh`` is not held to the
-    reference's HLO, or None where it is: every serving layout and the
-    ``cp`` train are (tests/test_torch_launch.py, 1%), and so is the
-    ``tp`` train of a dense model whose KV heads divide the model
-    extent; one rank runs no collective."""
-    cfg, meta = plan.config, plan.meta
-    if meta["kind"] != "train" or mesh.devices.size == 1:
-        return None
-    if meta["mode"] == "cp" and cfg.mla is not None:
-        return ("MLA under cp: the reference's HLO gathers and exchanges "
-                "MLA's own tensors in the backward and sends its gradient "
-                "all-reduces as one tuple the parser reads as 0; the count "
-                "does not follow it (PERF.md section 7)")
-    if meta["mode"] == "tp" and (cfg.moe is not None or cfg.mla is not None
-                                 or cfg.n_kv_heads
-                                 % mesh_extents(mesh)[1]):
-        return ("tp train of MoE, MLA or KV heads split along dh: not "
-                "derived from the reference's HLO (only the dense layout "
-                "whose KV heads divide the model extent is)")
-    return None
 
 
 def run_lm_cell(spec, cell, mesh, mesh_name: str) -> dict:
@@ -1086,10 +1315,8 @@ def run_lm_cell(spec, cell, mesh, mesh_name: str) -> dict:
         colls = _lm_collectives(plan, mesh)
         coll = rec["collectives"] = colls.totals()
         rec["collective_ops"] = colls.op_list()
-        unchecked = lm_collectives_unchecked(plan, mesh)
-        rec["collectives_checked"] = unchecked is None
-        if unchecked is not None:
-            rec["collectives_unchecked"] = unchecked
+        rec["collectives_moved"] = colls.moved()
+        rec["collectives_checked"] = True
         rec["hlo_collective_loop_factor"] = float(cfg.n_layers)
         rec["roofline"] = roofline(corr["flops"], corr["bytes"],
                                    coll["total"]).to_dict()

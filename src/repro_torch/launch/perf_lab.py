@@ -41,8 +41,9 @@ def report(arch: str, shape: str, mesh=None) -> RooflineTerms:
     print(f"  peak {rec['memory']['peak_bytes_per_device']/1e9:.1f} GB | "
           f"compute {terms.compute_s:.2f}s memory {terms.memory_s:.2f}s "
           f"collective {terms.collective_s:.2f}s -> {terms.bottleneck}")
-    if not rec.get("collectives_checked", True):
-        print(f"  collective term unverified: {rec['collectives_unchecked']}")
+    print(f"  collectives {rec['collectives']['total']/1e9:.3f} GB a rank "
+          f"as the reference's parse counts them (the roofline's), "
+          f"{rec['collectives_moved']['total']/1e9:.3f} GB moved")
     for op, b, n in rec.get("collective_ops", [])[:8]:
         print(f"    {op:20s} {b/1e6:10.1f} MB x{n}")
     return terms

@@ -4,9 +4,7 @@ the reference's roofline table.
 A copy of ``repro.launch.report`` over the port's records, the LM,
 GNN, recsys and LPA cells' in one table per mesh: the same table, with
 the fit threshold at an H100's 80 GB, and a summary that counts the
-cells built (the port compiles nothing). A collective term whose count
-is not held to the reference's HLO (a record's ``collectives_checked``
-false) is starred, with the reason under the table.
+cells built (the port compiles nothing).
 
   PYTHONPATH=src python -m repro_torch.launch.report \\
       --results launch_results_torch/dryrun --mesh single_pod_16x16
@@ -44,7 +42,6 @@ def roofline_table(recs, baseline=None):
         " bottleneck | t_lb | useful | t_lb baseline |",
         "|---|---|---|---|---|---|---|---|---|---|",
     ]
-    unchecked = []
     for (arch, shape), d in sorted(recs.items()):
         if not d.get("ok"):
             lines.append(f"| {arch} | {shape} | FAILED: "
@@ -61,17 +58,13 @@ def roofline_table(recs, baseline=None):
                 base = (f"{fmt_s(bt)}"
                         + (f" ({bt/cur:.1f}x)" if cur > 0 and bt / max(cur, 1e-12) >= 1.05
                            else ""))
-        star = "" if d.get("collectives_checked", True) else "*"
-        if star:
-            unchecked.append(f"* {arch}/{shape}: collective term "
-                             f"unverified: {d['collectives_unchecked']}")
         lines.append(
             f"| {arch} | {shape} | {d['memory']['peak_bytes_per_device']/1e9:.2f}GB"
             f" | {fmt_s(r['compute_s'])} | {fmt_s(r['memory_s'])}"
-            f" | {fmt_s(r['collective_s'])}{star} | {r['bottleneck']}"
+            f" | {fmt_s(r['collective_s'])} | {r['bottleneck']}"
             f" | {fmt_s(r['step_time_lb_s'])}"
             f" | {'-' if u is None else f'{u:.2f}'} | {base} |")
-    return "\n".join(lines + ([""] + unchecked if unchecked else []))
+    return "\n".join(lines)
 
 
 def summary(recs):

@@ -11,6 +11,13 @@ compiled step's HLO and XLA's argument size. The port's counts must give
 the same numbers. The collectives are also held to what ``ShardComm``
 records over 4 gloo ranks, and the step byte model to the bytes the
 port's step holds (``_torch_live_bytes.LiveBytes``).
+
+The LM half: the reference's plans on the production mesh, its remesh,
+and the collectives of its SMOKE LM cells (``HLO_CELLS``: every layout
+the LM dry run counts, on (2, 2) and (2, 4) meshes), compiled in
+``HLO_PROCS`` more subprocesses beside the first, which
+``dryrun.lm_collective_bytes`` must give within 1%. Run those alone
+with ``-k lm_collective`` (about 100 s).
 """
 import dataclasses
 import json
@@ -53,15 +60,21 @@ SPEC = get_arch("lpa-mg8")
 RANKS = (1, 4, 256, 512)
 LM_ARCHS = ("qwen3-1.7b", "glm4-9b", "deepseek-v2-lite-16b", "granite-34b",
             "qwen3-moe-235b-a22b")
-#: the SMOKE LM cells compiled on a (2, 2) mesh for their HLO collectives:
-#: every arch's, but deepseek's (MLA) train cell, whose collectives the
-#: port's count does not yet follow (PERF.md section 7); and the tp train
-#: (``sp_mode="none"``, kind ``train_tp``) of the dense GQA archs, the one
-#: tp train layout the count follows (``dryrun.lm_collectives_unchecked``)
-HLO_CELLS = tuple((arch, kind) for arch in LM_ARCHS
-                  for kind in ("train", "prefill", "decode")
-                  if (arch, kind) != ("deepseek-v2-lite-16b", "train")) + (
-    ("qwen3-1.7b", "train_tp"), ("glm4-9b", "train_tp"))
+#: the SMOKE LM cells compiled for their HLO collectives, (arch, kind,
+#: mesh shape): every arch's train (cp), prefill, decode and tp train
+#: (``sp_mode="none"``, kind ``train_tp``), and both trains with remat
+#: (``_remat``: the published configs' setting), on a (2, 2) mesh and on
+#: a (2, 4) mesh, where every arch's KV heads split along dh but
+#: deepseek's (MLA)
+HLO_KINDS = ("train", "prefill", "decode", "train_tp", "train_remat",
+             "train_tp_remat")
+HLO_CELLS = tuple((arch, kind, shape) for shape in ((2, 2), (2, 4))
+                  for arch in LM_ARCHS for kind in HLO_KINDS)
+#: the subprocesses that compile them side by side, each a share of the
+#: train cells (about 5 s each) and of the serving ones (about 1 s)
+HLO_PROCS = 3
+HLO_SHARES = tuple(sorted(HLO_CELLS, key=lambda c: not c[1].startswith(
+    "train"))[i::HLO_PROCS] for i in range(HLO_PROCS))
 
 _REF_CELLS = """
     import dataclasses, json
@@ -120,7 +133,7 @@ _REF_CELLS = """
     def is_sharding(x):
         return isinstance(x, NamedSharding)
 
-    out["lm"], out["lm_hlo"] = {}, {}
+    out["lm"] = {}
     m16 = make_production_mesh()
     for arch in LM_ARCHS:
         spec = get_arch(arch)
@@ -138,23 +151,6 @@ _REF_CELLS = """
                 "specs": [spec_json(sh.spec) for sh in shardings],
                 "shapes": [list(a.shape) for a in leaves]}
     m4 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-    for arch, kind in HLO_CELLS:
-        smoke = get_arch(arch).smoke
-        if kind == "train_tp":
-            smoke = dataclasses.replace(smoke, sp_mode="none")
-        spec = dataclasses.replace(get_arch(arch), config=smoke)
-        plan = build_cell(spec, ShapeCell("smoke", kind.split("_")[0],
-                                          {"batch": 4, "seq": 64}), m4)
-        with m4:
-            compiled = jax.jit(
-                plan.fn, in_shardings=plan.in_shardings,
-                donate_argnums=plan.donate_argnums).lower(
-                    *plan.args).compile()
-        out["lm_hlo"][f"{arch}/{kind}"] = {
-            "meta": plan.meta,
-            "collectives": collective_bytes(
-                compiled.as_text(),
-                loop_factor=float(spec.config.n_layers))}
     smoke = get_arch("qwen3-1.7b").smoke
     structs = _lm_structs(smoke)
     rng = np.random.default_rng(0)
@@ -173,22 +169,76 @@ _REF_CELLS = """
         json.dump(out, f)
 """
 
+_REF_HLO = """
+    import dataclasses, json
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    from repro.configs.registry import ShapeCell, get_arch
+    from repro.launch.cells import build_cell
+    from repro.launch.roofline import collective_bytes
+
+    out = {}
+    for arch, kind, shape in HLO_CELLS:
+        smoke = get_arch(arch).smoke
+        smoke = dataclasses.replace(smoke, remat=kind.endswith("_remat"))
+        if kind.startswith("train_tp"):
+            smoke = dataclasses.replace(smoke, sp_mode="none")
+        spec = dataclasses.replace(get_arch(arch), config=smoke)
+        m = Mesh(np.array(jax.devices()[:shape[0] * shape[1]]).reshape(
+            shape), ("data", "model"))
+        plan = build_cell(spec, ShapeCell("smoke", kind.split("_")[0],
+                                          {"batch": 4, "seq": 64}), m)
+        with m:
+            compiled = jax.jit(
+                plan.fn, in_shardings=plan.in_shardings,
+                donate_argnums=plan.donate_argnums).lower(
+                    *plan.args).compile()
+        out[f"{arch}/{kind}/{shape[0]}x{shape[1]}"] = {
+            "meta": plan.meta,
+            "collectives": collective_bytes(
+                compiled.as_text(),
+                loop_factor=float(spec.config.n_layers))}
+    with open(OUT, "w") as f:
+        json.dump(out, f)
+"""
+
 
 @pytest.fixture(scope="module")
 def ref_cells(tmp_path_factory):
     """The reference's LPA and LM cells, built (and at SMOKE compiled) on
     512 forced host devices in a subprocess, and its remesh of a SMOKE LM
-    tree on 4 of them."""
-    out = tmp_path_factory.mktemp("ref_cells") / "cells.json"
+    tree on 4 of them; beside it, ``HLO_PROCS`` subprocesses compile the
+    SMOKE LM cells of ``HLO_CELLS`` on 8 forced host devices."""
+    tmp = tmp_path_factory.mktemp("ref_cells")
+    out = tmp / "cells.json"
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512")
     code = (f"OUT = {str(out)!r}\nRANKS = {RANKS!r}\n"
-            f"LM_ARCHS = {LM_ARCHS!r}\nHLO_CELLS = {HLO_CELLS!r}\n"
-            + textwrap.dedent(_REF_CELLS))
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
+            f"LM_ARCHS = {LM_ARCHS!r}\n" + textwrap.dedent(_REF_CELLS))
+    procs = [(subprocess.Popen([sys.executable, "-c", code], env=env,
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True), out)]
+    env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    for i in range(HLO_PROCS):
+        hlo = tmp / f"hlo_{i}.json"
+        code = (f"OUT = {str(hlo)!r}\n"
+                f"HLO_CELLS = {HLO_SHARES[i]!r}\n"
+                + textwrap.dedent(_REF_HLO))
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), hlo))
+    try:
+        for proc, _ in procs:
+            _, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-4000:]
+    finally:
+        for proc, _ in procs:
+            proc.kill()
     cells = json.loads(out.read_text())
+    cells["lm_hlo"] = {}
+    for _, hlo in procs[1:]:
+        cells["lm_hlo"].update(json.loads(hlo.read_text()))
     with np.load(str(out) + ".npz") as z:
         cells["remesh"] = {k: z[k] for k in z.files}
     return cells
@@ -597,33 +647,69 @@ def test_lm_plans_equal_the_reference(ref_cells, arch):
     assert plan.config is spec.config
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_lm_collective_bytes_equal_the_reference_hlo(ref_cells, arch):
-    """The arch's SMOKE cells on a (2, 2) mesh: the total and every op
+def _smoke_plan_lm(arch, kind, shape):
+    """The port's plan of the SMOKE cell ``kind`` of ``HLO_KINDS`` (batch
+    4, sequence 64) on a ``shape`` ("data", "model") mesh, and the mesh."""
+    smoke = dataclasses.replace(get_arch(arch).smoke,
+                                remat=kind.endswith("_remat"))
+    if kind.startswith("train_tp"):
+        smoke = dataclasses.replace(smoke, sp_mode="none")
+    spec = dataclasses.replace(get_arch(arch), config=smoke)
+    m = mesh.make_mesh(shape, ("data", "model"))
+    cell = ShapeCell("smoke", kind.split("_")[0], {"batch": 4, "seq": 64})
+    return spec, cell, build_cell(spec, cell, m), m
+
+
+@pytest.mark.parametrize("arch,kind,shape", HLO_CELLS)
+def test_lm_collective_bytes_equal_the_reference_hlo(ref_cells, arch, kind,
+                                                     shape):
+    """A SMOKE cell on a (2, 2) or (2, 4) mesh: the total and every op
     that holds at least 1% of it within 1% of what the reference's
     roofline parses out of the compiled step's HLO (GQA, MQA, MLA and
-    MoE layouts, context-parallel train and tensor-parallel serving; the
-    dense GQA tensor-parallel train); the dry run marks each of these
-    layouts checked."""
-    m = mesh.make_mesh((2, 2), ("data", "model"))
-    for kind in [k for a, k in HLO_CELLS if a == arch]:
-        ref = ref_cells["lm_hlo"][f"{arch}/{kind}"]
-        smoke = get_arch(arch).smoke
-        if kind == "train_tp":
-            smoke = dataclasses.replace(smoke, sp_mode="none")
-        spec = dataclasses.replace(get_arch(arch), config=smoke)
-        plan = build_cell(spec, ShapeCell("smoke", kind.split("_")[0],
-                                          {"batch": 4, "seq": 64}), m)
-        assert {k: plan.meta[k] for k in ref["meta"]} == ref["meta"]
-        assert dryrun.lm_collectives_unchecked(plan, m) is None, kind
-        got = dryrun.lm_collective_bytes(plan, m)
-        want = ref["collectives"]
-        print(arch, kind, got, want)
-        assert got["total"] == pytest.approx(want["total"], rel=0.01)
-        for op, b in want.items():
-            if b >= 0.01 * want["total"]:
-                assert got.get(op, 0.0) == pytest.approx(b, rel=0.01), \
-                    (kind, op)
+    MoE layouts, KV heads whole or split along dh; context-parallel and
+    tensor-parallel train, with and without remat, and tensor-parallel
+    serving)."""
+    ref = ref_cells["lm_hlo"][f"{arch}/{kind}/{shape[0]}x{shape[1]}"]
+    _, _, plan, m = _smoke_plan_lm(arch, kind, shape)
+    assert {k: plan.meta[k] for k in ref["meta"]} == ref["meta"]
+    got = dryrun.lm_collective_bytes(plan, m)
+    want = ref["collectives"]
+    print(arch, kind, shape, got, want)
+    assert got["total"] == pytest.approx(want["total"], rel=0.01)
+    for op, b in want.items():
+        if b >= 0.01 * want["total"]:
+            assert got.get(op, 0.0) == pytest.approx(b, rel=0.01), op
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("deepseek-v2-lite-16b", "train"), ("granite-34b", "train_tp"),
+    ("qwen3-moe-235b-a22b", "train_tp_remat")])
+def test_lm_train_parts_on_tensors_give_the_record(arch, kind):
+    """What chip_smoke.py's phase 11e does on the card, on the CPU at a
+    SMOKE cell deepened to 6 layers on a (2, 2) mesh: the rank's train
+    step at 2 and 3 layers on drawn tensors counts what it counts on
+    meta, with the same ``P_act``; those two points, extrapolated to 6
+    layers and completed by ``lm_train_total``, give ``lm_local_run``'s
+    ``raw_cost`` and ``temp_bytes`` (measured on meta at 2, 3 and 4)."""
+    spec, cell, _, m = _smoke_plan_lm(arch, kind, (2, 2))
+    spec = dataclasses.replace(spec, config=dataclasses.replace(
+        spec.config, n_layers=6))
+    plan = build_cell(spec, cell, m)
+    local = dryrun.lm_local_run(spec, cell, plan, m)
+    assert local["layers_run"] == "extrapolated from (2, 3, 4)"
+    lcfg, b, s = dryrun.lm_local_step(plan, m)
+    points = {}
+    for n in (2, 3):
+        ncfg = dataclasses.replace(lcfg, n_layers=n)
+        gen = torch.Generator().manual_seed(n)
+        peak, cc = dryrun.lm_train_measure(
+            ncfg, *dryrun.lm_train_inputs(ncfg, b, s, "cpu", gen))
+        points[n] = (peak, dryrun._cost_record(cc))
+        assert points[n] == local["points"][n], n
+    peak, cost = dryrun.lm_extrapolate(points, 6)
+    temp, cost = dryrun.lm_train_total(plan, m, peak, cost)
+    assert cost == local["raw_cost"]
+    assert temp == local["temp_bytes"]
 
 
 def test_remesh_equals_the_reference_shards(ref_cells):
@@ -697,6 +783,8 @@ def test_dryrun_writes_the_lm_records(tmp_path, capsys):
         assert d["roofline"]["compute_s"] == pytest.approx(
             d["flops_per_chip"] / PEAK_FLOPS)
         assert d["collectives_checked"] is True
+        assert set(d["collectives_moved"]) == set(d["collectives"])
+        assert d["collectives_moved"]["total"] >= d["collectives"]["total"]
         assert d["hlo_collective_loop_factor"] == cfg.n_layers
         assert d["roofline"]["collective_s"] == pytest.approx(
             d["collectives"]["total"] / 450e9)
@@ -707,46 +795,57 @@ def test_dryrun_writes_the_lm_records(tmp_path, capsys):
     perf_lab.main(["--arch", "qwen3-1.7b", "--shape", "train_4k"])
     out = capsys.readouterr().out
     assert "qwen3-1.7b/train_4k mode=cp" in out and "->" in out
+    assert "GB moved" in out and "unverified" not in out
+
+
+def test_dryrun_marks_the_collectives_not_held_to_the_reference(
+        monkeypatch, capsys):
+    """No LM layout is left whose collective count is not held to the
+    reference's HLO: every LM record the dry run writes, on the 16 x 16
+    and 2 x 16 x 16 meshes and on one rank, is marked
+    ``collectives_checked`` (one rank runs no collective), and so is
+    every SMOKE tp and cp train on (2, 2) and (2, 4), with and without
+    remat, each a cell of ``HLO_CELLS``; perf_lab prints no
+    "unverified". The bytes moved are never below the parse's count, and
+    above it in every cp train across ranks (the weight and embedding
+    gradients' tuples the parse reads as 0). The rank's local run and
+    the probe are stubbed: their figures are held elsewhere."""
+    from repro_torch.launch import perf_lab
+    monkeypatch.setattr(dryrun, "lm_local_run", lambda *a: {
+        "temp_bytes": 0, "raw_cost": {}, "layers_run": 0})
+    monkeypatch.setattr(dryrun, "lm_cell_cost", lambda *a: {
+        "flops": 1.0, "flops_xla_cpu": 1.0, "bytes": 1.0})
+    meshes = {"single_pod_16x16": mesh.make_production_mesh(),
+              "multi_pod_2x16x16": mesh.make_production_mesh(
+                  multi_pod=True),
+              "ranks_1": mesh.make_mesh((1, 1), ("data", "model"))}
+    for name, m in meshes.items():
+        for arch in LM_ARCHS:
+            spec = get_arch(arch)
+            for cell in spec.cells:
+                rec = dryrun.run_lm_cell(spec, cell, m, name)
+                assert rec["ok"], (name, arch, cell.name, rec.get("error"))
+                assert rec["collectives_checked"] is True
+                assert "collectives_unchecked" not in rec
+                assert (rec["collectives"]["total"] > 0) == (m.size > 1)
+                moved = rec["collectives_moved"]["total"]
+                counted = rec["collectives"]["total"]
+                if rec["mode"] == "cp" and m.size > 1:
+                    assert moved > counted, (name, arch, cell.name)
+                else:
+                    assert moved >= counted, (name, arch, cell.name)
+    for shape in ((2, 2), (2, 4)):
+        for arch in LM_ARCHS:
+            for kind in ("train", "train_tp", "train_remat",
+                         "train_tp_remat"):
+                assert (arch, kind, shape) in HLO_CELLS
+                spec, cell, plan, m = _smoke_plan_lm(arch, kind, shape)
+                assert plan.meta["mode"] == (
+                    "tp" if kind.startswith("train_tp") else "cp")
+                rec = dryrun.run_lm_cell(spec, cell, m, "smoke")
+                assert rec["ok"] and rec["collectives_checked"] is True
+    capsys.readouterr()
+    perf_lab.main(["--arch", "deepseek-v2-lite-16b", "--shape", "train_4k"])
+    out = capsys.readouterr().out
+    assert "deepseek-v2-lite-16b/train_4k mode=cp" in out
     assert "unverified" not in out
-
-
-def test_dryrun_marks_the_collectives_not_held_to_the_reference():
-    """Of the registry's cells on the 16 x 16 mesh, only deepseek's (MLA)
-    cp train has a collective count not held to the reference's HLO; a
-    tp train is held only for a dense model whose KV heads divide the
-    model extent; one rank runs none. The report stars such a term and
-    gives the reason under the table."""
-    m16 = mesh.make_production_mesh()
-    for arch in LM_ARCHS:
-        spec = get_arch(arch)
-        for cell in spec.cells:
-            why = dryrun.lm_collectives_unchecked(build_cell(spec, cell, m16),
-                                                  m16)
-            assert (why is not None) == (
-                (arch, cell.kind) == ("deepseek-v2-lite-16b", "train")), \
-                (arch, cell.name)
-    m4, one = (mesh.make_mesh(s, ("data", "model")) for s in ((2, 2),
-                                                                (1, 1)))
-    cell = ShapeCell("smoke", "train", {"batch": 4, "seq": 64})
-    for arch, held in (("qwen3-1.7b", True), ("granite-34b", False),
-                       ("deepseek-v2-lite-16b", False),
-                       ("qwen3-moe-235b-a22b", False)):
-        spec = get_arch(arch)
-        spec = dataclasses.replace(spec, config=dataclasses.replace(
-            spec.smoke, sp_mode="none"))
-        plan = build_cell(spec, cell, m4)
-        assert plan.meta["mode"] == "tp"
-        assert (dryrun.lm_collectives_unchecked(plan, m4) is None) == held
-        assert dryrun.lm_collectives_unchecked(build_cell(spec, cell, one),
-                                               one) is None
-    rec = {"arch": "a", "shape": "s", "ok": True, "useful_flops_ratio": 0.5,
-           "memory": {"peak_bytes_per_device": 1e9},
-           "roofline": {"compute_s": 1.0, "memory_s": 2.0,
-                        "collective_s": 3.0, "bottleneck": "collective",
-                        "step_time_lb_s": 3.0}}
-    table = report.roofline_table({("a", "s"): rec})
-    assert "3.00s*" not in table and "unverified" not in table
-    table = report.roofline_table({("a", "s"): dict(
-        rec, collectives_checked=False, collectives_unchecked="why")})
-    assert "| 3.00s* |" in table
-    assert table.endswith("\n\n* a/s: collective term unverified: why")
