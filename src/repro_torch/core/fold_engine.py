@@ -69,6 +69,7 @@ from repro_torch.core.fold_program import (FoldOutcome, FoldRequest,
 from repro_torch.graphs.csr import (FoldPlan, fused_dispatches,
                                     plan_dispatches, plan_round0_dispatches,
                                     streamed_dispatches)
+from repro_torch.trace import span
 
 #: The reference's "auto" budget (bytes) for the fused engine's round-0
 #: entry arrays (labels int32 + weights float32 = 8 bytes/entry). It is a
@@ -117,15 +118,17 @@ class FoldEngine:
         if request.mode == "sparse":
             selection = RoundSelection(frontier=request.frontier,
                                        cap_rows=request.cap_rows)
-        if request.family == "bm":
-            best, weight = self.bm_fold_plan(plan, aux_plan, entry_labels,
-                                             entry_weights, labels,
-                                             selection=selection)
-            want = torch.where(best >= 0, best, labels)
-            return FoldOutcome(want=want, bm_label=best, bm_weight=weight)
-        executor = self.mg_rescan if request.rescan else self.mg_select
-        want = executor(plan, aux_plan, entry_labels, entry_weights, labels,
-                        request.seed, selection=selection)
+        with span("fold"):
+            if request.family == "bm":
+                best, weight = self.bm_fold_plan(plan, aux_plan,
+                                                 entry_labels, entry_weights,
+                                                 labels, selection=selection)
+                want = torch.where(best >= 0, best, labels)
+                return FoldOutcome(want=want, bm_label=best,
+                                   bm_weight=weight)
+            executor = self.mg_rescan if request.rescan else self.mg_select
+            want = executor(plan, aux_plan, entry_labels, entry_weights,
+                            labels, request.seed, selection=selection)
         return FoldOutcome(want=want)
 
     # -- tile-level folds (signatures of repro_torch.core.sketch's

@@ -47,6 +47,7 @@ from repro_torch.core.fold_program import FoldRequest
 from repro_torch.core.plan_bundle import PlanBundle, build_plan_bundle, spec_for
 from repro_torch.device import check_same_device, resolve_device
 from repro_torch.graphs.csr import CSRGraph
+from repro_torch.trace import Detection, host_read, span
 
 Method = Literal["exact", "mg", "bm"]
 
@@ -126,52 +127,59 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
     ones on the frontier and the gate masks the rest, so the two modes
     give the same result.
     """
-    graph, bundle = ws.graph, ws.bundle
-    if config.method not in ("exact", "mg", "bm"):
-        raise ValueError(f"unknown method {config.method!r}")
-    if sparse and frontier is None:
-        raise ValueError("sparse=True needs a frontier (the compacted fold "
-                         "is defined by the active vertex set)")
-    # the bundle's spec carries the RESOLVED backend ("auto" was decided
-    # at plan-build time), so the engine always finds its plan; the
-    # contract proxy (REPRO_CHECKED) never reaches the LPA loop
-    engine = get_engine(bundle.spec.backend, mg_variant=config.mg_variant,
-                        checked=False)
-    aux = bundle.aux_for(engine)
-    aligned = bool(engine.uses_stream_plan and aux is not None
-                   and aux.aligned)
-    if config.method == "exact":
-        want = exact_choose(ws.edge_src,
-                            torch.index_select(labels, 0, graph.indices),
-                            graph.weights, graph.n_nodes, labels, seed)
-    else:  # "mg" or "bm"
-        if aligned:
-            # window-aligned layout: ONE gather straight into round 0's
-            # window slots replaces labels[indices] AND the round's
-            # re-layout gather; the appended -1 slot absorbs the plan's
-            # n_nodes pad sentinel
-            labels_ext = torch.cat([labels, labels.new_full((1,), -1)])
-            nbr_labels = torch.index_select(labels_ext, 0,
-                                            aux.aligned_entry_vertex)
-            nbr_weights = aux.aligned_entry_weights
-        else:
-            nbr_labels = torch.index_select(labels, 0, graph.indices)
-            nbr_weights = graph.weights
-        request = FoldRequest(family=config.method,
-                              mode="sparse" if sparse else "dense",
-                              rescan=config.method == "mg" and config.rescan,
-                              aligned=aligned, seed=seed,
-                              frontier=frontier if sparse else None,
-                              cap_rows=cap_rows if sparse else 0)
-        want = engine.run(bundle, request, nbr_labels, nbr_weights,
-                          labels).want
+    with span("move"):
+        graph, bundle = ws.graph, ws.bundle
+        if config.method not in ("exact", "mg", "bm"):
+            raise ValueError(f"unknown method {config.method!r}")
+        if sparse and frontier is None:
+            raise ValueError("sparse=True needs a frontier (the compacted "
+                             "fold is defined by the active vertex set)")
+        # the bundle's spec carries the RESOLVED backend ("auto" was
+        # decided at plan-build time), so the engine always finds its plan;
+        # the contract proxy (REPRO_CHECKED) never reaches the LPA loop
+        engine = get_engine(bundle.spec.backend,
+                            mg_variant=config.mg_variant, checked=False)
+        aux = bundle.aux_for(engine)
+        aligned = bool(engine.uses_stream_plan and aux is not None
+                       and aux.aligned)
+        if config.method == "exact":
+            with span("gather"):
+                nbr_labels = torch.index_select(labels, 0, graph.indices)
+            with span("fold"):
+                want = exact_choose(ws.edge_src, nbr_labels, graph.weights,
+                                    graph.n_nodes, labels, seed)
+        else:  # "mg" or "bm"
+            with span("gather"):
+                if aligned:
+                    # window-aligned layout: ONE gather straight into
+                    # round 0's window slots replaces labels[indices] AND
+                    # the round's re-layout gather; the appended -1 slot
+                    # absorbs the plan's n_nodes pad sentinel
+                    labels_ext = torch.cat([labels,
+                                            labels.new_full((1,), -1)])
+                    nbr_labels = torch.index_select(labels_ext, 0,
+                                                    aux.aligned_entry_vertex)
+                    nbr_weights = aux.aligned_entry_weights
+                else:
+                    nbr_labels = torch.index_select(labels, 0, graph.indices)
+                    nbr_weights = graph.weights
+            request = FoldRequest(family=config.method,
+                                  mode="sparse" if sparse else "dense",
+                                  rescan=(config.method == "mg"
+                                          and config.rescan),
+                                  aligned=aligned, seed=seed,
+                                  frontier=frontier if sparse else None,
+                                  cap_rows=cap_rows if sparse else 0)
+            want = engine.run(bundle, request, nbr_labels, nbr_weights,
+                              labels).want
 
-    allowed = (want < labels) if pick_less else (want != labels)
-    if frontier is not None:
-        allowed = allowed & frontier
-    new_labels = torch.where(allowed, want, labels)
-    changed = new_labels != labels
-    return new_labels, changed
+        with span("mask"):
+            allowed = (want < labels) if pick_less else (want != labels)
+            if frontier is not None:
+                allowed = allowed & frontier
+            new_labels = torch.where(allowed, want, labels)
+            changed = new_labels != labels
+        return new_labels, changed
 
 
 def mark_frontier(ws: LPAWorkspace, changed: torch.Tensor) -> torch.Tensor:
@@ -182,10 +190,12 @@ def mark_frontier(ws: LPAWorkspace, changed: torch.Tensor) -> torch.Tensor:
     a ``scatter_reduce`` of ints, which is exact in any order.
     """
     n = ws.graph.n_nodes
-    src_changed = changed[ws.edge_src].to(torch.int32)
-    marked = torch.zeros(n, dtype=torch.int32, device=changed.device)
-    marked.scatter_reduce_(0, ws.graph.indices.long(), src_changed, "amax")
-    return marked > 0
+    with span("marks"):
+        src_changed = changed[ws.edge_src].to(torch.int32)
+        marked = torch.zeros(n, dtype=torch.int32, device=changed.device)
+        marked.scatter_reduce_(0, ws.graph.indices.long(), src_changed,
+                               "amax")
+        return marked > 0
 
 
 def _mean_f32(mask: torch.Tensor) -> float:
@@ -193,7 +203,8 @@ def _mean_f32(mask: torch.Tensor) -> float:
     the mean to the float32 count (exact below 2**24) times the float32
     reciprocal of the length, so this does the same two roundings."""
     n = mask.shape[0]
-    return float(np.float32(int(mask.sum())) * (np.float32(1) / np.float32(n)))
+    count = host_read(mask.sum, "mean")
+    return float(np.float32(count) * (np.float32(1) / np.float32(n)))
 
 
 @dataclasses.dataclass
@@ -208,6 +219,9 @@ class LPAResult:
     #: rows the fold computed each iteration: the full plan row count on
     #: dense iterations, the compacted rows on sparse ones
     work_rows_history: list = dataclasses.field(default_factory=list)
+    #: values the detection read back from the device, by site
+    #: (``repro_torch.trace.host_read``); each read waits for the device
+    host_reads: dict = dataclasses.field(default_factory=dict)
 
 
 def lpa(graph: CSRGraph, config: Optional[LPAConfig] = None,
@@ -217,62 +231,71 @@ def lpa(graph: CSRGraph, config: Optional[LPAConfig] = None,
     ``device=None`` means CUDA; the graph must already live on the device
     (build it with the same ``device``): nothing is moved.
     """
-    config = config if config is not None else LPAConfig()
-    if config.frontier_sparse:
-        if not config.frontier_gate:
-            raise ValueError("frontier_sparse requires frontier_gate: the "
-                             "sparse fold is only correct when off-frontier "
-                             "moves are masked")
-        if config.method == "exact":
-            raise ValueError("frontier_sparse does not apply to the exact "
-                             "method (no fold plan to compact)")
-    dev = resolve_device(device)
-    check_same_device(dev, offsets=graph.offsets, indices=graph.indices,
-                      weights=graph.weights)
-    ws = ws if ws is not None else build_workspace(graph, config)
-    n = graph.n_nodes
-    labels = torch.arange(n, dtype=torch.int32, device=dev)
-    frontier = torch.ones((n,), dtype=torch.bool, device=dev)  # all queued
-    need_marks = config.frontier_gate or config.track_frontier
-    history = []
-    frontier_history = []
-    work_rows_history = []
-    dense_rows = ws.bundle.dense_work_rows()
-    cap_rows = ws.bundle.cap_rows()
-    converged = False
-    it = 0
-    for it in range(config.max_iters):
-        pl = (it % config.rho) == 0
-        seed = it + 1
-        gate = frontier if config.frontier_gate else None
-        sparse, work = False, dense_rows
+    det = Detection()
+    with span("detect"):
+        config = config if config is not None else LPAConfig()
         if config.frontier_sparse:
-            # the fit is decided between iterations, on the host; on
-            # overflow this iteration runs the dense gated fold
-            fits, sparse_work = ws.bundle.sparse_fit(frontier, cap_rows)
-            if fits:
-                sparse, work = True, sparse_work
-        labels, changed = lpa_move(ws, labels, pl, seed, config,
-                                   frontier=gate, sparse=sparse,
-                                   cap_rows=cap_rows)
-        work_rows_history.append(work)
-        if need_marks:
-            if config.track_frontier:
-                frontier_history.append(_mean_f32(frontier))
-            marked = mark_frontier(ws, changed)
-            # A Pick-Less round blocks legal moves (want > label), so its
-            # unchanged vertices are deferred, not settled — keep them
-            # queued instead of letting the gate freeze them.
-            frontier = (frontier | marked) if pl else marked
-        delta = int(changed.sum())
-        history.append(delta)
-        if not pl and delta / max(n, 1) < config.tau:
-            converged = True
-            break
-    return LPAResult(labels=labels, iterations=it + 1,
-                     changed_history=history, converged=converged,
-                     frontier_history=frontier_history,
-                     work_rows_history=work_rows_history)
+            if not config.frontier_gate:
+                raise ValueError("frontier_sparse requires frontier_gate: "
+                                 "the sparse fold is only correct when "
+                                 "off-frontier moves are masked")
+            if config.method == "exact":
+                raise ValueError("frontier_sparse does not apply to the exact "
+                                 "method (no fold plan to compact)")
+        dev = resolve_device(device)
+        check_same_device(dev, offsets=graph.offsets, indices=graph.indices,
+                          weights=graph.weights)
+        with span("init"):
+            ws = ws if ws is not None else build_workspace(graph, config)
+            n = graph.n_nodes
+            labels = torch.arange(n, dtype=torch.int32, device=dev)
+            frontier = torch.ones((n,), dtype=torch.bool,
+                                  device=dev)  # all queued
+            dense_rows = ws.bundle.dense_work_rows()
+            cap_rows = ws.bundle.cap_rows()
+        need_marks = config.frontier_gate or config.track_frontier
+        history = []
+        frontier_history = []
+        work_rows_history = []
+        converged = False
+        it = 0
+        for it in range(config.max_iters):
+            pl = (it % config.rho) == 0
+            with span("iter"):
+                seed = it + 1
+                gate = frontier if config.frontier_gate else None
+                sparse, work = False, dense_rows
+                if config.frontier_sparse:
+                    # the fit is decided between iterations, on the host;
+                    # on overflow this iteration runs the dense gated fold
+                    fits, sparse_work = ws.bundle.sparse_fit(frontier,
+                                                             cap_rows)
+                    if fits:
+                        sparse, work = True, sparse_work
+                labels, changed = lpa_move(ws, labels, pl, seed, config,
+                                           frontier=gate, sparse=sparse,
+                                           cap_rows=cap_rows)
+                work_rows_history.append(work)
+                if need_marks:
+                    if config.track_frontier:
+                        frontier_history.append(_mean_f32(frontier))
+                    marked = mark_frontier(ws, changed)
+                    # A Pick-Less round blocks legal moves (want > label),
+                    # so its unchanged vertices are deferred, not settled
+                    # — keep them queued instead of letting the gate
+                    # freeze them.
+                    with span("marks"):
+                        frontier = (frontier | marked) if pl else marked
+                delta = host_read(changed.sum, "count")
+                history.append(delta)
+                if not pl and delta / max(n, 1) < config.tau:
+                    converged = True
+                    break
+        return LPAResult(labels=labels, iterations=it + 1,
+                         changed_history=history, converged=converged,
+                         frontier_history=frontier_history,
+                         work_rows_history=work_rows_history,
+                         host_reads=det.finish(it + 1))
 
 
 def lpa_step_fn(config: LPAConfig) -> Callable:

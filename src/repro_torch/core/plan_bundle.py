@@ -41,6 +41,7 @@ from repro_torch.graphs.csr import (CSRGraph, FoldPlan, FusedFoldPlan,
                                     fused_active_rows, fused_work_rows,
                                     streamed_active_windows,
                                     streamed_work_rows)
+from repro_torch.trace import host_read, span
 
 __all__ = ["PlanSpec", "PlanBundle", "ShardSlice", "ShardPlanBundle",
            "StackedShardPlans", "spec_for", "build_plan_bundle",
@@ -136,21 +137,22 @@ class PlanBundle:
         integers reach the host. The bucketed backends have no compacted
         path, so they always fit, at the dense cost.
         """
-        if self.fused_plan is not None:
-            counts = fused_active_rows(self.fused_plan, frontier)
-            return all(c <= cap_rows for c in counts), sum(counts)
-        if self.stream_plan is not None:
-            stats = streamed_active_windows(self.stream_plan, frontier)
-            return (all(w <= cap_rows for w, _ in stats),
-                    sum(r for _, r in stats))
-        return True, self.dense_work_rows()
+        with span("fit"):
+            if self.fused_plan is not None:
+                counts = fused_active_rows(self.fused_plan, frontier)
+                return all(c <= cap_rows for c in counts), sum(counts)
+            if self.stream_plan is not None:
+                stats = streamed_active_windows(self.stream_plan, frontier)
+                return (all(w <= cap_rows for w, _ in stats),
+                        sum(r for _, r in stats))
+            return True, self.dense_work_rows()
 
     def default_cap_rows(self) -> int:
         """Half the largest round's real rows (windows, on the streamed
         plan) — sparse only pays off once the frontier has thinned below
         the compaction overhead's break-even."""
         if self.fused_plan is not None:
-            worst = max(int((r.row_vertex >= 0).sum())
+            worst = max(host_read((r.row_vertex >= 0).sum(), "cap_rows")
                         for r in self.fused_plan.rounds)
         elif self.stream_plan is not None:
             worst = max(r.row_start.shape[0]

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.trace import host_read
 
 PAD = np.int32(-1)  # gather sentinel for padded entries
 
@@ -453,8 +454,8 @@ def fused_dispatches(plan: FusedFoldPlan) -> int:
 
 def fused_work_rows(plan: FusedFoldPlan) -> int:
     """Real fold rows one dense iteration computes (all rounds)."""
-    return sum(int(torch.count_nonzero(r.row_vertex >= 0))
-               for r in plan.rounds)
+    return sum(host_read(torch.count_nonzero(r.row_vertex >= 0),
+                         "dense_rows") for r in plan.rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -811,8 +812,8 @@ def streamed_peak_window_bytes(plan: StreamedFoldPlan) -> int:
 
 def streamed_work_rows(plan: StreamedFoldPlan) -> int:
     """Real fold rows one dense iteration computes (all rounds)."""
-    return sum(int(torch.count_nonzero(r.row_vertex >= 0))
-               for r in plan.rounds)
+    return sum(host_read(torch.count_nonzero(r.row_vertex >= 0),
+                         "dense_rows") for r in plan.rounds)
 
 
 # ---------------------------------------------------------------------------
@@ -874,7 +875,7 @@ def fused_active_rows(plan: FusedFoldPlan, frontier) -> List[int]:
     counts = torch.stack([torch.count_nonzero(_round_active(r.row_vertex,
                                                             frontier))
                           for r in plan.rounds])
-    return [int(c) for c in counts.tolist()]
+    return host_read(counts, "fit")
 
 
 def streamed_active_windows(plan: StreamedFoldPlan,
@@ -898,4 +899,4 @@ def streamed_active_windows(plan: StreamedFoldPlan,
         real = (rnd.row_vertex.reshape(shape) >= 0) & win_active[:, None]
         stats.append(torch.stack([torch.count_nonzero(win_active),
                                   torch.count_nonzero(real)]))
-    return [(int(w), int(r)) for w, r in torch.stack(stats).tolist()]
+    return [(w, r) for w, r in host_read(torch.stack(stats), "fit")]

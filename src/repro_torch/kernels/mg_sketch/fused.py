@@ -59,6 +59,7 @@ from repro_torch.core.sketch import (bm_fold_tile, bm_init_rows,
 from repro_torch.graphs.csr import (FusedFoldPlan, FusedRound, _round_active,
                                     compact_active_rows)
 from repro_torch.kernels.launches import LAUNCH_COUNTS, reset_launch_counts
+from repro_torch.trace import span
 
 __all__ = ["SUPPORTED_K", "LAUNCH_COUNTS", "reset_launch_counts",
            "fused_fold_round", "fused_select_round", "bm_fold_round_fused",
@@ -353,8 +354,10 @@ def take_ext(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
         return torch.full((idx.shape[0],) + tuple(x.shape[1:]), fill,
                           dtype=x.dtype, device=x.device)
     out = x[torch.clamp_max(idx, n - 1).long()]
-    out[idx == n] = fill
-    return out
+    # a mask that broadcasts over the trailing dims: a boolean-index store
+    # would count the mask's lanes on the host and wait for the device
+    sentinel = (idx == n).reshape((-1,) + (1,) * (x.dim() - 1))
+    return out.masked_fill_(sentinel, fill)
 
 
 def sparse_fused_round(rnd: FusedRound, frontier: torch.Tensor,
@@ -430,9 +433,13 @@ def _fold_round(ops: EngineRounds, plan, rnd, el: torch.Tensor,
     ``selection`` only the compacted active rows, scattered back."""
     if selection is None:
         return ops.fold(rnd, el, ew, k=plan.k, chunk=plan.chunk)
-    sub, idx, _ = ops.compact(rnd, selection.frontier, selection.cap_rows)
+    with span("fold.compact"):
+        sub, idx, _ = ops.compact(rnd, selection.frontier,
+                                  selection.cap_rows)
     c_k, c_v = ops.fold(sub, el, ew, k=plan.k, chunk=plan.chunk)
-    return ops.scatter(rnd, idx, c_k, -1), ops.scatter(rnd, idx, c_v, 0.0)
+    with span("fold.compact"):
+        return (ops.scatter(rnd, idx, c_k, -1),
+                ops.scatter(rnd, idx, c_v, 0.0))
 
 
 def run_mg_plan_generic(plan, entry_labels: torch.Tensor,
@@ -476,24 +483,29 @@ def select_best_generic(plan, entry_labels: torch.Tensor,
         return labels
     el, ew = entry_labels, entry_weights
     for rnd in plan.rounds[:-1]:
-        s_k, s_v = _fold_round(ops, plan, rnd, el, ew, selection)
+        with span("fold.round"):
+            s_k, s_v = _fold_round(ops, plan, rnd, el, ew, selection)
         el, ew = s_k.reshape(-1), s_v.reshape(-1)
     last, rv = plan.rounds[-1], plan.row_to_vertex
     if selection is not None:
-        last, _, rv = ops.compact(last, selection.frontier,
-                                  selection.cap_rows)
+        with span("fold.compact"):
+            last, _, rv = ops.compact(last, selection.frontier,
+                                      selection.cap_rows)
     n = plan.n_nodes
-    real = rv >= 0
-    incumbents = torch.where(real, labels[torch.clamp_min(rv, 0)], -1)
-    choice = ops.select(last, el, ew, incumbents, seed, k=plan.k,
-                        chunk=plan.chunk)
+    with span("fold.epilogue"):
+        real = rv >= 0
+        incumbents = torch.where(real, labels[torch.clamp_min(rv, 0)], -1)
+    with span("fold.select"):
+        choice = ops.select(last, el, ew, incumbents, seed, k=plan.k,
+                            chunk=plan.chunk)
     # [N] scatter of per-row winners. A vertex owns at most one final row,
     # so real rows write distinct slots; pad and sentinel rows all write
     # -1 into the dump slot n, which is sliced off. Vertices with no fold
     # rows (degree 0, or off a selection's frontier) keep their label, as
     # choose_from_candidates does for an empty set.
-    buf = torch.cat([labels, labels.new_zeros((1,))])
-    buf[torch.where(real, rv, n).long()] = torch.where(real, choice, -1)
+    with span("fold.epilogue"):
+        buf = torch.cat([labels, labels.new_zeros((1,))])
+        buf[torch.where(real, rv, n).long()] = torch.where(real, choice, -1)
     return buf[:n]
 
 
