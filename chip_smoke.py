@@ -9,8 +9,11 @@ the kernel launch counts set to 0 just before it:
     fold_backend="pallas_fused"))``, the paper's headline method (K1, K2);
   * νBM-LPA — ``method="bm"`` on the same engine (K3);
   * the double-scan ablation — ``method="mg", rescan=True`` (K1, K4);
-  * exact LPA — ``method="exact"``, plain torch (no kernel), the O(|E|)
+  * exact LPA — ``method="exact"``, plain torch (no fold kernel), the O(|E|)
     baseline whose memory the sketches are compared against;
+  * the frontier marks — one FM launch (``kernels.frontier``) an
+    iteration on every path above that tracks the frontier, the
+    plain-torch engine's included;
   * the streamed engine — νMG8 through ``fold_backend="auto"``, which
     resolves to ``pallas_stream`` past the budget (K5, K6; unaligned),
     and νMG8, νBM and the rescan ablation on ``pallas_stream`` with
@@ -86,7 +89,9 @@ Phases:
      fused dense gated run), quality (modularity, NMI against the
      planted truth; one modularity call timed, and the bm run's computed
      twice, to equal bits, and once in float64), seconds per iteration
-     and peak device memory;
+     and peak device memory; FM held to its plain version on every
+     iteration's ``changed`` mask of the mg run and of the dense gated
+     run (and an all-true one), each mg mask timed beside its bytes;
      exact LPA's group sums held to the CPU's on non-integer weights;
      the peak memories side by side;
   5. the runtime contracts and the partitioner: on the 2^16 graph, mg
@@ -259,7 +264,8 @@ Phases:
      recorded a step in 8g's plain (float32) run;
   13. one JSON line describing every kernel (K1 and K2 also list the
      partitions of phases 7 and 8 as ``gnn_partition`` and
-     ``train_partition``; K1 and K9 the cells of phase 10).
+     ``train_partition``; K1 and K9 the cells of phase 10; FM every
+     path's launches).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a
@@ -305,7 +311,8 @@ FIT_ALL_CAP = 1 << 30
 #: kernel library -> its source in the repo
 KERNEL_SOURCES = {"mg_fused": "src/repro_torch/csrc/mg_fused.cu",
                   "mg_stream": "src/repro_torch/csrc/mg_stream.cu",
-                  "mg_tile": "src/repro_torch/csrc/mg_tile.cu"}
+                  "mg_tile": "src/repro_torch/csrc/mg_tile.cu",
+                  "frontier_marks": "src/repro_torch/csrc/frontier_marks.cu"}
 
 
 def _nvidia_smi() -> str:
@@ -316,7 +323,8 @@ def _nvidia_smi() -> str:
 
 
 #: mangled-name fragment -> kernel, most specific first
-_KERNEL_OF_SYMBOL = (("tile_bm_fold", "K10 tile_bm_fold"),
+_KERNEL_OF_SYMBOL = (("frontier_marks", "FM frontier_marks"),
+                     ("tile_bm_fold", "K10 tile_bm_fold"),
                      ("tile_fold", "K9 tile_fold"),
                      ("stream_bm", "K7 stream_bm"),
                      ("stream_rescan", "K8 stream_rescan"),
@@ -1195,8 +1203,76 @@ def _phase_took(tag: str, phase: int, t0: float, report: dict) -> None:
     print(f"{tag} phase {phase} took {took:.1f} s", flush=True)
 
 
+def frontier_marks_vs_plain(graph, masks, gated_masks, tag: str) -> dict:
+    """Phase 4: the frontier marks (FM, ``kernels.frontier``) held to
+    their plain version, bit for bit, on the main graph: on an all-true
+    ``changed`` and on every iteration's ``changed`` of the main mg run
+    (``masks``) and of the dense gated run (``gated_masks``), the card
+    tensors their replays handed ``mark_frontier``. Each all-true and mg
+    mask is timed, kernel and plain, between CUDA events (a call is the
+    wrapper: its zeroed [N] output and the launch), beside the bytes the
+    marks must move: ``changed`` read and ``marked`` written ([N] bytes
+    each), one 32 B sector of ``offsets`` a changed vertex (at most all
+    of ``offsets``) and the changed rows' ``indices`` (4 B a slot).
+    ``ms``, ``plain_ms``, ``bound_ms`` and ``bytes`` are means over the
+    mg run's iterations (one launch each)."""
+    import torch
+    from repro_torch.kernels import frontier
+
+    n, offsets, indices = graph.n_nodes, graph.offsets, graph.indices
+    degrees = graph.degrees
+    cases = [("all-true", 0, torch.ones(n, dtype=torch.bool,
+                                        device=graph.device))]
+    cases += [("mg", it, c) for it, c in enumerate(masks)]
+    cases += [("gated", it, c) for it, c in enumerate(gated_masks)]
+    rows = []
+    for run, it, changed in cases:
+        got = frontier.frontier_marks(changed, offsets, indices)
+        want = frontier.frontier_marks_plain(changed, offsets, indices)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 4: FM differs from its plain "
+                                 f"version on the {run} run's iteration "
+                                 f"{it} mask")
+        del got, want
+        if run == "gated":
+            continue
+        n_changed = int(changed.sum())
+        slots = int(degrees[changed].sum())
+        n_bytes = 2 * n + min(32 * n_changed, 4 * (n + 1)) + 4 * slots
+        bound, _ = _bound_ms(n_bytes, 0)
+        ms = _time_ms(lambda c=changed: frontier.frontier_marks(
+            c, offsets, indices), warmup=3, reps=20)
+        plain_ms = _time_ms(lambda c=changed: frontier.frontier_marks_plain(
+            c, offsets, indices), warmup=1, reps=3)
+        rows.append({"run": run, "iteration": it, "changed": n_changed,
+                     "slots": slots, "ms": ms, "plain_ms": plain_ms,
+                     "bytes": n_bytes, "bound_ms": bound})
+        print(f"{tag} phase 4: FM, {run} mask {it}: {n_changed} of {n} "
+              f"vertices changed, {slots} slots; exact match to plain; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, {n_bytes} B, "
+              f"bound {bound:.4f} ms (bytes at 3.35 TB/s), {bound / ms:.1%} "
+              f"of bound", flush=True)
+    main = [r for r in rows if r["run"] == "mg"]
+    stats = {key: sum(r[key] for r in main) / len(main)
+             for key in ("ms", "plain_ms", "bound_ms", "bytes")}
+    stats.update(ops=0, bound_by="bytes", max_abs_err=0.0, masks=rows,
+                 gated_masks_checked=len(gated_masks),
+                 parity="exact (torch.equal) vs plain torch on the card, "
+                        "on every iteration's changed mask of the mg and "
+                        "the dense gated run and on an all-true one",
+                 ms_is="one main-path iteration (the mean over the mg "
+                       "run's iterations, one launch each)")
+    print(f"{tag} phase 4: FM on every mask of the mg run ({len(main)}) "
+          f"and of the dense gated run ({len(gated_masks)}) and on an "
+          f"all-true one equals its plain version; mean a mg iteration: "
+          f"kernel {stats['ms']:.4f} ms, plain {stats['plain_ms']:.3f} ms, "
+          f"bound {stats['bound_ms']:.4f} ms, {stats['bound_ms'] / stats['ms']:.1%} "
+          f"of bound", flush=True)
+    return stats
+
+
 def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
-              fused, quality_of=None) -> dict:
+              fused, quality_of=None, keep_changed=False) -> dict:
     """One path's whole ``lpa()`` run on the main graph with its launch
     counts (set to 0 just before, read just after), peak device memory,
     quality, and the seconds per iteration of a replay of the run's
@@ -1210,7 +1286,9 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
     replay must reproduce the run's labels. ``quality_of``: an earlier
     run's ``(labels, report)``; when this run's labels equal those, its
     modularity and NMI are that run's (the same functions of the same
-    labels) and are not computed again."""
+    labels) and are not computed again. ``keep_changed``: the replay's
+    ``changed`` mask of every iteration, the card tensors ``lpa()`` hands
+    ``mark_frontier``, under ``"changed_masks"``."""
     import numpy as np
     import torch
     from repro_torch.core.lpa import mark_frontier
@@ -1250,7 +1328,7 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
     frontier = torch.ones(graph.n_nodes, dtype=torch.bool,
                           device=graph.device)
     cap_rows = ws.bundle.cap_rows()
-    events, fit_ms = [], []
+    events, fit_ms, masks = [], [], []
     torch.cuda.synchronize()
     torch.cuda._sleep(QUEUE_WAIT_CYCLES)
     for it in range(res.iterations):
@@ -1272,6 +1350,8 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
             cap_rows=cap_rows)
         end.record()
         events.append((start, end))
+        if keep_changed:
+            masks.append(changed.clone())
         if cfg.frontier_gate:
             marked = mark_frontier(ws, changed)
             frontier = (frontier | marked) if pl else marked
@@ -1279,7 +1359,8 @@ def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
     if not torch.equal(cur, labels):
         raise AssertionError(f"{cfg.method}: the timed replay diverged "
                              f"from lpa()")
-    return {"result": res, "iterations": res.iterations,
+    out = {"changed_masks": masks} if keep_changed else {}
+    return out | {"result": res, "iterations": res.iterations,
             "work_rows_history": res.work_rows_history, "fit_ms": fit_ms,
             "converged": res.converged,
             "changed_history": res.changed_history, "modularity": q,
@@ -2053,7 +2134,8 @@ def _gnn_partition(g, lpa_cfg, tag: str, phase: str = "7b") -> dict:
     fplan = build_workspace(g, lpa_cfg).fused_plan
     n_rounds = fplan.n_rounds
     iters = launches.get("fused_select", 0)
-    want = {"fused_fold": (n_rounds - 1) * iters, "fused_select": iters}
+    want = {"fused_fold": (n_rounds - 1) * iters, "fused_select": iters,
+            "frontier_marks": iters}
     if not 0 < iters <= lpa_cfg.max_iters or launches != want:
         raise AssertionError(f"phase {phase}, lpa_partition: launches "
                              f"{launches}, the plan's {n_rounds} rounds x "
@@ -2066,10 +2148,12 @@ def _gnn_partition(g, lpa_cfg, tag: str, phase: str = "7b") -> dict:
     plain = lpa_partition(g, 4, dataclasses.replace(lpa_cfg,
                                                     fold_backend="jnp"))
     plain_s = time.perf_counter() - t0
-    plain_launches = {key: n for key, n in LAUNCH_COUNTS.items() if n}
+    # the plain engine folds in torch; only the frontier marks launch
+    plain_launches = {key: n for key, n in LAUNCH_COUNTS.items()
+                      if n and key != "frontier_marks"}
     if plain_launches:
-        raise AssertionError(f"phase {phase}, lpa_partition on jnp: a kernel "
-                             f"ran: {plain_launches}")
+        raise AssertionError(f"phase {phase}, lpa_partition on jnp: a fold "
+                             f"kernel ran: {plain_launches}")
     if (part.n_communities != plain.n_communities
             or part.edge_cut != plain.edge_cut
             or not np.array_equal(part.order, plain.order)
@@ -4832,10 +4916,13 @@ def main(argv=None) -> int:
     fused_res = {}
     for path, pcfg in paths.items():
         out = _run_path(graph, truth, ws, pcfg, lpa, lpa_move, modularity,
-                        nmi, fused)
+                        nmi, fused, keep_changed=path == "mg")
+        if path == "mg":
+            mg_masks = out.pop("changed_masks")
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
         want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
+        want["frontier_marks"] = it
         if path == "mg":
             want.update(fused_fold=it * (n_rounds - 1), fused_select=it)
         elif path == "bm":
@@ -4907,6 +4994,7 @@ def main(argv=None) -> int:
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
         want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
+        want["frontier_marks"] = it
         if fpath == "mg":
             want.update(stream_fold=it * (s_rounds - 1), stream_select=it)
         elif fpath == "bm":
@@ -4946,6 +5034,7 @@ def main(argv=None) -> int:
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
         want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
+        want["frontier_marks"] = it
         if fpath == "bm":
             want.update(tile_bm_fold=it * plan_round0_dispatches(bplan))
         else:
@@ -4988,10 +5077,14 @@ def main(argv=None) -> int:
         out = _run_path(graph, truth, gws, gcfg, lpa, lpa_move, modularity,
                         nmi, fused, quality_of=None if gated_dense is None
                         else (gated_dense.labels,
-                              report["main"]["gated_fused_dense"]))
+                              report["main"]["gated_fused_dense"]),
+                        keep_changed=gated_dense is None)
+        if gated_dense is None:
+            gated_masks = out.pop("changed_masks")
         res, launches = out.pop("result"), out["launches"]
         it = res.iterations
         want = dict.fromkeys(fused.LAUNCH_COUNTS, 0)
+        want["frontier_marks"] = it
         if gws.fused_plan is not None:
             want.update(fused_fold=it * (n_rounds - 1), fused_select=it)
         else:
@@ -5028,18 +5121,28 @@ def main(argv=None) -> int:
               f"resident at the start; launches {launches}", flush=True)
         report["main"][path] = out
     del gated_dense, res
+    # the frontier marks: every launch of the runs above went through the
+    # same kernel as the plain engine's reference runs, so hold it to its
+    # plain version on the masks those runs marked
+    kstats["FM"] = frontier_marks_vs_plain(graph, mg_masks, gated_masks, tag)
+    del mg_masks, gated_masks
     torch.cuda.empty_cache()
     # exact LPA: plain torch (no kernel); its group sums first, on the
     # 2^16 graph with non-integer weights, against the CPU's bits
     report["exact_check"] = _exact_vs_cpu(g16, truth16, tag)
-    out = _run_path(graph, truth, ws_plain,
+    # the exact fold groups by the edge sources, which a workspace holds
+    # for the exact method alone
+    ws_exact = dataclasses.replace(ws_plain, edge_src=graph.sources())
+    out = _run_path(graph, truth, ws_exact,
                     dataclasses.replace(cfg, method="exact",
                                         fold_backend="jnp"),
                     lpa, lpa_move, modularity, nmi, fused)
     res = out.pop("result")
-    if any(out["launches"].values()):
-        raise AssertionError(f"phase 4, exact: a kernel ran: "
-                             f"{out['launches']}")
+    # exact folds in plain torch; only the frontier marks launch
+    if ({key: n for key, n in out["launches"].items() if n}
+            != {"frontier_marks": res.iterations}):
+        raise AssertionError(f"phase 4, exact: launches {out['launches']}, "
+                             f"want one frontier_marks an iteration")
     print(f"{tag} phase 4: 2^{SCALE} vertices, exact: {res.iterations} "
           f"iterations (converged {res.converged}), changed_history "
           f"{res.changed_history}; modularity {out['modularity']:.6f}, NMI "
@@ -5052,12 +5155,12 @@ def main(argv=None) -> int:
     report["main"]["exact"] = out
     final_labels["exact"] = res.labels
     del res
-    # the same four runs without frontier tracking (mark_frontier's
-    # O(|E|) temporaries are then out of the peak); same labels
+    # the same four runs without frontier tracking (no frontier marks);
+    # same labels
     paths["exact"] = dataclasses.replace(cfg, method="exact",
                                          fold_backend="jnp")
     for path, pcfg in paths.items():
-        pws = ws_plain if path == "exact" else ws
+        pws = ws_exact if path == "exact" else ws
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         resident = torch.cuda.memory_allocated()
@@ -5104,8 +5207,8 @@ def main(argv=None) -> int:
                         report["main"][path]["iterations"])
                  for path in DIST_METHODS}
     # the ranks hold their own blocks: free this process's plans first
-    del (ws, stream_ws, ws_pallas, ws_plain, fplan, bplan, final_labels,
-         sws, splan, gws, gated_paths, pws)
+    del (ws, stream_ws, ws_pallas, ws_plain, ws_exact, fplan, bplan,
+         final_labels, sws, splan, gws, gated_paths, pws)
     torch.cuda.empty_cache()
     report["distributed"] = _distributed(g16, graph, main_refs, tag)
     del g16
@@ -5236,7 +5339,11 @@ def main(argv=None) -> int:
              by_path("tile_mg_fold", ("pallas_mg", "pallas_rescan"))),
             ("K10", "mg_tile_bm_fold", "mg_tile",
              "src/repro/kernels/mg_sketch/mg_sketch.py:61", "pallas_bm",
-             by_path("tile_bm_fold", ("pallas_bm",))))
+             by_path("tile_bm_fold", ("pallas_bm",))),
+            ("FM", "frontier_marks", "frontier_marks",
+             "no Pallas kernel: the reference's jax.ops.segment_max "
+             "(src/repro/core/lpa.py:234)", "mg",
+             by_path("frontier_marks", tuple(main))))
     kernels = []
     for key, name, lib, replaces, main_path, launches_by_path in rows:
         st = kstats[key]
@@ -5253,9 +5360,11 @@ def main(argv=None) -> int:
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
             "launches_by_path": launches_by_path,
-            "parity": "exact (torch.equal; float32 as int32 bits) vs "
-                      "plain torch on the card",
-            "ms_is": "one main-path iteration (sum over its launches)",
+            "parity": st.get("parity", "exact (torch.equal; float32 as "
+                                       "int32 bits) vs plain torch on the "
+                                       "card"),
+            "ms_is": st.get("ms_is", "one main-path iteration (sum over "
+                                     "its launches)"),
             "dist_launches_are": f"summed over the {DIST_RANKS} ranks"})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -17,18 +17,19 @@ fold. Both give the same labels.
 One νMG iteration on ``fold_backend="pallas_fused"`` is: the
 neighbour-label gather; one K1 launch per fold round but the last; one K2
 launch that folds the last round and selects; the Pick-Less/move mask;
-the changed count and the frontier marks. ``rescan=True`` folds every
-round with K1 and re-scores the candidates with one K4 launch;
-``method="bm"`` folds round 0 with one K3 launch. On
+the changed count and the frontier marks (one ``frontier_marks`` launch,
+on every backend). ``rescan=True`` folds every round with K1 and
+re-scores the candidates with one K4 launch; ``method="bm"`` folds round
+0 with one K3 launch. On
 ``fold_backend="pallas_stream"`` (and on ``"auto"`` past the budget) the
 same iterations run K5/K6, K5 + K8 and K7 over the windowed plan; with
 ``aligned_layout=True`` the neighbour-label gather writes round 0's
 windows directly. On ``fold_backend="pallas"`` each bucket of the
 bucketed plan is gathered into a padded tile and folded by one K9 launch
 (MG; K10 for BM's round 0). The gathers, scatters, merges and masks are
-plain torch; the folds are the CUDA kernels. ``method="exact"`` and
-``mg_variant="exact_weighted"`` (honoured on ``jnp`` only, as in the
-reference) are plain torch.
+plain torch; the folds and the marks are the CUDA kernels.
+``method="exact"`` and ``mg_variant="exact_weighted"`` (honoured on
+``jnp`` only, as in the reference) fold in plain torch.
 
 ``LPAConfig`` keeps every field of the reference, so a config carries
 across and means the same thing in both packages.
@@ -47,6 +48,7 @@ from repro_torch.core.fold_program import FoldRequest
 from repro_torch.core.plan_bundle import PlanBundle, build_plan_bundle, spec_for
 from repro_torch.device import check_same_device, resolve_device
 from repro_torch.graphs.csr import CSRGraph
+from repro_torch.kernels.frontier import frontier_marks
 from repro_torch.trace import Detection, host_read, span
 
 Method = Literal["exact", "mg", "bm"]
@@ -85,11 +87,14 @@ class LPAConfig:
 
 @dataclasses.dataclass
 class LPAWorkspace:
-    """Graph + its plan bundle + CSR-expanded edge sources."""
+    """Graph + its plan bundle + CSR-expanded edge sources (exact only)."""
 
     graph: CSRGraph          # the CSR graph the plans were built from
     bundle: PlanBundle       # fold plans + resolved PlanSpec
-    edge_src: torch.Tensor   # [M] int32 CSR-expanded edge source vertices
+    #: [M] int32 CSR-expanded edge source vertices, built for
+    #: ``method="exact"`` alone (``exact_choose`` groups by them); None
+    #: otherwise
+    edge_src: Optional[torch.Tensor]
 
     @property
     def plan(self):
@@ -106,10 +111,12 @@ class LPAWorkspace:
 
 def build_workspace(graph: CSRGraph, config: LPAConfig) -> LPAWorkspace:
     """Spec the config, build the bundle on the graph's device, attach the
-    driver's edge-source expansion."""
+    edge-source expansion when the exact method will read it (the frontier
+    marks read the CSR rows themselves)."""
     return LPAWorkspace(graph=graph,
                         bundle=build_plan_bundle(graph, spec_for(config)),
-                        edge_src=graph.sources())
+                        edge_src=(graph.sources() if config.method == "exact"
+                                  else None))
 
 
 def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
@@ -143,6 +150,10 @@ def lpa_move(ws: LPAWorkspace, labels: torch.Tensor, pick_less: bool,
         aligned = bool(engine.uses_stream_plan and aux is not None
                        and aux.aligned)
         if config.method == "exact":
+            if ws.edge_src is None:
+                raise ValueError("method='exact' reads the workspace's "
+                                 "edge_src: build the workspace with "
+                                 "method='exact'")
             with span("gather"):
                 nbr_labels = torch.index_select(labels, 0, graph.indices)
             with span("fold"):
@@ -186,16 +197,13 @@ def mark_frontier(ws: LPAWorkspace, changed: torch.Tensor) -> torch.Tensor:
     """Mark neighbors of changed vertices as unprocessed (paper Alg. 1 l. 31).
 
     After an iteration, exactly the neighbors of vertices that changed
-    label are 'in the queue' for the next one. The per-destination max is
-    a ``scatter_reduce`` of ints, which is exact in any order.
+    label are 'in the queue' for the next one: the reference's
+    ``segment_max(changed[edge_src], indices) > 0``, computed from the CSR
+    rows by ``kernels.frontier.frontier_marks`` (one CUDA kernel on the
+    card, its plain version on the CPU).
     """
-    n = ws.graph.n_nodes
     with span("marks"):
-        src_changed = changed[ws.edge_src].to(torch.int32)
-        marked = torch.zeros(n, dtype=torch.int32, device=changed.device)
-        marked.scatter_reduce_(0, ws.graph.indices.long(), src_changed,
-                               "amax")
-        return marked > 0
+        return frontier_marks(changed, ws.graph.offsets, ws.graph.indices)
 
 
 def _mean_f32(mask: torch.Tensor) -> float:

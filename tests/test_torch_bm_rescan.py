@@ -303,7 +303,7 @@ def test_round_wrappers_check_inputs_and_count_no_cpu_launch():
                                          "bm_fold", "rescan", "stream_fold",
                                          "stream_select", "stream_bm",
                                          "stream_rescan", "tile_mg_fold",
-                                         "tile_bm_fold"}
+                                         "tile_bm_fold", "frontier_marks"}
     assert not any(tfused.LAUNCH_COUNTS.values())
 
 

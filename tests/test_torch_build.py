@@ -32,19 +32,23 @@ def test_digest_changes_with_the_source_and_the_flags(tmp_path,
 
 
 def test_both_kernel_sources_share_the_row_header():
-    """Every kernel library (the fused K1–K4, the streamed K5–K8 and the
-    per-bucket tile K9/K10) includes the one row header, and each has a
-    build key of its own."""
+    """Every sketch kernel library (the fused K1–K4, the streamed K5–K8
+    and the per-bucket tile K9/K10) includes the one row header; the
+    frontier marks, which fold nothing, do not. Each library has a build
+    key of its own."""
     csrc = build._CSRC
     header = (csrc / "sketch_rows.cuh").read_text()
     assert "mg_fold_row" in header and "bm_fold_row" in header
     names = ("mg_fused", "mg_stream", "mg_tile")
-    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(names)
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(
+        names + ("frontier_marks",))
     for name in names:
         source = (csrc / f"{name}.cu").read_text()
         assert '#include "sketch_rows.cuh"' in source
+    assert '#include "sketch_rows.cuh"' not in (
+        csrc / "frontier_marks.cu").read_text()
     assert len({build.source_digest(csrc / f"{name}.cu")
-                for name in names}) == len(names)
+                for name in names + ("frontier_marks",)}) == len(names) + 1
 
 
 def test_tile_kernel_digest_covers_its_source_and_the_row_header(tmp_path):

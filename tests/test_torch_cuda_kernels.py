@@ -577,6 +577,7 @@ def test_stream_paths_match_reference_engine_on_the_card(cuda, method,
             want.update(stream_fold=n_rounds * it, stream_rescan=it)
         else:
             want.update(stream_fold=(n_rounds - 1) * it, stream_select=it)
+    want["frontier_marks"] = it  # one an iteration (track_frontier)
     assert streaming.LAUNCH_COUNTS == want
 
 
@@ -645,7 +646,8 @@ def test_pallas_paths_match_reference_engine_on_the_card(cuda, method,
                                                          rescan):
     """The per-bucket engine on the card: the plain engine's run, with one
     K9 launch per bucket per round (mg, rescan) or one K10 launch per
-    round-0 bucket (bm) per iteration, and no other kernel."""
+    round-0 bucket (bm) per iteration, one frontier_marks launch per
+    iteration, and no other kernel."""
     g, _ = tgen.powerlaw_communities(4096, p_in=0.5, mix=0.02, seed=1,
                                      device=cuda)
     cfg = dict(method=method, rescan=rescan, rho=2, chunk=16)
@@ -662,6 +664,7 @@ def test_pallas_paths_match_reference_engine_on_the_card(cuda, method,
         want["tile_bm_fold"] = got.iterations * plan_round0_dispatches(plan)
     else:
         want["tile_mg_fold"] = got.iterations * plan_dispatches(plan)
+    want["frontier_marks"] = got.iterations  # one an iteration
     assert launches.LAUNCH_COUNTS == want
 
 

@@ -150,7 +150,8 @@ def test_wrappers_check_their_inputs():
                                     "bm_fold": 0, "rescan": 0,
                                     "stream_fold": 0, "stream_select": 0,
                                     "stream_bm": 0, "stream_rescan": 0,
-                                    "tile_mg_fold": 0, "tile_bm_fold": 0}
+                                    "tile_mg_fold": 0, "tile_bm_fold": 0,
+                                    "frontier_marks": 0}
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas_fused"])

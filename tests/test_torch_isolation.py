@@ -60,6 +60,7 @@ def test_no_jax_or_repro_import_in_the_port():
 def test_import_leaves_jax_unloaded():
     # the kernel module first: it must import without a cycle on its own
     code = ("import sys, repro_torch.kernels.mg_sketch.fused, "
+            "repro_torch.kernels.frontier, "
             "repro_torch.kernels.mg_sketch.streaming, "
             "repro_torch.kernels.mg_sketch.ops, "
             "repro_torch.kernels.mg_sketch.mg_sketch, "
