@@ -94,6 +94,15 @@ Phases:
      run (and an all-true one), each mg mask timed beside its bytes;
      exact LPA's group sums held to the CPU's on non-integer weights;
      the peak memories side by side;
+  4w. the int64 instantiations (a graph whose offsets are int64: past
+     2**31 - 1 slots): K1-K4 with int64 starts on rows that start on
+     both sides of 2**31 (one straddles it) in entry arrays of 2**31 +
+     2**20 entries, and FM with int64 offsets over them, each equal to
+     its plain version; ``lpa()`` with int64 offsets on the main graph
+     (mg, bm, rescan, gated sparse) and on a 2048 x 2048 grid (mg, one
+     round: K2 wide), each equal to the int32 run (labels, histories,
+     launch counts), with its launches counted by width; the wide
+     kernels timed and held to plain as in phases 2 and 4;
   5. the runtime contracts and the partitioner: on the 2^16 graph, mg
      and bm on every engine replayed through ``get_engine(...,
      checked=True)`` beside the bare engine (equal wanted labels and
@@ -265,7 +274,8 @@ Phases:
   13. one JSON line describing every kernel (K1 and K2 also list the
      partitions of phases 7 and 8 as ``gnn_partition`` and
      ``train_partition``; K1 and K9 the cells of phase 10; FM every
-     path's launches).
+     path's launches; K1w-K4w and FMw, the int64 instantiations, phase
+     4w's launches by width).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a
@@ -275,7 +285,9 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -541,7 +553,7 @@ def kernels_vs_plain(graph, plan, tag: str, phase: str = "2",
             s["row_contiguous_round0"] = _row_contiguous(
                 "K1", rnd, main_el, main_ew,
                 lambda rnd, el, ew: fused.fused_fold_round(
-                    rnd, el, ew, k=k, chunk=chunk), ms, tag)
+                    rnd, el, ew, k=k, chunk=chunk), ms, tag, phase)
         if key == "K1":
             out_k, out_v = kernel(main_el, main_ew, None)
             main_el, main_ew = out_k.reshape(-1), out_v.reshape(-1)
@@ -551,7 +563,7 @@ def kernels_vs_plain(graph, plan, tag: str, phase: str = "2",
 
 
 def _row_contiguous(key: str, rnd, el, ew, run, csr_ms: float,
-                    tag: str) -> dict:
+                    tag: str, phase: str = "2") -> dict:
     """Diagnostic: a round-0 kernel (``run(rnd, el, ew)``, K1 or K3) with
     its entries copied into row order, so that consecutive rows read
     consecutive entries (the streamed plan's windows lay them out so; the
@@ -579,10 +591,10 @@ def _row_contiguous(key: str, rnd, el, ew, run, csr_ms: float,
         raise AssertionError(f"{key} on row-contiguous entries changed its "
                              f"output")
     ms = _time_ms(lambda: run(packed, c_el, c_ew), warmup=3, reps=20)
-    print(f"{tag} phase 2: diagnostic: {key} round 0 on a row-contiguous "
-          f"copy of its entries: {ms:.4f} ms, outputs equal; the CSR order "
-          f"costs {csr_ms - ms:.4f} ms ({csr_ms:.4f} ms, {csr_ms / ms:.2f}x "
-          f"the row-contiguous time)", flush=True)
+    print(f"{tag} phase {phase}: diagnostic: {key} round 0 on a "
+          f"row-contiguous copy of its entries: {ms:.4f} ms, outputs "
+          f"equal; the CSR order costs {csr_ms - ms:.4f} ms ({csr_ms:.4f} "
+          f"ms, {csr_ms / ms:.2f}x the row-contiguous time)", flush=True)
     return {"ms": ms, "csr_ms": csr_ms, "csr_order_cost_ms": csr_ms - ms}
 
 
@@ -603,7 +615,7 @@ def _wall_ms(fn, *, reps: int) -> float:
     return statistics.median(times)
 
 
-def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
+def bm_rescan_vs_plain(graph, plan, tag: str, phase: str = "2") -> dict:
     """Phase 2 for K3 (BM fold) and K4 (rescan), both on round 0 of the
     main plan, each held to exact equality with its plain version on two
     inputs: random entries from a small label alphabet with random
@@ -611,7 +623,8 @@ def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
     candidates and weights some of which are <= 0 (K4); and the main
     path's first iteration (labels = vertex ids; K3 from the incumbent
     inits, K4 from that iteration's MG candidates). Times as in
-    ``kernels_vs_plain``, and the rescan merge's on the main graph."""
+    ``kernels_vs_plain``, and the rescan merge's on the main graph
+    (``phase`` names the phase in the printed lines)."""
     import numpy as np
     import torch
     from repro_torch.core import sketch
@@ -688,7 +701,7 @@ def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
                       "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
                       "ops": n_ops, "max_abs_err": err, "rows": rows,
                       "entries": entries}
-        print(f"{tag} phase 2: {key} round 0: rows {rows}, entries "
+        print(f"{tag} phase {phase}: {key} round 0: rows {rows}, entries "
               f"{entries}, exact match to plain on random and main-path "
               f"inputs; kernel {ms:.4f} ms on the main path's inputs "
               f"({random_ms:.4f} ms on random ones), plain {plain_ms:.3f} "
@@ -698,7 +711,7 @@ def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
             stats[key]["row_contiguous"] = _row_contiguous(
                 "K3", rnd, main_el, main_ew,
                 lambda rnd, el, ew: fused.bm_fold_round_fused(
-                    rnd, el, ew, main_init, chunk=chunk), ms, tag)
+                    rnd, el, ew, main_init, chunk=chunk), ms, tag, phase)
         if key == "K4":
             parts = kernel(*main_in)
         torch.cuda.empty_cache()
@@ -707,9 +720,9 @@ def bm_rescan_vs_plain(graph, plan, tag: str) -> dict:
     stats["merge"] = {"ms": merge_ms, "max_rows0": plan.max_rows0,
                       "vertices_past_rank_chunk": int(torch.unique(
                           rtv0[plan.row_rank0 >= sketch._RANK_CHUNK]).numel())}
-    print(f"{tag} phase 2: rescan merge (merge_rescan_partials) on the main "
-          f"graph's first-iteration partials: {merge_ms:.3f} ms (host wall, "
-          f"synchronised), max_rows0 {plan.max_rows0}, "
+    print(f"{tag} phase {phase}: rescan merge (merge_rescan_partials) on "
+          f"the main graph's first-iteration partials: {merge_ms:.3f} ms "
+          f"(host wall, synchronised), max_rows0 {plan.max_rows0}, "
           f"{stats['merge']['vertices_past_rank_chunk']} vertices with more "
           f"than {sketch._RANK_CHUNK} rows", flush=True)
     return stats
@@ -1197,13 +1210,15 @@ def _gated_parity(graph, gcfg, build_workspace, lpa, lpa_move,
     return out
 
 
-def _phase_took(tag: str, phase: int, t0: float, report: dict) -> None:
+def _phase_took(tag: str, phase: int | str, t0: float,
+                report: dict) -> None:
     took = time.perf_counter() - t0
     report.setdefault("phase_s", {})[str(phase)] = took
     print(f"{tag} phase {phase} took {took:.1f} s", flush=True)
 
 
-def frontier_marks_vs_plain(graph, masks, gated_masks, tag: str) -> dict:
+def frontier_marks_vs_plain(graph, masks, gated_masks, tag: str,
+                            phase: str = "4") -> dict:
     """Phase 4: the frontier marks (FM, ``kernels.frontier``) held to
     their plain version, bit for bit, on the main graph: on an all-true
     ``changed`` and on every iteration's ``changed`` of the main mg run
@@ -1215,7 +1230,8 @@ def frontier_marks_vs_plain(graph, masks, gated_masks, tag: str) -> dict:
     each), one 32 B sector of ``offsets`` a changed vertex (at most all
     of ``offsets``) and the changed rows' ``indices`` (4 B a slot).
     ``ms``, ``plain_ms``, ``bound_ms`` and ``bytes`` are means over the
-    mg run's iterations (one launch each)."""
+    mg run's iterations (one launch each). ``phase`` names the phase in
+    the printed lines."""
     import torch
     from repro_torch.kernels import frontier
 
@@ -1230,7 +1246,7 @@ def frontier_marks_vs_plain(graph, masks, gated_masks, tag: str) -> dict:
         got = frontier.frontier_marks(changed, offsets, indices)
         want = frontier.frontier_marks_plain(changed, offsets, indices)
         if not torch.equal(got, want):
-            raise AssertionError(f"phase 4: FM differs from its plain "
+            raise AssertionError(f"phase {phase}: FM differs from its plain "
                                  f"version on the {run} run's iteration "
                                  f"{it} mask")
         del got, want
@@ -1247,7 +1263,7 @@ def frontier_marks_vs_plain(graph, masks, gated_masks, tag: str) -> dict:
         rows.append({"run": run, "iteration": it, "changed": n_changed,
                      "slots": slots, "ms": ms, "plain_ms": plain_ms,
                      "bytes": n_bytes, "bound_ms": bound})
-        print(f"{tag} phase 4: FM, {run} mask {it}: {n_changed} of {n} "
+        print(f"{tag} phase {phase}: FM, {run} mask {it}: {n_changed} of {n} "
               f"vertices changed, {slots} slots; exact match to plain; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, {n_bytes} B, "
               f"bound {bound:.4f} ms (bytes at 3.35 TB/s), {bound / ms:.1%} "
@@ -1262,13 +1278,343 @@ def frontier_marks_vs_plain(graph, masks, gated_masks, tag: str) -> dict:
                         "the dense gated run and on an all-true one",
                  ms_is="one main-path iteration (the mean over the mg "
                        "run's iterations, one launch each)")
-    print(f"{tag} phase 4: FM on every mask of the mg run ({len(main)}) "
+    print(f"{tag} phase {phase}: FM on every mask of the mg run ({len(main)}) "
           f"and of the dense gated run ({len(gated_masks)}) and on an "
           f"all-true one equals its plain version; mean a mg iteration: "
           f"kernel {stats['ms']:.4f} ms, plain {stats['plain_ms']:.3f} ms, "
           f"bound {stats['bound_ms']:.4f} ms, {stats['bound_ms'] / stats['ms']:.1%} "
           f"of bound", flush=True)
     return stats
+
+
+#: entries of the wide phase's entry arrays: rows start on both sides of
+#: 2**31, one straddles it
+WIDE_ENTRIES = 2**31 + 2**20
+#: the kernel launchers whose launches the wide phase counts by width, and
+#: the position of the width argument (bytes of a row start or offset)
+WIDTH_ARG = {"mg_fused_fold": 1, "mg_fused_select": 1,
+             "mg_fused_bm_fold": 1, "mg_fused_rescan": 1,
+             "frontier_marks": 2}
+
+
+class _WidthCounted:
+    """A kernel library whose launchers of :data:`WIDTH_ARG` also count
+    their launches into ``counts[name, width in bytes]``."""
+
+    def __init__(self, lib, counts):
+        self._lib, self._counts = lib, counts
+
+    def __getattr__(self, name):
+        launcher = getattr(self._lib, name)
+        at = WIDTH_ARG.get(name)
+        if at is None:
+            return launcher
+
+        def launch(*args):
+            self._counts[name, args[at]] += 1
+            return launcher(*args)
+        return launch
+
+
+@contextlib.contextmanager
+def _launches_by_width():
+    """Inside: the fused kernels and the frontier marks count their
+    launches by the width of their row starts or offsets, in the Counter
+    this yields."""
+    from repro_torch.kernels import frontier
+    from repro_torch.kernels.mg_sketch import fused
+    counts = collections.Counter()
+    real = {mod: mod._library for mod in (fused, frontier)}
+    try:
+        for mod, load in real.items():
+            mod._library = functools.partial(_WidthCounted, load(), counts)
+        yield counts
+    finally:
+        for mod, load in real.items():
+            mod._library = load
+
+
+def _wide_rounds(k: int, chunk: int):
+    """Entry arrays of :data:`WIDE_ENTRIES` entries and a round-0 round
+    over them whose rows start on both sides of 2**31, one straddling it:
+    vertex 0 holds the first ``base`` slots (never read), then rows of 1
+    to 128 entries and one long row. Returns ``(el, ew, base, sub,
+    shifted, offsets, degrees)``: ``sub`` launches the rows at or past
+    ``base`` with int64 starts, ``shifted`` is the same rows with int32
+    starts into the entries from ``base`` on."""
+    import numpy as np
+    import torch
+    from repro_torch.graphs.csr import FusedRound, build_fused_fold_plan
+
+    dev = torch.device("cuda")
+    m, wide = WIDE_ENTRIES, 2**31
+    base = wide - 1 - 3000  # the region the rows read: [base, m)
+    el = torch.empty(m, dtype=torch.int32, device=dev)
+    ew = torch.empty(m, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    el[base:] = torch.randint(0, 64, (m - base,), device=dev, generator=gen,
+                              dtype=torch.int32)
+    ew[base:] = torch.rand(m - base, device=dev, generator=gen) + 2.0**-24
+    rng = np.random.default_rng(4)
+    deg = np.concatenate([[base], rng.integers(1, 129, 6000)])
+    deg[-1] += m - int(deg.sum())
+    plan = build_fused_fold_plan(deg, k=k, chunk=chunk, tile_r=128,
+                                 device=dev)
+    rnd = plan.rounds[0]
+    if rnd.row_start.dtype != torch.int64:
+        raise AssertionError(f"phase 4w: round 0 of a {m}-slot plan has "
+                             f"{rnd.row_start.dtype} starts")
+    idx = torch.nonzero(rnd.row_start.reshape(-1) >= base).squeeze(1)
+    idx = idx[:idx.numel() - idx.numel() % 128]
+    starts = rnd.row_start.reshape(-1)[idx].reshape(-1, 128)
+    counts = rnd.row_count.reshape(-1)[idx].reshape(-1, 128)
+    sub = FusedRound(row_start=starts, row_count=counts,
+                     step_dmax=counts.max(dim=1, keepdim=True).values,
+                     n_entries_in=m)
+    shifted = dataclasses.replace(sub, row_start=(starts - base).to(
+        torch.int32), n_entries_in=m - base)
+    ends = starts + counts
+    if not bool(((starts < wide) & (ends > wide)).any()) \
+            or int(starts.max()) < wide:
+        raise AssertionError("phase 4w: no row straddles 2**31 or starts "
+                             "past it")
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(deg)]),
+                              device=dev)
+    return el, ew, base, sub, shifted, offsets, deg
+
+
+def _past_2_31_vs_plain(tag: str) -> dict:
+    """Phase 4w (a): K1-K4 with int64 row starts on rows that start on
+    both sides of 2**31 (one straddles it) in entry arrays of
+    :data:`WIDE_ENTRIES` entries, each equal bit for bit to its plain
+    version run on the same entries through int32 starts moved down by
+    ``base``; the frontier marks with int64 offsets over the same entries
+    as neighbour ids, equal to the plain marks of the same rows moved
+    down (vertex 0, whose row is the unread slots, unchanged)."""
+    import torch
+    from repro_torch.kernels import frontier
+    from repro_torch.kernels.mg_sketch import fused
+
+    k, chunk = 8, 128
+    el, ew, base, sub, shifted, offsets, deg = _wide_rounds(k, chunk)
+    p_el, p_ew = el[base:], ew[base:]
+    rows = sub.row_start.numel()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    inc = torch.randint(0, 64, (rows,), generator=gen,
+                        dtype=torch.int32).cuda()
+    cand = torch.randint(-1, 64, (rows, k), generator=gen,
+                         dtype=torch.int32).cuda()
+    pairs = {
+        "K1": (fused.fused_fold_round(sub, el, ew, k=k, chunk=chunk),
+               fused.fused_fold_round_plain(shifted, p_el, p_ew, k=k,
+                                            chunk=chunk)),
+        "K2": ((fused.fused_select_round(sub, el, ew, inc, 5, k=k,
+                                         chunk=chunk),),
+               (fused.fused_select_round_plain(shifted, p_el, p_ew, inc, 5,
+                                               k=k, chunk=chunk),)),
+        "K3": (fused.bm_fold_round_fused(sub, el, ew, inc, chunk=chunk),
+               fused.bm_fold_round_plain(shifted, p_el, p_ew, inc,
+                                         chunk=chunk)),
+        "K4": ((fused.rescan_round_fused(sub, el, ew, cand, k=k,
+                                         chunk=chunk),),
+               (fused.rescan_round_plain(shifted, p_el, p_ew, cand,
+                                         chunk=chunk),))}
+    for key, (got, want) in pairs.items():
+        if not all(_same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase 4w: {key} with int64 starts past "
+                                 f"2**31 differs from its plain version")
+    del pairs
+    n = deg.size
+    changed = torch.rand(n, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(5)) < 0.5
+    changed[0] = False
+    got = frontier.frontier_marks(changed, offsets, el)
+    want = frontier.frontier_marks_plain(
+        changed[1:], (offsets[1:] - base).to(torch.int32), p_el)
+    if not (torch.equal(got[:-1], want) and not bool(got[-1])):
+        raise AssertionError("phase 4w: FM with int64 offsets past 2**31 "
+                             "differs from its plain version")
+    straddle = int(((sub.row_start < 2**31)
+                    & (sub.row_start + sub.row_count > 2**31)).sum())
+    out = {"entries": WIDE_ENTRIES, "rows": rows,
+           "first_start": int(sub.row_start.min()),
+           "last_start": int(sub.row_start.max()),
+           "rows_straddling_2_31": straddle,
+           "fm_vertices": n, "fm_changed": int(changed.sum()),
+           "fm_marked": int(got.sum())}
+    print(f"{tag} phase 4w: {WIDE_ENTRIES} entries: K1, K2, K3 and K4 with "
+          f"int64 starts on {rows} rows starting at {out['first_start']} to "
+          f"{out['last_start']} ({straddle} straddling 2**31) equal their "
+          f"plain versions on the same entries, bit for bit; FM with int64 "
+          f"offsets over the {n} vertices ({out['fm_changed']} changed, "
+          f"{out['fm_marked']} marked) equals the plain marks", flush=True)
+    del el, ew, sub, shifted, p_el, p_ew, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wide_runs(graph, configs: dict, want: dict, tag: str,
+               where: str) -> tuple[dict, dict]:
+    """``lpa()`` of each config on ``graph`` with int32 offsets and on the
+    same graph with int64 offsets, each on a workspace of its own: the
+    wide run's labels and histories must equal the narrow run's
+    (a sparse run's: the dense gated run's, but for its work rows), its
+    launch counts (set to 0 just before) the narrow run's, and its
+    launches by width ``want[path](iterations)``. Returns the wide runs
+    and their launch counts by width, by path."""
+    import torch
+    from repro_torch.core.lpa import build_workspace, lpa
+    from repro_torch.kernels.mg_sketch import fused
+
+    g64 = dataclasses.replace(graph, offsets=graph.offsets.to(torch.int64))
+    results, widths = {}, {}
+    for path, pcfg in configs.items():
+        ws32, ws64 = build_workspace(graph, pcfg), build_workspace(g64, pcfg)
+        plan = ws64.fused_plan
+        if plan.rounds[0].row_start.dtype != torch.int64 or any(
+                r.row_start.dtype != torch.int32 for r in plan.rounds[1:]):
+            raise AssertionError(f"phase 4w, {where}: the wide plan's "
+                                 f"starts are not int64 then int32")
+        ref_cfg = (dataclasses.replace(pcfg, frontier_sparse=False)
+                   if pcfg.frontier_sparse else pcfg)
+        fused.reset_launch_counts()
+        ref = lpa(graph, ref_cfg, ws=ws32)
+        torch.cuda.synchronize()
+        ref_launches = dict(fused.LAUNCH_COUNTS)
+        if pcfg.frontier_sparse:
+            fused.reset_launch_counts()
+            narrow = lpa(graph, pcfg, ws=ws32)
+            torch.cuda.synchronize()
+            ref_launches = dict(fused.LAUNCH_COUNTS)
+        with _launches_by_width() as counts:
+            fused.reset_launch_counts()
+            res = lpa(g64, pcfg, ws=ws64)
+            torch.cuda.synchronize()
+            launches = dict(fused.LAUNCH_COUNTS)
+        fields = ("labels", "iterations", "converged", "changed_history",
+                  "frontier_history")
+        for field in fields:
+            a, b = getattr(ref, field), getattr(res, field)
+            if not (torch.equal(a, b) if field == "labels" else a == b):
+                raise AssertionError(f"phase 4w, {where}, {path}: {field} "
+                                     f"differs from the int32 run")
+        if pcfg.frontier_sparse and \
+                narrow.work_rows_history != res.work_rows_history:
+            raise AssertionError(f"phase 4w, {where}, {path}: work rows "
+                                 f"differ from the int32 sparse run")
+        if launches != ref_launches:
+            raise AssertionError(f"phase 4w, {where}, {path}: launches "
+                                 f"{launches}, the int32 run's "
+                                 f"{ref_launches}")
+        by_width = {f"{name}<{8 * w}>": c for (name, w), c in counts.items()}
+        expected = want[path](res.iterations)
+        if by_width != expected:
+            raise AssertionError(f"phase 4w, {where}, {path}: launches by "
+                                 f"width {by_width}, expected {expected}")
+        results[path], widths[path] = res, by_width
+        nonzero = {key: c for key, c in launches.items() if c}
+        print(f"{tag} phase 4w: {where}, {path} with int64 offsets: "
+              f"{res.iterations} iterations, labels and histories equal to "
+              f"the int32 run's, launches {nonzero} as there; by width "
+              f"{by_width}", flush=True)
+        del ws32, ws64, ref
+        torch.cuda.empty_cache()
+    return results, widths
+
+
+def wide_vs_plain(graph, cfg, tag: str) -> dict:
+    """Phase 4w: the int64 instantiations of K1-K4 and the frontier marks.
+
+    (a) past 2**31 entries (``_past_2_31_vs_plain``); (b) whole ``lpa()``
+    runs with int64 offsets (``_wide_runs``) of mg, bm, the rescan and
+    the gated sparse path on the main graph (K1 round 0, K3 and K4 wide;
+    K1's later rounds and K2 int32) and of mg on a 2048 x 2048 grid, whose
+    plan is one round (K2 wide); (c) the wide kernels timed and held to
+    plain as in phases 2 and 4, on the main graph's plan with int64
+    starts (K1 round 0, K3, K4, FM on the wide mg run's masks) and on the
+    grid's (K2). Returns the kernel stats by key (``K1w`` ... ``FMw``)
+    and each wide run's launches by width under ``"launches"``."""
+    import torch
+    from repro_torch.core.lpa import build_workspace, lpa_move
+    from repro_torch.graphs.generators import grid2d
+
+    out = {"past_2_31": _past_2_31_vs_plain(tag)}
+    n_rounds = build_workspace(graph, cfg).fused_plan.n_rounds
+    fm = "frontier_marks<64>"
+    gated = dataclasses.replace(cfg, frontier_gate=True,
+                                frontier_sparse=True)
+    configs = {"wide_mg": cfg, "wide_bm": dataclasses.replace(
+        cfg, method="bm"), "wide_rescan": dataclasses.replace(
+        cfg, rescan=True), "wide_gated_sparse": gated}
+    want = {
+        "wide_mg": lambda it: {"mg_fused_fold<64>": it,
+                               "mg_fused_fold<32>": it * (n_rounds - 2),
+                               "mg_fused_select<32>": it, fm: it},
+        "wide_bm": lambda it: {"mg_fused_bm_fold<64>": it, fm: it},
+        "wide_rescan": lambda it: {"mg_fused_fold<64>": it,
+                                   "mg_fused_fold<32>": it * (n_rounds - 1),
+                                   "mg_fused_rescan<64>": it, fm: it},
+        # every iteration folds round 0 once, dense or compacted
+        "wide_gated_sparse": lambda it: {
+            "mg_fused_fold<64>": it,
+            "mg_fused_fold<32>": it * (n_rounds - 2),
+            "mg_fused_select<32>": it, fm: it}}
+    if n_rounds < 3:
+        raise AssertionError(f"phase 4w: the main plan has {n_rounds} "
+                             f"rounds; the wide runs need K1 past round 0")
+    runs, launches = _wide_runs(graph, configs, want, tag, f"2^{SCALE}")
+    grid = grid2d(2048, 2048, device=graph.device)
+    grid_runs, grid_launches = _wide_runs(
+        grid, {"wide_grid_mg": cfg},
+        {"wide_grid_mg": lambda it: {"mg_fused_select<64>": it, fm: it}},
+        tag, "2048 x 2048 grid")
+    launches.update(grid_launches)
+    out["launches"] = launches
+    out["iterations"] = {p: r.iterations
+                         for p, r in (runs | grid_runs).items()}
+    # (c) the wide kernels against plain, timed
+    g64 = dataclasses.replace(graph, offsets=graph.offsets.to(torch.int64))
+    ws64 = build_workspace(g64, cfg)
+    k1 = kernels_vs_plain(g64, ws64.fused_plan, tag, phase="4w",
+                          row_contiguous=False)["K1"]
+    r0 = k1["rounds"][0]
+    out["K1w"] = {"ms": r0["ms"], "plain_ms": r0["plain_ms"],
+                  "bound_ms": r0["bound_ms"], "bound_by": k1["bound_by"],
+                  "max_abs_err": 0.0, "rows": r0["rows"],
+                  "entries": r0["entries"],
+                  "ms_is": "round 0 of one main-path iteration, int64 "
+                           "starts (the later rounds are int32: row K1)"}
+    out.update({f"{key}w": st for key, st in bm_rescan_vs_plain(
+        g64, ws64.fused_plan, tag, phase="4w").items() if key != "merge"})
+    g_grid = dataclasses.replace(grid,
+                                 offsets=grid.offsets.to(torch.int64))
+    gplan = build_workspace(g_grid, cfg).fused_plan
+    if gplan.n_rounds != 1:
+        raise AssertionError(f"phase 4w: the grid's plan has "
+                             f"{gplan.n_rounds} rounds")
+    out["K2w"] = kernels_vs_plain(g_grid, gplan, tag, phase="4w",
+                                  row_contiguous=False)["K2"]
+    out["K2w"]["ms_is"] = ("one iteration on the 2048 x 2048 grid (its one "
+                           "round, int64 starts)")
+    # FM with int64 offsets on the wide mg run's changed masks
+    cur = torch.arange(graph.n_nodes, dtype=torch.int32,
+                       device=graph.device)
+    masks = []
+    for it in range(runs["wide_mg"].iterations):
+        cur, changed = lpa_move(ws64, cur, it % cfg.rho == 0, it + 1, cfg)
+        masks.append(changed)
+    if not torch.equal(cur, runs["wide_mg"].labels):
+        raise AssertionError("phase 4w: the wide mg replay diverged")
+    out["FMw"] = frontier_marks_vs_plain(g64, masks, [], tag, phase="4w")
+    for key in ("K1w", "K2w", "K3w", "K4w", "FMw"):
+        out[key]["parity"] = (
+            "exact (torch.equal; float32 as int32 bits) vs plain torch on "
+            "the card, int64 starts or offsets: on the main graph's round "
+            "shapes (K2: the grid's) and on rows past 2**31")
+    del ws64, masks, grid, g_grid, gplan
+    torch.cuda.empty_cache()
+    return out
 
 
 def _run_path(graph, truth, ws, cfg, lpa, lpa_move, modularity, nmi,
@@ -5193,6 +5539,14 @@ def main(argv=None) -> int:
                       for p, m in mem.items() if p != "exact"), flush=True)
     _phase_took(tag, 4, t_phase, report)
 
+    # -- phase 4w: the int64 instantiations ----------------------------------
+    t_phase = time.perf_counter()
+    wide = wide_vs_plain(graph, cfg, tag)
+    report["wide"] = {key: wide.pop(key)
+                      for key in ("past_2_31", "launches", "iterations")}
+    kstats.update(wide)
+    _phase_took(tag, "4w", t_phase, report)
+
     # -- phase 5: the runtime contracts and the partitioner ------------------
     t_phase = time.perf_counter()
     report["checked"] = _checked_runs(g16, tag)
@@ -5344,6 +5698,26 @@ def main(argv=None) -> int:
              "no Pallas kernel: the reference's jax.ops.segment_max "
              "(src/repro/core/lpa.py:234)", "mg",
              by_path("frontier_marks", tuple(main))))
+    # the int64 instantiations, with phase 4w's launches by width
+    wide_launches = report["wide"]["launches"]
+
+    def by_width(name):
+        return {p: c[name] for p, c in wide_launches.items() if name in c}
+    rows += tuple(
+        (key + "w", f"{name}<int64>", lib, replaces, main_path,
+         by_width(f"{name}<64>"))
+        for key, name, lib, replaces, main_path in (
+            ("K1", "mg_fused_fold", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:173", "wide_mg"),
+            ("K2", "mg_fused_select", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:234", "wide_grid_mg"),
+            ("K3", "mg_fused_bm_fold", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:181", "wide_bm"),
+            ("K4", "mg_fused_rescan", "mg_fused",
+             "src/repro/kernels/mg_sketch/fused.py:191", "wide_rescan"),
+            ("FM", "frontier_marks", "frontier_marks",
+             "no Pallas kernel: the reference's jax.ops.segment_max "
+             "(src/repro/core/lpa.py:234)", "wide_mg")))
     kernels = []
     for key, name, lib, replaces, main_path, launches_by_path in rows:
         st = kstats[key]

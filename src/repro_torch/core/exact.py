@@ -12,6 +12,11 @@ Float order. The weight of a (vertex, label) group is the reference's
 is edge order inside a group because the sort is stable. The max/min
 reductions are exact in any order; the group sum is not, so it goes
 through :func:`_group_sums`, whose order is fixed on every device.
+
+Width. The sort by (vertex, label) is PyTorch's stable sort of the [M]
+slots, whose CUDA kernel refuses a dimension of more than 2**31 - 1
+elements; so ``build_workspace`` refuses a graph past that many slots, up
+front, with a ``ValueError``.
 """
 from __future__ import annotations
 

@@ -47,7 +47,7 @@ from repro_torch.core.fold_engine import get_engine
 from repro_torch.core.fold_program import FoldRequest
 from repro_torch.core.plan_bundle import PlanBundle, build_plan_bundle, spec_for
 from repro_torch.device import check_same_device, resolve_device
-from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.csr import CSRGraph, refuse_wide
 from repro_torch.kernels.frontier import frontier_marks
 from repro_torch.trace import Detection, host_read, span
 
@@ -112,7 +112,15 @@ class LPAWorkspace:
 def build_workspace(graph: CSRGraph, config: LPAConfig) -> LPAWorkspace:
     """Spec the config, build the bundle on the graph's device, attach the
     edge-source expansion when the exact method will read it (the frontier
-    marks read the CSR rows themselves)."""
+    marks read the CSR rows themselves).
+
+    The graph's offsets set the width of slot positions (int32, or int64
+    past 2**31 - 1 slots): the fused plan's round-0 starts and the
+    kernels' instantiations follow them. The backends and the method that
+    keep int32 slot positions (the bucketed and streamed plans, exact's
+    sort) raise ``ValueError`` for a wider graph."""
+    if config.method == "exact":
+        refuse_wide(graph.n_edges, "method='exact'")
     return LPAWorkspace(graph=graph,
                         bundle=build_plan_bundle(graph, spec_for(config)),
                         edge_src=(graph.sources() if config.method == "exact"

@@ -9,7 +9,14 @@ A copy of the single-host half of ``repro.core.plan_bundle``. A frozen
     outcome = engine.run(bundle, request, entry_labels, entry_weights,
                          labels)
 
-The plans are built on the graph's device (host numpy, then tensors).
+The plans are built on the graph's device (host numpy, then tensors);
+each backend builds only the plan its engine reads (the bucketed plan for
+``jnp`` and ``pallas``, the fused plan for ``pallas_fused``, the streamed
+one for ``pallas_stream``). While the profiler records, the build is the
+span ``lpa.plan``, with one child span per plan (``lpa.plan.bucketed``,
+``lpa.plan.fused``, ``lpa.plan.stream``);
+:data:`repro_torch.trace.PLAN_BYTES` holds the bytes of each plan of the
+newest bundle.
 
 The same entry point builds the per-shard half of the distributed
 workspace (``repro_torch.core.distributed``), a copy of the reference's:
@@ -41,7 +48,7 @@ from repro_torch.graphs.csr import (CSRGraph, FoldPlan, FusedFoldPlan,
                                     fused_active_rows, fused_work_rows,
                                     streamed_active_windows,
                                     streamed_work_rows)
-from repro_torch.trace import host_read, span
+from repro_torch.trace import PLAN_BYTES, host_read, span
 
 __all__ = ["PlanSpec", "PlanBundle", "ShardSlice", "ShardPlanBundle",
            "StackedShardPlans", "spec_for", "build_plan_bundle",
@@ -93,15 +100,15 @@ def spec_for(config) -> PlanSpec:
 class PlanBundle:
     """The plans one PlanSpec's requests consume, plus the sizing policy.
 
-    The bucketed ``plan`` is always present (the jnp and pallas engines
-    and the reference oracles consume it); at most one aux plan is built
-    for the whole-round kernel engines: ``fused_plan`` iff the resolved
-    backend is ``pallas_fused``, ``stream_plan`` iff it is
-    ``pallas_stream``.
+    Exactly one plan is built, the one the resolved backend's engine
+    reads: the bucketed ``plan`` for ``jnp`` and ``pallas`` (and the
+    checked engine wrapping either), ``fused_plan`` for ``pallas_fused``,
+    ``stream_plan`` for ``pallas_stream``. The others are None.
     """
 
-    # canonical bucketed multi-width plan (every backend's reference)
-    plan: FoldPlan
+    # canonical bucketed multi-width plan — built iff spec.backend is in
+    # BUCKETED ("jnp", "pallas")
+    plan: Optional[FoldPlan]
     # whole-round fused plan — built iff spec.backend == "pallas_fused"
     fused_plan: Optional[FusedFoldPlan] = None
     # windowed plan — built iff spec.backend == "pallas_stream" (carries
@@ -111,10 +118,10 @@ class PlanBundle:
     spec: PlanSpec = dataclasses.field(default_factory=PlanSpec)
 
     def aux_for(self, engine):
-        """The aux plan ``engine`` consumes next to the bucketed plan: the
-        streamed plan for stream engines, the fused plan for fused ones,
-        None for the bucketed jnp/pallas backends (their fused_plan slot
-        is never built)."""
+        """The plan ``engine`` consumes besides ``plan``: the streamed plan
+        for stream engines, the fused plan for fused ones, None for the
+        bucketed jnp/pallas backends (their fused_plan slot is never
+        built)."""
         return self.stream_plan if engine.uses_stream_plan \
             else self.fused_plan
 
@@ -186,32 +193,60 @@ def build_plan_bundle(graph_or_shard, spec: PlanSpec):
     if isinstance(graph_or_shard, ShardSlice):
         return _build_shard_bundle(graph_or_shard, spec)
     graph: CSRGraph = graph_or_shard
-    degrees = graph.degrees.cpu().numpy()
-    backend = spec.backend
-    if backend == "auto":
-        backend = resolve_auto(int(degrees.sum()), spec.vmem_budget_bytes)
-        spec = dataclasses.replace(spec, backend=backend)
-    if backend not in ENGINES:
-        raise ValueError(f"unknown fold backend {backend!r} in PlanSpec")
-    plan = build_fold_plan(degrees, k=spec.k, chunk=spec.chunk,
-                           device=graph.device)
-    fused_plan = stream_plan = None
-    if backend == "pallas_fused":
-        fused_plan = build_fused_fold_plan(degrees, k=spec.k,
-                                           chunk=spec.chunk,
-                                           tile_r=spec.tile_r,
-                                           device=graph.device)
-    elif backend == "pallas_stream":
-        # "auto" resolved above, so budget-forced streaming takes the
-        # aligned layout whenever the spec asks for it
-        stream_plan = build_streamed_fold_plan(
-            degrees, k=spec.k, chunk=spec.chunk, tile_r=spec.tile_r,
-            window_entries=spec.stream_window,
-            indices=graph.indices.cpu().numpy() if spec.aligned else None,
-            weights=graph.weights.cpu().numpy() if spec.aligned else None,
-            aligned=spec.aligned, device=graph.device)
-    return PlanBundle(plan=plan, fused_plan=fused_plan,
-                      stream_plan=stream_plan, spec=spec)
+    with span("plan"):
+        degrees = graph.degrees.cpu().numpy()
+        backend = spec.backend
+        if backend == "auto":
+            backend = resolve_auto(int(degrees.sum()),
+                                   spec.vmem_budget_bytes)
+            spec = dataclasses.replace(spec, backend=backend)
+        if backend not in ENGINES:
+            raise ValueError(f"unknown fold backend {backend!r} in PlanSpec")
+        plans = dict.fromkeys(("plan", "fused_plan", "stream_plan"))
+        if backend in BUCKETED:
+            with span("plan.bucketed"):
+                plans["plan"] = build_fold_plan(degrees, k=spec.k,
+                                                chunk=spec.chunk,
+                                                device=graph.device)
+        elif backend == "pallas_fused":
+            with span("plan.fused"):
+                plans["fused_plan"] = build_fused_fold_plan(
+                    degrees, k=spec.k, chunk=spec.chunk, tile_r=spec.tile_r,
+                    device=graph.device,
+                    starts_dtype=graph.offsets.dtype)
+        else:
+            # "auto" resolved above, so budget-forced streaming takes the
+            # aligned layout whenever the spec asks for it
+            with span("plan.stream"):
+                plans["stream_plan"] = build_streamed_fold_plan(
+                    degrees, k=spec.k, chunk=spec.chunk, tile_r=spec.tile_r,
+                    window_entries=spec.stream_window,
+                    indices=(graph.indices.cpu().numpy() if spec.aligned
+                             else None),
+                    weights=(graph.weights.cpu().numpy() if spec.aligned
+                             else None),
+                    aligned=spec.aligned, device=graph.device)
+        PLAN_BYTES.clear()
+        PLAN_BYTES.update({_PLAN_KINDS[name]: _tensor_bytes(p)
+                           for name, p in plans.items() if p is not None})
+        return PlanBundle(spec=spec, **plans)
+
+
+#: PLAN_BYTES's key of each PlanBundle plan field
+_PLAN_KINDS = {"plan": "bucketed", "fused_plan": "fused",
+               "stream_plan": "stream"}
+
+
+def _tensor_bytes(obj) -> int:
+    """Bytes of every tensor in a plan."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, tuple):
+        return sum(_tensor_bytes(x) for x in obj)
+    if dataclasses.is_dataclass(obj):
+        return sum(_tensor_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,12 +18,12 @@
 // The caller hands in marked zeroed; nothing else is allocated.
 //
 // Bound on the H100: memory. It reads changed ([N] bytes), the offsets of
-// the changed vertices ([N+1] int32 at most), the indices of their rows
-// only (at most [M] int32), and stores bytes into marked, [N] bytes that
-// L2 (50 MB) holds at 18.5 M vertices: 6 N + 4 M bytes with every vertex
-// changed. At 18.5 M vertices and 567 M slots that is 2.38 GB, 0.71 ms at
-// 3.35 TB/s; at 50.9 M vertices and 108 M slots (degree <= 4) 0.74 GB,
-// 0.22 ms.
+// the changed vertices ([N+1] int32 at most; int64 past 2^31 - 1 slots),
+// the indices of their rows only (at most [M] int32), and stores bytes
+// into marked, [N] bytes that L2 (50 MB) holds at 18.5 M vertices: 6 N +
+// 4 M bytes with every vertex changed. At 18.5 M vertices and 567 M slots
+// that is 2.38 GB, 0.71 ms at 3.35 TB/s; at 50.9 M vertices and 108 M
+// slots (degree <= 4) 0.74 GB, 0.22 ms.
 //
 // Design. A thread takes 8 consecutive vertices, a warp 256, a block of
 // 256 threads 2,048 (the grid comes from N alone); a thread's 8 changed
@@ -80,14 +80,16 @@ __device__ __forceinline__ void mark_strided(
   for (; s < end; s += stride) marked[__ldcs(indices + s)] = 1;
 }
 
+template <typename O>
 __global__ void __launch_bounds__(kThreads)
 frontier_marks_kernel(const unsigned char* __restrict__ changed,
-                      const int* __restrict__ offsets,
+                      const O* __restrict__ offsets,
                       const int* __restrict__ indices,
                       unsigned char* __restrict__ marked, int n) {
   __shared__ int s_start[kWarps][kWarpRows];  // row's first slot in the
-  __shared__ int s_beg[kWarps][kWarpRows];    // concatenation; in indices
-  __shared__ int s_owner, s_row_beg, s_row_end;
+  __shared__ O s_beg[kWarps][kWarpRows];      // concatenation; in indices
+  __shared__ int s_owner;
+  __shared__ O s_row_beg, s_row_end;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long v0 = (static_cast<long long>(blockIdx.x) * kThreads +
@@ -109,7 +111,8 @@ frontier_marks_kernel(const unsigned char* __restrict__ changed,
       if (v0 + i < n && changed[v0 + i]) flags |= 1u << i;
     }
   }
-  int beg[kVerts], deg[kVerts];
+  O beg[kVerts];
+  int deg[kVerts];
   unsigned long_rows = 0;
 #pragma unroll
   for (int i = 0; i < kVerts; ++i) {
@@ -117,7 +120,7 @@ frontier_marks_kernel(const unsigned char* __restrict__ changed,
     deg[i] = 0;
     if (flags & (1u << i)) {
       beg[i] = __ldg(offsets + v0 + i);
-      deg[i] = __ldg(offsets + v0 + i + 1) - beg[i];
+      deg[i] = static_cast<int>(__ldg(offsets + v0 + i + 1) - beg[i]);
       if (deg[i] >= kBlockRow) long_rows |= 1u << i;
     }
   }
@@ -130,7 +133,8 @@ frontier_marks_kernel(const unsigned char* __restrict__ changed,
     if (s_owner == static_cast<int>(threadIdx.x)) {
       const int i = __ffs(long_rows) - 1;
       long_rows &= long_rows - 1;
-      int b = 0, d = 0;
+      O b = 0;
+      int d = 0;
 #pragma unroll
       for (int k = 0; k < kVerts; ++k) {
         if (k == i) {
@@ -171,7 +175,7 @@ frontier_marks_kernel(const unsigned char* __restrict__ changed,
   }
   __syncwarp();
   const int* st = s_start[warp];
-  const int* bg = s_beg[warp];
+  const O* bg = s_beg[warp];
   for (int base = 0; base < total; base += 32 * kUnroll) {
     int dst[kUnroll];
 #pragma unroll
@@ -198,23 +202,35 @@ frontier_marks_kernel(const unsigned char* __restrict__ changed,
 
 }  // namespace
 
-// Launcher: plain C interface for ctypes. Returns cudaGetLastError() after
-// the launch (0 = launched), or cudaErrorInvalidValue for a negative n.
-// With n == 0 nothing is launched. The caller owns every buffer and hands
-// in marked zeroed; nothing is allocated or synchronised here.
+// Launcher: plain C interface for ctypes. offset_bytes is the width of
+// offsets' elements: 4 (int32) or 8 (int64); both are instantiated, and
+// the int32 one is the kernel as it was before the width was a parameter.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a negative n or another offset_bytes. With
+// n == 0 nothing is launched. The caller owns every buffer and hands in
+// marked zeroed; nothing is allocated or synchronised here.
 extern "C" int frontier_marks(const void* changed, const void* offsets,
-                              const void* indices, void* marked, int n,
-                              int device, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+                              int offset_bytes, const void* indices,
+                              void* marked, int n, int device,
+                              void* stream) {
+  if (n < 0 || (offset_bytes != 4 && offset_bytes != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
   constexpr int kPerBlock = kThreads * kVerts;
   const unsigned blocks = static_cast<unsigned>((n - 1) / kPerBlock + 1);
-  frontier_marks_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(changed),
-      static_cast<const int*>(offsets), static_cast<const int*>(indices),
-      static_cast<unsigned char*>(marked), n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned char* ch = static_cast<const unsigned char*>(changed);
+  const int* ix = static_cast<const int*>(indices);
+  unsigned char* mk = static_cast<unsigned char*>(marked);
+  if (offset_bytes == 4) {
+    frontier_marks_kernel<int><<<blocks, kThreads, 0, s>>>(
+        ch, static_cast<const int*>(offsets), ix, mk, n);
+  } else {
+    frontier_marks_kernel<long long><<<blocks, kThreads, 0, s>>>(
+        ch, static_cast<const long long*>(offsets), ix, mk, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -117,8 +117,13 @@
 // adjacency does, so a block's 128 rows read 128 unrelated segments; on
 // a row-contiguous copy of the same entries K3 takes 0.335 ms.
 //
-// Offsets are int32, as in the reference plan: a round's flat entry array
-// must stay below 2^31 entries (90 M at 4 M vertices of the smoke graph).
+// Row starts come in two widths, S = int or long long: every kernel is
+// instantiated for both, and the launcher takes the width in bytes. Round
+// 0's starts are slot positions of the graph, in the width of its offsets
+// (int32 up to 2^31 - 1 slots, int64 past that); later rounds index k-slot
+// sketches and stay int32. The int32 instantiation is the same code as
+// before the width was a parameter. Counts, rows and output positions stay
+// int: a row holds at most chunk entries, and rows * k < 2^31.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,7 +136,7 @@ namespace {
 using row_stage::fold_staged;
 using row_stage::grid_for;
 using row_stage::kRows;
-using row_stage::SegmentRows;
+using row_stage::SegmentRowsOf;
 using sketch_rows::BmCarry;
 using sketch_rows::mg_fold_group;
 using sketch_rows::mg_fold_row;
@@ -146,9 +151,9 @@ constexpr int kBmBuffers = 1;
 // K1: a group of K lanes per row (sketch_rows.cuh:mg_fold_group). Rows at
 // or past n_rows fold count 0 and store nothing; they must not return
 // before the group fold, whose shuffles and ballots take the full warp.
-template <int K>
+template <typename S, int K>
 __global__ void __launch_bounds__(kThreadsPerBlock)
-mg_fused_fold_kernel(const int* __restrict__ row_start,
+mg_fused_fold_kernel(const S* __restrict__ row_start,
                      const int* __restrict__ row_count,
                      const int* __restrict__ elab,
                      const float* __restrict__ ewgt,
@@ -157,7 +162,7 @@ mg_fused_fold_kernel(const int* __restrict__ row_start,
   constexpr int kRowsPerBlock = kThreadsPerBlock / K;
   const int r = blockIdx.x * kRowsPerBlock + static_cast<int>(threadIdx.x) / K;
   const bool real = r < n_rows;
-  const int start = real ? row_start[r] : 0;
+  const S start = real ? row_start[r] : 0;
   int lab;
   float val;
   mg_fold_group<K>(elab + start, ewgt + start, real ? row_count[r] : 0, lab,
@@ -169,9 +174,9 @@ mg_fused_fold_kernel(const int* __restrict__ row_start,
   }
 }
 
-template <int K>
+template <typename S, int K>
 __global__ void __launch_bounds__(kThreadsPerBlock)
-mg_fused_select_kernel(const int* __restrict__ row_start,
+mg_fused_select_kernel(const S* __restrict__ row_start,
                        const int* __restrict__ row_count,
                        const int* __restrict__ incumbents, int seed,
                        const int* __restrict__ elab,
@@ -181,7 +186,7 @@ mg_fused_select_kernel(const int* __restrict__ row_start,
   if (r >= n_rows) return;
   int lab[K];
   float val[K];
-  const int start = row_start[r];
+  const S start = row_start[r];
   mg_fold_row<K>(elab + start, ewgt + start, row_count[r], lab, val);
   out_c[r] = select_row<K>(lab, val, incumbents[r], seed);
 }
@@ -191,8 +196,9 @@ mg_fused_select_kernel(const int* __restrict__ row_start,
 // entries (row_stage.cuh:fold_staged over SegmentRows, 4-byte copies: the
 // rows' starts are arbitrary). Pad rows (count 0, init -1) write
 // (-1, 0.0f).
+template <typename S>
 __global__ void __launch_bounds__(kRows)
-mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
+mg_fused_bm_fold_kernel(const S* __restrict__ row_start,
                         const int* __restrict__ row_count,
                         const int* __restrict__ init,
                         const int* __restrict__ elab,
@@ -200,7 +206,7 @@ mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
                         int* __restrict__ out_c, float* __restrict__ out_w,
                         int n_rows) {
   extern __shared__ __align__(16) int smem[];
-  __shared__ int s_start[kRows];
+  __shared__ S s_start[kRows];
   __shared__ int s_count[kRows];
   __shared__ int s_longest;
   const int t = threadIdx.x;
@@ -220,7 +226,7 @@ mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
   if ((t & 31) == 0) atomicMax(&s_longest, warp_longest);
   __syncthreads();
   fold_staged<kBmChunk, false, kBmBuffers>(
-      elab, ewgt, SegmentRows{s_start, s_count}, nr,
+      elab, ewgt, SegmentRowsOf<S>{s_start, s_count}, nr,
       (s_longest + kBmChunk - 1) / kBmChunk, smem, bm);
   if (t < nr) {
     out_c[r] = bm.ck;
@@ -232,9 +238,9 @@ mg_fused_bm_fold_kernel(const int* __restrict__ row_start,
 // per row (sketch_rows.cuh:rescan_group). Rows at or past n_rows scan
 // count 0 and store nothing; they must not return before the group scan,
 // whose shuffles take the full warp.
-template <int K>
+template <typename S, int K>
 __global__ void __launch_bounds__(kThreadsPerBlock)
-mg_fused_rescan_kernel(const int* __restrict__ row_start,
+mg_fused_rescan_kernel(const S* __restrict__ row_start,
                        const int* __restrict__ row_count,
                        const int* __restrict__ cand,
                        const int* __restrict__ elab,
@@ -244,42 +250,29 @@ mg_fused_rescan_kernel(const int* __restrict__ row_start,
   const int r = blockIdx.x * kRowsPerBlock + static_cast<int>(threadIdx.x) / K;
   const bool real = r < n_rows;
   const int64_t o = static_cast<int64_t>(r) * K + (threadIdx.x & (K - 1));
-  const int start = real ? row_start[r] : 0;
+  const S start = real ? row_start[r] : 0;
   const float acc = rescan_group<K>(elab + start, ewgt + start,
                                     real ? row_count[r] : 0,
                                     real ? cand[o] : -1);
   if (real) out[o] = acc;
 }
 
-}  // namespace
-
-// Launchers: plain C interface for ctypes. Each returns cudaGetLastError()
-// after the launch (0 = launched), or cudaErrorInvalidValue for a k that
-// has no instantiation or a negative row count;
-// an error of the shared-memory opt-in above 48 KB is returned as it is.
-// With n_rows == 0 nothing is launched. The caller owns all buffers;
-// nothing is allocated or synchronised here.
-extern "C" int mg_fused_fold(const void* row_start, const void* row_count,
-                             const void* elab, const void* ewgt, void* out_k,
-                             void* out_v, int n_rows, int k, int device,
-                             void* stream) {
-  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* rs = static_cast<const int*>(row_start);
+template <typename S>
+int launch_fold(const void* row_start, const void* row_count,
+                const void* elab, const void* ewgt, void* out_k, void* out_v,
+                int n_rows, int k, cudaStream_t s) {
+  const S* rs = static_cast<const S*>(row_start);
   const int* rc = static_cast<const int*>(row_count);
   const int* el = static_cast<const int*>(elab);
   const float* ew = static_cast<const float*>(ewgt);
   int* ok = static_cast<int*>(out_k);
   float* ov = static_cast<float*>(out_v);
   switch (k) {
-#define MG_FOLD_CASE(KK)                                                 \
-  case KK:                                                               \
-    mg_fused_fold_kernel<KK><<<grid_for(n_rows, kThreadsPerBlock / KK),  \
-                               kThreadsPerBlock, 0, s>>>(rs, rc, el, ew, \
-                                                         ok, ov, n_rows); \
+#define MG_FOLD_CASE(KK)                                                    \
+  case KK:                                                                  \
+    mg_fused_fold_kernel<S, KK><<<grid_for(n_rows, kThreadsPerBlock / KK),  \
+                                  kThreadsPerBlock, 0, s>>>(rs, rc, el, ew, \
+                                                            ok, ov, n_rows); \
     break;
     SKETCH_ROWS_FOR_EACH_K(MG_FOLD_CASE)
 #undef MG_FOLD_CASE
@@ -289,17 +282,12 @@ extern "C" int mg_fused_fold(const void* row_start, const void* row_count,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mg_fused_select(const void* row_start, const void* row_count,
-                               const void* incumbents, int seed,
-                               const void* elab, const void* ewgt,
-                               void* out_c, int n_rows, int k, int device,
-                               void* stream) {
-  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* rs = static_cast<const int*>(row_start);
+template <typename S>
+int launch_select(const void* row_start, const void* row_count,
+                  const void* incumbents, int seed, const void* elab,
+                  const void* ewgt, void* out_c, int n_rows, int k,
+                  cudaStream_t s) {
+  const S* rs = static_cast<const S*>(row_start);
   const int* rc = static_cast<const int*>(row_count);
   const int* inc = static_cast<const int*>(incumbents);
   const int* el = static_cast<const int*>(elab);
@@ -308,10 +296,11 @@ extern "C" int mg_fused_select(const void* row_start, const void* row_count,
   switch (k) {
 #define MG_SELECT_CASE(KK)                                                \
   case KK:                                                                \
-    mg_fused_select_kernel<KK><<<grid_for(n_rows, kThreadsPerBlock),      \
-                                 kThreadsPerBlock, 0, s>>>(rs, rc, inc,   \
-                                                           seed, el, ew,  \
-                                                           oc, n_rows);   \
+    mg_fused_select_kernel<S, KK><<<grid_for(n_rows, kThreadsPerBlock),   \
+                                    kThreadsPerBlock, 0, s>>>(rs, rc, inc, \
+                                                              seed, el,   \
+                                                              ew, oc,     \
+                                                              n_rows);    \
     break;
     SKETCH_ROWS_FOR_EACH_K(MG_SELECT_CASE)
 #undef MG_SELECT_CASE
@@ -321,49 +310,37 @@ extern "C" int mg_fused_select(const void* row_start, const void* row_count,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mg_fused_bm_fold(const void* row_start, const void* row_count,
-                                const void* init, const void* elab,
-                                const void* ewgt, void* out_c, void* out_w,
-                                int n_rows, int device, void* stream) {
-  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* rs = static_cast<const int*>(row_start);
-  const int* rc = static_cast<const int*>(row_count);
-  const int* in = static_cast<const int*>(init);
-  const int* el = static_cast<const int*>(elab);
-  const float* ew = static_cast<const float*>(ewgt);
-  int* oc = static_cast<int*>(out_c);
-  float* ow = static_cast<float*>(out_w);
+template <typename S>
+int launch_bm_fold(const void* row_start, const void* row_count,
+                   const void* init, const void* elab, const void* ewgt,
+                   void* out_c, void* out_w, int n_rows, cudaStream_t s) {
   return static_cast<int>(row_stage::launch(
-      mg_fused_bm_fold_kernel, grid_for(n_rows),
-      row_stage::stage_bytes(kBmChunk, false, kBmBuffers), s, rs, rc, in, el,
-      ew, oc, ow, n_rows));
+      mg_fused_bm_fold_kernel<S>, grid_for(n_rows),
+      row_stage::stage_bytes(kBmChunk, false, kBmBuffers), s,
+      static_cast<const S*>(row_start), static_cast<const int*>(row_count),
+      static_cast<const int*>(init), static_cast<const int*>(elab),
+      static_cast<const float*>(ewgt), static_cast<int*>(out_c),
+      static_cast<float*>(out_w), n_rows));
 }
 
-extern "C" int mg_fused_rescan(const void* row_start, const void* row_count,
-                               const void* cand, const void* elab,
-                               const void* ewgt, void* out, int n_rows, int k,
-                               int device, void* stream) {
-  if (n_rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* rs = static_cast<const int*>(row_start);
+template <typename S>
+int launch_rescan(const void* row_start, const void* row_count,
+                  const void* cand, const void* elab, const void* ewgt,
+                  void* out, int n_rows, int k, cudaStream_t s) {
+  const S* rs = static_cast<const S*>(row_start);
   const int* rc = static_cast<const int*>(row_count);
   const int* cd = static_cast<const int*>(cand);
   const int* el = static_cast<const int*>(elab);
   const float* ew = static_cast<const float*>(ewgt);
   float* o = static_cast<float*>(out);
   switch (k) {
-#define MG_RESCAN_CASE(KK)                                                \
-  case KK:                                                                \
-    mg_fused_rescan_kernel<KK><<<grid_for(n_rows, kThreadsPerBlock / KK), \
-                                 kThreadsPerBlock, 0, s>>>(rs, rc, cd, el, \
-                                                           ew, o, n_rows); \
+#define MG_RESCAN_CASE(KK)                                                  \
+  case KK:                                                                  \
+    mg_fused_rescan_kernel<S, KK><<<grid_for(n_rows,                        \
+                                             kThreadsPerBlock / KK),        \
+                                    kThreadsPerBlock, 0, s>>>(rs, rc, cd,   \
+                                                              el, ew, o,    \
+                                                              n_rows);      \
     break;
     SKETCH_ROWS_FOR_EACH_K(MG_RESCAN_CASE)
 #undef MG_RESCAN_CASE
@@ -371,4 +348,84 @@ extern "C" int mg_fused_rescan(const void* row_start, const void* row_count,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Checks shared by the launchers: 0 to launch, -1 for nothing to launch
+// (n_rows == 0), else the error to return.
+int prelude(int n_rows, int start_bytes, int device) {
+  if (n_rows < 0 || (start_bytes != 4 && start_bytes != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return n_rows == 0 ? -1 : 0;
+}
+
+}  // namespace
+
+// Launchers: plain C interface for ctypes. start_bytes is the width of
+// row_start's elements: 4 (int32) or 8 (int64). Each returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a k that has no instantiation, another
+// start_bytes or a negative row count; an error of the shared-memory
+// opt-in above 48 KB is returned as it is. With n_rows == 0 nothing is
+// launched. The caller owns all buffers; nothing is allocated or
+// synchronised here.
+extern "C" int mg_fused_fold(const void* row_start, int start_bytes,
+                             const void* row_count, const void* elab,
+                             const void* ewgt, void* out_k, void* out_v,
+                             int n_rows, int k, int device, void* stream) {
+  const int pre = prelude(n_rows, start_bytes, device);
+  if (pre != 0) return pre < 0 ? 0 : pre;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return start_bytes == 4
+             ? launch_fold<int>(row_start, row_count, elab, ewgt, out_k,
+                                out_v, n_rows, k, s)
+             : launch_fold<long long>(row_start, row_count, elab, ewgt,
+                                      out_k, out_v, n_rows, k, s);
+}
+
+extern "C" int mg_fused_select(const void* row_start, int start_bytes,
+                               const void* row_count, const void* incumbents,
+                               int seed, const void* elab, const void* ewgt,
+                               void* out_c, int n_rows, int k, int device,
+                               void* stream) {
+  const int pre = prelude(n_rows, start_bytes, device);
+  if (pre != 0) return pre < 0 ? 0 : pre;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return start_bytes == 4
+             ? launch_select<int>(row_start, row_count, incumbents, seed,
+                                  elab, ewgt, out_c, n_rows, k, s)
+             : launch_select<long long>(row_start, row_count, incumbents,
+                                        seed, elab, ewgt, out_c, n_rows, k,
+                                        s);
+}
+
+extern "C" int mg_fused_bm_fold(const void* row_start, int start_bytes,
+                                const void* row_count, const void* init,
+                                const void* elab, const void* ewgt,
+                                void* out_c, void* out_w, int n_rows,
+                                int device, void* stream) {
+  const int pre = prelude(n_rows, start_bytes, device);
+  if (pre != 0) return pre < 0 ? 0 : pre;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return start_bytes == 4
+             ? launch_bm_fold<int>(row_start, row_count, init, elab, ewgt,
+                                   out_c, out_w, n_rows, s)
+             : launch_bm_fold<long long>(row_start, row_count, init, elab,
+                                         ewgt, out_c, out_w, n_rows, s);
+}
+
+extern "C" int mg_fused_rescan(const void* row_start, int start_bytes,
+                               const void* row_count, const void* cand,
+                               const void* elab, const void* ewgt, void* out,
+                               int n_rows, int k, int device, void* stream) {
+  const int pre = prelude(n_rows, start_bytes, device);
+  if (pre != 0) return pre < 0 ? 0 : pre;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return start_bytes == 4
+             ? launch_rescan<int>(row_start, row_count, cand, elab, ewgt, out,
+                                  n_rows, k, s)
+             : launch_rescan<long long>(row_start, row_count, cand, elab,
+                                        ewgt, out, n_rows, k, s);
 }

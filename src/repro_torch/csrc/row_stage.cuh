@@ -60,13 +60,15 @@ struct TileRows {
 };
 
 // (start, count) segments of a flat entry array, the block's rows' copied
-// into shared memory.
-struct SegmentRows {
-  const int* starts;
+// into shared memory; the starts are int (S = int) or 64-bit.
+template <class S>
+struct SegmentRowsOf {
+  const S* starts;
   const int* counts;
   __device__ __forceinline__ int64_t start(int j) const { return starts[j]; }
   __device__ __forceinline__ int count(int j) const { return counts[j]; }
 };
+using SegmentRows = SegmentRowsOf<int>;
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -10,7 +10,13 @@ one launch each, one block per window.
 
 Plan construction is host-side numpy, line for line the reference's; only
 the final arrays become tensors on the requested device. Dtypes are kept:
-int32 offsets, indices, labels and plan arrays, float32 weights.
+int32 indices, labels and plan arrays, float32 weights. Slot positions
+come in two widths, chosen by the data (:func:`offsets_dtype`): a graph of
+at most 2**31 - 1 slots has int32 offsets, as in the reference; past that
+its offsets are int64, and so are the fused plan's round-0 row starts,
+the only plan array that holds a slot position of the graph on that
+path. The bucketed and the streamed plans store slot positions as int32
+and refuse such a graph with a ``ValueError``.
 
   * every vertex's neighbour list is chunked into rows of at most
     ``chunk`` entries ("virtual vertices"; the paper's D_H = 128);
@@ -30,6 +36,24 @@ from repro_torch.device import resolve_device
 from repro_torch.trace import host_read
 
 PAD = np.int32(-1)  # gather sentinel for padded entries
+#: the most slots an int32 slot position addresses
+INT32_SLOTS = 2**31 - 1
+
+
+def offsets_dtype(n_slots: int) -> torch.dtype:
+    """The width of a graph's offsets: int32 up to :data:`INT32_SLOTS`
+    slots, int64 past that."""
+    return torch.int32 if n_slots <= INT32_SLOTS else torch.int64
+
+
+def refuse_wide(n_slots: int, what: str) -> None:
+    """Raise ``ValueError`` when ``what``, which stores int32 slot
+    positions, is asked to address more than :data:`INT32_SLOTS` slots."""
+    if n_slots > INT32_SLOTS:
+        raise ValueError(f"{what} stores int32 slot positions and cannot "
+                         f"address {n_slots:,} slots (more than "
+                         f"{INT32_SLOTS:,}); fold_backend='pallas_fused' "
+                         f"runs such a graph")
 
 
 def _tensor(x: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
@@ -39,9 +63,14 @@ def _tensor(x: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
 
 @dataclasses.dataclass
 class CSRGraph:
-    """Symmetric weighted graph in CSR form (tensors on one device)."""
+    """Symmetric weighted graph in CSR form (tensors on one device).
 
-    offsets: torch.Tensor  # [N+1] int32 — row offsets
+    ``offsets`` are int32 for a graph of at most 2**31 - 1 slots and int64
+    past that (:func:`offsets_dtype`, which the constructors here follow); a
+    graph given with int64 offsets takes the wide path whatever its size.
+    """
+
+    offsets: torch.Tensor  # [N+1] int32 or int64 — row offsets
     indices: torch.Tensor  # [M] int32 — neighbor ids (both directions stored)
     weights: torch.Tensor  # [M] float32 — edge weights (w_ij == w_ji)
     n_nodes: int  # int — vertex count N
@@ -82,7 +111,8 @@ def graph_from_arrays(offsets, indices, weights, n_nodes: int,
         raise ValueError("indices and weights must be 1-D of one length")
     if int(offsets[-1]) != len(indices):
         raise ValueError("offsets[-1] must equal the number of entries")
-    return CSRGraph(offsets=_tensor(offsets, device, torch.int32),
+    return CSRGraph(offsets=_tensor(offsets, device,
+                                    offsets_dtype(len(indices))),
                     indices=_tensor(indices, device, torch.int32),
                     weights=_tensor(weights, device, torch.float32),
                     n_nodes=int(n_nodes), n_edges=int(len(indices)))
@@ -123,7 +153,7 @@ def build_csr(edges: np.ndarray, n_nodes: int, weights: np.ndarray | None = None
     offsets = np.zeros(n_nodes + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     return CSRGraph(
-        offsets=_tensor(offsets, device, torch.int32),
+        offsets=_tensor(offsets, device, offsets_dtype(len(edges))),
         indices=_tensor(edges[:, 1], device, torch.int32),
         weights=_tensor(weights, device, torch.float32),
         n_nodes=int(n_nodes),
@@ -154,7 +184,7 @@ def _unit_weight_csr(edges: np.ndarray, n_nodes: int,
     offsets = np.zeros(n_nodes + 1, dtype=np.int64)
     np.cumsum(np.bincount(src, minlength=n_nodes), out=offsets[1:])
     return CSRGraph(
-        offsets=_tensor(offsets, device, torch.int32),
+        offsets=_tensor(offsets, device, offsets_dtype(len(dst))),
         indices=_tensor(dst, device, torch.int32),
         weights=_tensor(weights, device, torch.float32),
         n_nodes=int(n_nodes),
@@ -250,9 +280,13 @@ def _plan_round(counts: np.ndarray, starts: np.ndarray, chunk: int,
 
 def build_fold_plan(degrees: np.ndarray, k: int = 8, chunk: int = 128,
                     min_width: int = 4, device=None) -> FoldPlan:
-    """Construct the static multi-round fold plan from the degree sequence."""
+    """Construct the static multi-round fold plan from the degree sequence.
+    Its gathers are int32 slot positions: a sequence of more than 2**31 - 1
+    slots raises ``ValueError``."""
     device = resolve_device(device)
     degrees = np.asarray(degrees, dtype=np.int64)
+    refuse_wide(int(degrees.sum()), "the bucketed plan (fold_backend 'jnp' "
+                "or 'pallas')")
     n = len(degrees)
     if chunk <= k:
         raise ValueError(f"chunk ({chunk}) must exceed sketch slots k ({k})")
@@ -333,7 +367,9 @@ def plan_round0_dispatches(plan: FoldPlan) -> int:
 class FusedRound:
     """Per-round metadata of the fused single-launch fold."""
 
-    row_start: torch.Tensor  # [n_steps, tile_r] int32 — offset into the flat entries (0 on pad rows)
+    # [n_steps, tile_r] — offset into the flat entries (0 on pad rows):
+    # int32, or int64 on round 0 of a graph with int64 offsets
+    row_start: torch.Tensor
     row_count: torch.Tensor  # [n_steps, tile_r] int32 — valid entries of the row (0 on pad rows)
     step_dmax: torch.Tensor  # [n_steps, 1] int32 — max row_count within the step
     n_entries_in: int        # int — flat entry-array length this round consumes
@@ -372,18 +408,32 @@ class FusedFoldPlan:
 
 
 def build_fused_fold_plan(degrees: np.ndarray, k: int = 8, chunk: int = 128,
-                          tile_r: int = 128, device=None) -> FusedFoldPlan:
+                          tile_r: int = 128, device=None,
+                          starts_dtype: Optional[torch.dtype] = None
+                          ) -> FusedFoldPlan:
     """Construct the fused multi-round plan from the degree sequence.
 
     Folds the identical entry sequences as ``build_fold_plan`` (same
     chunking, same within-row order), so per-vertex results are
     bit-identical; only the row ordering and the launch structure differ.
+
+    Round 0's row starts are slot positions of the graph, kept in
+    ``starts_dtype``, the width of the graph's offsets (None: the width
+    :func:`offsets_dtype` gives the sequence's slot count); later rounds
+    index k-slot sketches and are int32.
     """
     device = resolve_device(device)
     degrees = np.asarray(degrees, dtype=np.int64)
     n = len(degrees)
     if chunk <= k:
         raise ValueError(f"chunk ({chunk}) must exceed sketch slots k ({k})")
+    n_slots = int(degrees.sum())
+    if starts_dtype is None:
+        starts_dtype = offsets_dtype(n_slots)
+    if starts_dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"row starts are int32 or int64, not {starts_dtype}")
+    if starts_dtype == torch.int32:
+        refuse_wide(n_slots, "a fused plan with int32 row starts")
 
     counts = degrees.copy()
     offsets = np.zeros(n + 1, dtype=np.int64)
@@ -411,10 +461,16 @@ def build_fused_fold_plan(degrees: np.ndarray, k: int = 8, chunk: int = 128,
         rv_pad = np.concatenate(
             [row_vertex, np.full(pad, -1, np.int64)]).astype(np.int32)
         n_steps = len(rs) // tile_r
-        rs2 = rs.reshape(n_steps, tile_r).astype(np.int32)
+        if rounds:  # a later round's starts index its input's sketches
+            assert n_entries <= INT32_SLOTS, n_entries
+            rs2 = rs.reshape(n_steps, tile_r).astype(np.int32)
+        else:
+            rs2 = rs.reshape(n_steps, tile_r)
         rc2 = rc.reshape(n_steps, tile_r).astype(np.int32)
         rounds.append(FusedRound(
-            row_start=_tensor(rs2, device), row_count=_tensor(rc2, device),
+            row_start=_tensor(rs2, device, starts_dtype if not rounds
+                              else None),
+            row_count=_tensor(rc2, device),
             step_dmax=_tensor(rc2.max(axis=1, keepdims=True), device),
             n_entries_in=n_entries, row_vertex=_tensor(rv_pad, device)))
         if rtv0 is None:  # round 0: (vertex, rank) per padded row
@@ -722,6 +778,8 @@ def build_streamed_fold_plan(degrees: np.ndarray, k: int = 8,
     """
     device = resolve_device(device)
     degrees = np.asarray(degrees, dtype=np.int64)
+    refuse_wide(int(degrees.sum()), "the streamed plan (fold_backend "
+                "'pallas_stream')")
     n = len(degrees)
     if chunk <= k:
         raise ValueError(f"chunk ({chunk}) must exceed sketch slots k ({k})")

@@ -31,7 +31,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library("frontier_marks").lib
     if not getattr(lib, "_repro_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.frontier_marks.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+        lib.frontier_marks.argtypes = [ptr, ptr, i32, ptr, ptr, i32, i32,
+                                       ptr]
         lib.frontier_marks.restype = i32
         lib._repro_typed = True
     return lib
@@ -43,19 +44,20 @@ def _check(changed: torch.Tensor, offsets: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     n = changed.shape[0]
-    for name, t, dtype, shape in (("changed", changed, torch.bool, (n,)),
-                                  ("offsets", offsets, torch.int32, (n + 1,)),
-                                  ("indices", indices, torch.int32,
-                                   indices.shape[:1])):
+    for name, t, dtypes, shape in (
+            ("changed", changed, (torch.bool,), (n,)),
+            ("offsets", offsets, (torch.int32, torch.int64), (n + 1,)),
+            ("indices", indices, (torch.int32,), indices.shape[:1])):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, changed on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be "
+                            f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {list(shape)} "
                              f"tensor, got {list(t.shape)}")
-    if n > _INT32_MAX or indices.shape[0] > _INT32_MAX:
-        raise ValueError("the kernel indexes vertices and slots with int32")
+    if n > _INT32_MAX:
+        raise ValueError("the kernel indexes vertices with int32")
     return dev
 
 
@@ -77,16 +79,18 @@ def frontier_marks_plain(changed: torch.Tensor, offsets: torch.Tensor,
 def frontier_marks(changed: torch.Tensor, offsets: torch.Tensor,
                    indices: torch.Tensor) -> torch.Tensor:
     """[N] bool: True at every neighbour of a vertex with ``changed`` set,
-    over the CSR rows ``offsets`` ([N+1] int32) / ``indices`` ([M]
-    int32). On CUDA one kernel launch into a zeroed [N] bool, the only
+    over the CSR rows ``offsets`` ([N+1] int32, or int64 past 2**31 - 1
+    slots) / ``indices`` ([M] int32). On CUDA one kernel launch, the
+    instantiation for the offsets' width, into a zeroed [N] bool, the only
     allocation; no [M] temporary and no host read."""
     if _check(changed, offsets, indices).type == "cpu":
         return frontier_marks_plain(changed, offsets, indices)
     dev = changed.device
     marked = torch.zeros(changed.shape[0], dtype=torch.bool, device=dev)
     rc = _library().frontier_marks(
-        changed.data_ptr(), offsets.data_ptr(), indices.data_ptr(),
-        marked.data_ptr(), changed.shape[0], dev.index or 0,
+        changed.data_ptr(), offsets.data_ptr(), offsets.element_size(),
+        indices.data_ptr(), marked.data_ptr(), changed.shape[0],
+        dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"frontier_marks launch failed with CUDA error "

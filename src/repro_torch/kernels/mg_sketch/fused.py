@@ -21,6 +21,10 @@ Kernels (``src/repro_torch/csrc/mg_fused.cu``, built by
     its entries with that label. Replaces
     ``repro/kernels/mg_sketch/fused.py:_rescan_fold_kernel``.
 
+A round's ``row_start`` is int32, or int64 on round 0 of a graph with
+int64 offsets (past 2**31 - 1 slots); each kernel is built for both widths
+and the wrappers pass the width of the tensor they are given.
+
 Each wrapper (``fused_fold_round``, ``fused_select_round``,
 ``bm_fold_round_fused``, ``rescan_round_fused``) takes one rule from the
 tensors it is given: on the CPU it calls the plain version (the same name
@@ -83,39 +87,47 @@ def _library() -> ctypes.CDLL:
     lib = built.lib
     if not getattr(lib, "_repro_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mg_fused_fold.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                      i32, i32, ptr]
+        # each launcher takes row_start, then its element width in bytes
+        lib.mg_fused_fold.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr,
+                                      i32, i32, i32, ptr]
         lib.mg_fused_fold.restype = i32
-        lib.mg_fused_select.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr,
-                                        i32, i32, i32, ptr]
+        lib.mg_fused_select.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr,
+                                        ptr, i32, i32, i32, ptr]
         lib.mg_fused_select.restype = i32
-        lib.mg_fused_bm_fold.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                         i32, i32, ptr]
+        lib.mg_fused_bm_fold.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr,
+                                         ptr, i32, i32, ptr]
         lib.mg_fused_bm_fold.restype = i32
-        lib.mg_fused_rescan.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                        i32, i32, ptr]
+        lib.mg_fused_rescan.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr,
+                                        i32, i32, i32, ptr]
         lib.mg_fused_rescan.restype = i32
         lib._repro_typed = True
     return lib
 
 
+#: row-start dtypes of a fused round: int32, or int64 on round 0 of a
+#: graph with int64 offsets (the kernels' wide instantiation)
+FUSED_STARTS = (torch.int32, torch.int64)
+
+
 def _check_inputs(rnd: FusedRound, entry_labels: torch.Tensor,
-                  entry_weights: torch.Tensor,
-                  k: Optional[int]) -> torch.device:
+                  entry_weights: torch.Tensor, k: Optional[int],
+                  starts: tuple = (torch.int32,)) -> torch.device:
     """Device, dtype, contiguity and shape checks shared by the wrappers
-    (``k=None`` for K3, which keeps one carry); returns the device the
-    round runs on."""
+    (``k=None`` for K3, which keeps one carry; ``starts``, the dtypes
+    ``row_start`` may have); returns the device the round runs on."""
     dev = entry_labels.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    for name, t, dtype in (("row_start", rnd.row_start, torch.int32),
-                           ("row_count", rnd.row_count, torch.int32),
-                           ("entry_labels", entry_labels, torch.int32),
-                           ("entry_weights", entry_weights, torch.float32)):
+    for name, t, dtypes in (
+            ("row_start", rnd.row_start, starts),
+            ("row_count", rnd.row_count, (torch.int32,)),
+            ("entry_labels", entry_labels, (torch.int32,)),
+            ("entry_weights", entry_weights, (torch.float32,))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, entry_labels on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be "
+                            f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if rnd.row_start.dim() != 2 or rnd.row_count.shape != rnd.row_start.shape:
@@ -234,7 +246,7 @@ def fused_fold_round(rnd: FusedRound, entry_labels: torch.Tensor,
     Returns padded ([n_steps*tile_r, k] int32, [n_steps*tile_r, k] float32)
     sketches in fused row order; pad rows fold to empty sketches.
     """
-    dev = _check_inputs(rnd, entry_labels, entry_weights, k)
+    dev = _check_inputs(rnd, entry_labels, entry_weights, k, FUSED_STARTS)
     if dev.type == "cpu":
         return fused_fold_round_plain(rnd, entry_labels, entry_weights,
                                       k=k, chunk=chunk)
@@ -242,7 +254,8 @@ def fused_fold_round(rnd: FusedRound, entry_labels: torch.Tensor,
     out_k = torch.empty((rows, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((rows, k), dtype=torch.float32, device=dev)
     rc = _library().mg_fused_fold(
-        rnd.row_start.data_ptr(), rnd.row_count.data_ptr(),
+        rnd.row_start.data_ptr(), rnd.row_start.element_size(),
+        rnd.row_count.data_ptr(),
         entry_labels.data_ptr(), entry_weights.data_ptr(),
         out_k.data_ptr(), out_v.data_ptr(), rows, k, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -255,7 +268,7 @@ def fused_select_round(rnd: FusedRound, entry_labels: torch.Tensor,
                        entry_weights: torch.Tensor, incumbents: torch.Tensor,
                        seed, *, k: int, chunk: int) -> torch.Tensor:
     """The last round: fold + per-row winning label [n_steps*tile_r] (K2)."""
-    dev = _check_inputs(rnd, entry_labels, entry_weights, k)
+    dev = _check_inputs(rnd, entry_labels, entry_weights, k, FUSED_STARTS)
     rows = rnd.row_start.numel()
     _check_row_tensor(incumbents, "incumbents", (rows,), dev)
     seed = int(seed)
@@ -266,7 +279,8 @@ def fused_select_round(rnd: FusedRound, entry_labels: torch.Tensor,
                                         incumbents, seed, k=k, chunk=chunk)
     out_c = torch.empty((rows,), dtype=torch.int32, device=dev)
     rc = _library().mg_fused_select(
-        rnd.row_start.data_ptr(), rnd.row_count.data_ptr(),
+        rnd.row_start.data_ptr(), rnd.row_start.element_size(),
+        rnd.row_count.data_ptr(),
         incumbents.data_ptr(), seed, entry_labels.data_ptr(),
         entry_weights.data_ptr(), out_c.data_ptr(), rows, k, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -285,7 +299,8 @@ def bm_fold_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
     (-1 on pad rows). Returns per-row ([rows] int32 candidate, [rows]
     float32 vote weight) partial states in fused row order.
     """
-    dev = _check_inputs(rnd, entry_labels, entry_weights, None)
+    dev = _check_inputs(rnd, entry_labels, entry_weights, None,
+                        FUSED_STARTS)
     rows = rnd.row_start.numel()
     _check_row_tensor(init_labels, "init_labels", (rows,), dev)
     if dev.type == "cpu":
@@ -294,7 +309,8 @@ def bm_fold_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
     out_c = torch.empty((rows,), dtype=torch.int32, device=dev)
     out_w = torch.empty((rows,), dtype=torch.float32, device=dev)
     rc = _library().mg_fused_bm_fold(
-        rnd.row_start.data_ptr(), rnd.row_count.data_ptr(),
+        rnd.row_start.data_ptr(), rnd.row_start.element_size(),
+        rnd.row_count.data_ptr(),
         init_labels.data_ptr(), entry_labels.data_ptr(),
         entry_weights.data_ptr(), out_c.data_ptr(), out_w.data_ptr(), rows,
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
@@ -312,7 +328,7 @@ def rescan_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
     vertex's) candidate labels, -1 empties. Returns [n_steps*tile_r, k]
     float32 partial linking weights in fused row order.
     """
-    dev = _check_inputs(rnd, entry_labels, entry_weights, k)
+    dev = _check_inputs(rnd, entry_labels, entry_weights, k, FUSED_STARTS)
     rows = rnd.row_start.numel()
     _check_row_tensor(cand_rows, "cand_rows", (rows, k), dev)
     if dev.type == "cpu":
@@ -320,7 +336,8 @@ def rescan_round_fused(rnd: FusedRound, entry_labels: torch.Tensor,
                                   cand_rows, chunk=chunk)
     out = torch.empty((rows, k), dtype=torch.float32, device=dev)
     rc = _library().mg_fused_rescan(
-        rnd.row_start.data_ptr(), rnd.row_count.data_ptr(),
+        rnd.row_start.data_ptr(), rnd.row_start.element_size(),
+        rnd.row_count.data_ptr(),
         cand_rows.data_ptr(), entry_labels.data_ptr(),
         entry_weights.data_ptr(), out.data_ptr(), rows, k, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)

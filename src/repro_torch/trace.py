@@ -15,7 +15,8 @@ the device to finish the work queued before it. It counts one read under
 the read in the span ``lpa.read.<site>``.
 
 A :class:`Detection` gives the reads one detection made; :data:`DETECTIONS`
-sums them, and the iterations, over the process.
+sums them, and the iterations, over the process. :data:`PLAN_BYTES` holds
+the bytes of each plan the newest plan bundle holds, by kind.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from typing import Callable, Union
 
 import torch
 
-__all__ = ["PREFIX", "HOST_READS", "DETECTIONS", "span", "host_read",
-           "reset_host_reads", "Detection"]
+__all__ = ["PREFIX", "HOST_READS", "DETECTIONS", "PLAN_BYTES", "span",
+           "host_read", "reset_host_reads", "Detection"]
 
 #: the prefix of every program span's name
 PREFIX = "lpa."
@@ -36,6 +37,11 @@ HOST_READS: dict = {}
 #: the iterations and host reads of the process's detections that ended
 #: (a benchmark reads their ratio)
 DETECTIONS = {"iterations": 0, "host_reads": 0}
+
+#: the bytes of the tensors of each plan that the newest plan bundle
+#: (``core.plan_bundle.build_plan_bundle`` on a graph) holds, by kind:
+#: "bucketed", "fused" or "stream" (a benchmark reads their sum)
+PLAN_BYTES: dict = {}
 
 _NULL = contextlib.nullcontext()
 

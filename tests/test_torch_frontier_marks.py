@@ -105,7 +105,11 @@ def test_wrapper_checks_its_inputs():
         frontier.frontier_marks(changed.to(torch.uint8), g.offsets,
                                 g.indices)
     with pytest.raises(TypeError):
-        frontier.frontier_marks(changed, g.offsets.long(), g.indices)
+        frontier.frontier_marks(changed, g.offsets.to(torch.int16), g.indices)
+    # int64 offsets (a graph past 2**31 - 1 slots) are the other width
+    assert torch.equal(frontier.frontier_marks(changed, g.offsets.long(),
+                                               g.indices),
+                       frontier.frontier_marks(changed, g.offsets, g.indices))
     with pytest.raises(ValueError):
         frontier.frontier_marks(changed[:-1], g.offsets, g.indices)
     with pytest.raises(ValueError):

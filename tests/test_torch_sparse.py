@@ -313,7 +313,11 @@ def test_request_dispatch_table_is_golden():
     ws_f = build_workspace(g, LPAConfig(**_config("pallas_fused")))
     ws_s = build_workspace(g, LPAConfig(**_config("pallas_stream")))
     frontier = torch.ones(g.n_nodes, dtype=torch.bool)
-    plans = {"jnp": (ws_f.plan, None), "pallas": (ws_f.plan, None),
+    # fused and streamed bundles hold no bucketed plan: the bucketed
+    # engines' rows read the one a jnp workspace builds
+    plan = build_workspace(g, LPAConfig(**_config("jnp"))).plan
+    assert ws_f.plan is None and ws_s.plan is None
+    plans = {"jnp": (plan, None), "pallas": (plan, None),
              "pallas_fused": (ws_f.plan, ws_f.fused_plan),
              "pallas_stream": (ws_s.plan, ws_s.stream_plan)}
     r_fused = tcsr.fused_dispatches(ws_f.fused_plan)
@@ -321,9 +325,9 @@ def test_request_dispatch_table_is_golden():
     golden = {
         ("jnp", "mg", False): 0, ("jnp", "bm", False): 0,
         ("jnp", "mg", True): 0,
-        ("pallas", "mg", False): tcsr.plan_dispatches(ws_f.plan),
-        ("pallas", "bm", False): tcsr.plan_round0_dispatches(ws_f.plan),
-        ("pallas", "mg", True): tcsr.plan_dispatches(ws_f.plan),
+        ("pallas", "mg", False): tcsr.plan_dispatches(plan),
+        ("pallas", "bm", False): tcsr.plan_round0_dispatches(plan),
+        ("pallas", "mg", True): tcsr.plan_dispatches(plan),
         ("pallas_fused", "mg", False): r_fused,
         ("pallas_fused", "bm", False): 1,
         ("pallas_fused", "mg", True): r_fused + 1,

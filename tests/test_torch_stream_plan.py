@@ -130,7 +130,12 @@ def test_bundle_matches_reference(case, aligned):
     tb = t_build_bundle(carry_graph(g), TSpec(**kw))
     assert tb.spec.backend == jb.spec.backend
     assert tb.spec == TSpec(**dict(kw, backend=jb.spec.backend))
-    assert_same(jb.plan, tb.plan, "plan")
+    # the port builds the bucketed plan only for the engines that read it:
+    # on the others it is held to the reference's through build_fold_plan
+    bucketed = tb.spec.backend in ("jnp", "pallas")
+    assert (tb.plan is not None) == bucketed
+    assert_same(jb.plan, tb.plan if bucketed else tcsr.build_fold_plan(
+        np.asarray(g.degrees), k=K, chunk=CHUNK, device=CPU), "plan")
     assert_same(jb.fused_plan, tb.fused_plan, "fused_plan")
     assert_same(jb.stream_plan, tb.stream_plan, "stream_plan")
     streams = jb.spec.backend == "pallas_stream"
